@@ -1,0 +1,176 @@
+// Device field library over base-2^16 limbs, one field element per thread.
+//
+// Ports the limb arithmetic of the JAX package's ops/limb_emit.py step for
+// step: cond_sub, the interleaved Montgomery CIOS product (emit_mul), the
+// non-interleaved Montgomery reduction of a column set (mont_reduce_rows,
+// used by the fused dot ops and the trailing REDC), and the modular add and
+// subtract.  Each limb is a uint32 holding 16 bits, so every 16x16-bit
+// product is exact in 32 bits and column sums stay far below 2^32; the
+// results are therefore bit-identical to the JAX kernels by construction,
+// including the single conditional subtract that the lazy dot reduction
+// relies on.  (32-bit limbs with mul.wide products would halve the work; that
+// is a later change.)
+//
+// L is a template parameter (4: goldilocks, 16: bn128 and the other 256-bit
+// primes, 24: room for wider primes), so every loop unrolls and the limb
+// arrays live in registers.
+#pragma once
+
+#include <cstdint>
+
+namespace ctpu {
+
+constexpr uint32_t MASK = 0xFFFFu;
+constexpr int LIMB_BITS = 16;
+
+// Field constants, passed by value as a kernel parameter (constant bank).
+struct FieldConsts {
+  uint32_t p[24];
+  uint32_t r2[24];
+  uint32_t n0inv;
+};
+
+// Canonicalize a value given as L limbs plus a top word: subtract p once
+// when (top, limbs) >= p.  `top` is signed: the subtract's carry may be -1.
+template <int L>
+__device__ __forceinline__ void cond_sub(uint32_t (&limbs)[L], int32_t top,
+                                         const FieldConsts& fc) {
+  uint32_t subbed[L];
+  int32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    int32_t v = (int32_t)limbs[i] - (int32_t)fc.p[i] - borrow;
+    subbed[i] = (uint32_t)(v & (int32_t)MASK);
+    borrow = -(v >> LIMB_BITS);  // arithmetic shift: 0 or 1
+  }
+  const bool take = (top - borrow) >= 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) limbs[i] = take ? subbed[i] : limbs[i];
+}
+
+// Interleaved Montgomery CIOS: out = a*b*R^-1 mod p (limb_emit.emit_mul).
+template <int L>
+__device__ __forceinline__ void mont_mul(const uint32_t (&a)[L],
+                                         const uint32_t (&b)[L],
+                                         uint32_t (&out)[L],
+                                         const FieldConsts& fc) {
+  uint32_t cols[L + 2];
+#pragma unroll
+  for (int k = 0; k < L + 2; ++k) cols[k] = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint32_t ai = a[i];
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const uint32_t prod = ai * b[j];  // exact: both < 2^16
+      cols[j] += prod & MASK;
+      cols[j + 1] += prod >> LIMB_BITS;
+    }
+    // one reduction step: clear cols[0], shift down
+    const uint32_t t = cols[0];
+    const uint32_t m = (t * fc.n0inv) & MASK;
+    const uint32_t prod0 = m * fc.p[0];
+    const uint32_t carry0 = (t + (prod0 & MASK)) >> LIMB_BITS;
+#pragma unroll
+    for (int k = 0; k < L + 1; ++k) cols[k] = cols[k + 1];
+    cols[L + 1] = 0;
+    cols[0] += carry0 + (prod0 >> LIMB_BITS);
+#pragma unroll
+    for (int j = 1; j < L; ++j) {
+      const uint32_t pr = m * fc.p[j];
+      cols[j - 1] += pr & MASK;
+      cols[j] += pr >> LIMB_BITS;
+    }
+  }
+  uint32_t carry = 0, top = 0;
+#pragma unroll
+  for (int k = 0; k < L + 1; ++k) {
+    const uint32_t t = cols[k] + carry;
+    if (k < L) out[k] = t & MASK; else top = t & MASK;
+    carry = t >> LIMB_BITS;
+  }
+  cond_sub<L>(out, (int32_t)top, fc);
+}
+
+// Montgomery reduction of 2L+1 column words (each < ~2^24), the lazy
+// reduction of the fused dots and the trailing REDC
+// (limb_emit.mont_reduce_rows).  `cols` is consumed.
+template <int L>
+__device__ __forceinline__ void mont_reduce_cols(uint32_t (&cols)[2 * L + 1],
+                                                 uint32_t (&out)[L],
+                                                 const FieldConsts& fc) {
+  uint32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint32_t t = cols[i] + carry;
+    const uint32_t m = (t * fc.n0inv) & MASK;
+    const uint32_t prod0 = m * fc.p[0];
+    carry = (t + (prod0 & MASK)) >> LIMB_BITS;
+    cols[i + 1] += prod0 >> LIMB_BITS;
+#pragma unroll
+    for (int j = 1; j < L; ++j) {
+      const uint32_t pr = m * fc.p[j];
+      cols[i + j] += pr & MASK;
+      cols[i + j + 1] += pr >> LIMB_BITS;
+    }
+  }
+  uint32_t top = 0;
+#pragma unroll
+  for (int k = L; k < 2 * L + 1; ++k) {
+    const uint32_t t = cols[k] + carry;
+    if (k < 2 * L) out[k - L] = t & MASK; else top = t & MASK;
+    carry = t >> LIMB_BITS;
+  }
+  cond_sub<L>(out, (int32_t)top, fc);
+}
+
+// Accumulate the schoolbook columns of x*c into cols (split 16-bit halves,
+// as limb_emit's dot does).
+template <int L>
+__device__ __forceinline__ void mac_cols(uint32_t (&cols)[2 * L + 1],
+                                         const uint32_t (&x)[L],
+                                         const uint32_t (&c)[L]) {
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const uint32_t prod = x[i] * c[j];
+      cols[i + j] += prod & MASK;
+      cols[i + j + 1] += prod >> LIMB_BITS;
+    }
+  }
+}
+
+// (a + b) mod p for canonical a, b (limb_emit "add").
+template <int L>
+__device__ __forceinline__ void mod_add(const uint32_t (&a)[L],
+                                        const uint32_t (&b)[L],
+                                        uint32_t (&out)[L],
+                                        const FieldConsts& fc) {
+  uint32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint32_t t = a[i] + b[i] + carry;
+    out[i] = t & MASK;
+    carry = t >> LIMB_BITS;
+  }
+  cond_sub<L>(out, (int32_t)carry, fc);
+}
+
+// (a - b) mod p: a + p - b with a signed carry chain (limb_emit "sub").
+template <int L>
+__device__ __forceinline__ void mod_sub(const uint32_t (&a)[L],
+                                        const uint32_t (&b)[L],
+                                        uint32_t (&out)[L],
+                                        const FieldConsts& fc) {
+  int32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const int32_t v = (int32_t)(a[i] + fc.p[i]) - (int32_t)b[i] + carry;
+    out[i] = (uint32_t)(v & (int32_t)MASK);
+    carry = v >> LIMB_BITS;
+  }
+  cond_sub<L>(out, carry, fc);
+}
+
+}  // namespace ctpu

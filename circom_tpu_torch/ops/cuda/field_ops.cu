@@ -1,0 +1,108 @@
+// Elementwise field kernels over (N, L, B) uint32 limb planes.
+//
+// K5 replaces the Pallas kernel of ops/pallas_field.py make_mont_mul (the
+// CIOS product a*b*R^-1 mod p) and K6 replaces make_add / make_sub (with
+// _cond_sub_store).  The R1CS checker uses them: mont_mul for the
+// coefficient products and the Montgomery conversions, sub for Az*Bz - Cz.
+//
+// One thread per (n, b) element keeps the L limbs of each operand in
+// registers; neighbouring threads take neighbouring b, so each limb row is
+// read and written as one coalesced line per warp.  Operands may broadcast
+// (a stride of 0 in n or b), which lets the checker multiply (nnz, L, B)
+// gathered wires by (nnz, L, 1) coefficients without materialising them.
+//
+// Bound on the card: mont_mul does 2L^2 32-bit multiplies per element
+// against 3L words of traffic, so at L = 16 it is bound by the integer
+// multiply rate; add and sub move 3L words for O(L) work and are bound by
+// device-memory bandwidth.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "field.cuh"
+
+namespace ctpu {
+
+enum ElemOp { OP_MONT_MUL = 0, OP_ADD = 1, OP_SUB = 2 };
+
+struct Strides {
+  long long n, l, b;
+};
+
+template <int L, int OP>
+__global__ void elementwise_kernel(const uint32_t* __restrict__ a, Strides sa,
+                                   const uint32_t* __restrict__ b, Strides sb,
+                                   uint32_t* __restrict__ out, long long N,
+                                   long long B, FieldConsts fc) {
+  const long long total = N * B;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    const long long n = e / B;
+    const long long lane = e - n * B;
+    uint32_t x[L], y[L], r[L];
+    const uint32_t* pa = a + n * sa.n + lane * sa.b;
+    const uint32_t* pb = b + n * sb.n + lane * sb.b;
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      x[i] = pa[i * sa.l];
+      y[i] = pb[i * sb.l];
+    }
+    if (OP == OP_MONT_MUL) {
+      mont_mul<L>(x, y, r, fc);
+    } else if (OP == OP_ADD) {
+      mod_add<L>(x, y, r, fc);
+    } else {
+      mod_sub<L>(x, y, r, fc);
+    }
+    uint32_t* po = out + n * L * B + lane;
+#pragma unroll
+    for (int i = 0; i < L; ++i) po[i * B] = r[i];
+  }
+}
+
+template <int L>
+void launch(int op, const uint32_t* a, Strides sa, const uint32_t* b,
+            Strides sb, uint32_t* out, long long N, long long B,
+            const FieldConsts& fc, cudaStream_t stream) {
+  const int threads = 128;
+  long long blocks = (N * B + threads - 1) / threads;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond this
+  if (blocks < 1) blocks = 1;
+  if (op == OP_MONT_MUL) {
+    elementwise_kernel<L, OP_MONT_MUL>
+        <<<(unsigned)blocks, threads, 0, stream>>>(a, sa, b, sb, out, N, B, fc);
+  } else if (op == OP_ADD) {
+    elementwise_kernel<L, OP_ADD>
+        <<<(unsigned)blocks, threads, 0, stream>>>(a, sa, b, sb, out, N, B, fc);
+  } else {
+    elementwise_kernel<L, OP_SUB>
+        <<<(unsigned)blocks, threads, 0, stream>>>(a, sa, b, sb, out, N, B, fc);
+  }
+}
+
+}  // namespace ctpu
+
+// op: 0 mont_mul, 1 add, 2 sub.  a_strides / b_strides: (n, l, b) in
+// elements.  p_limbs: L host words; n0inv: -p^-1 mod 2^16.  Returns the
+// launch's cudaError_t (0 on success).
+extern "C" int ctpu_field_elementwise(int op, int L, const uint32_t* a,
+                                      const long long* a_strides,
+                                      const uint32_t* b,
+                                      const long long* b_strides,
+                                      uint32_t* out, long long N, long long B,
+                                      const uint32_t* p_limbs, uint32_t n0inv,
+                                      void* stream) {
+  ctpu::FieldConsts fc = {};
+  for (int i = 0; i < L && i < 24; ++i) fc.p[i] = p_limbs[i];
+  fc.n0inv = n0inv;
+  const ctpu::Strides sa = {a_strides[0], a_strides[1], a_strides[2]};
+  const ctpu::Strides sb = {b_strides[0], b_strides[1], b_strides[2]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (L) {
+    case 4: ctpu::launch<4>(op, a, sa, b, sb, out, N, B, fc, s); break;
+    case 16: ctpu::launch<16>(op, a, sa, b, sb, out, N, B, fc, s); break;
+    case 24: ctpu::launch<24>(op, a, sa, b, sb, out, N, B, fc, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

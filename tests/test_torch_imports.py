@@ -1,0 +1,50 @@
+"""The port stands alone: no JAX and nothing of circom_tpu, anywhere in it.
+
+An AST walk over every module of circom_tpu_torch/ and chip_smoke.py finds
+no import of `jax` or of `circom_tpu`; a fresh interpreter that imports
+the port's modules has no `jax` in sys.modules.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "circom_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "circom_tpu")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(f.relative_to(ROOT)) for f in FILES])
+def test_no_forbidden_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys\n"
+            "import circom_tpu_torch\n"
+            "import circom_tpu_torch.witness\n"
+            "import circom_tpu_torch.backend.torch_backend\n"
+            "import circom_tpu_torch.backend.checker\n"
+            "import circom_tpu_torch.ops.build\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'circom_tpu'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
