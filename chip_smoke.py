@@ -1,10 +1,17 @@
 """Smoke test of the PyTorch/CUDA port on one card.
 
 Builds the kernels from the sources in the checkout, holds every kernel
-against its plain PyTorch version at the shapes of the main path, drives
-the main path (Poseidon2 over bn128, batch 65,536: witness program, R1CS
-check) with the launch counts read around it, and runs the witness entry
-point on a saved artifact.  Any mismatch exits non-zero.
+against its plain PyTorch version at the shapes of the main paths, drives
+the main paths with the launch counts set to 0 just before each and read
+just after, and runs the witness entry point on saved artifacts.  Any
+mismatch exits non-zero.  The paths:
+
+- Poseidon2 over bn128, batch 65,536: WitnessProgram.run, then the R1CS
+  check of every lane (kernels K1a, K2, K5, K6);
+- SHA256 over bn128, batch 65,536: WitnessProgram.run_mixed, the mixed
+  witness (K1b, K3), every lane's digest against hashlib;
+- SHA256 over bn128, batch 8,192: the full-limb run and the R1CS check of
+  every lane (K1b, K3, K5, K6).
 
     python3 chip_smoke.py            # needs a CUDA card
     python3 chip_smoke.py --rehearse # CPU, small batch, plain versions only;
@@ -32,18 +39,22 @@ try:
 
     from circom_tpu_torch.backend.artifacts import save_program
     from circom_tpu_torch.backend.checker import R1CSChecker
-    from circom_tpu_torch.backend.interp import gather_w, interp_k1a
-    from circom_tpu_torch.backend.interp_ref import gather_rows, run_plan
+    from circom_tpu_torch.backend.interp import gather_n, gather_w, interp_k1
+    from circom_tpu_torch.backend.interp_ref import (gather_n_rows,
+                                                     gather_rows, run_plan)
     from circom_tpu_torch.backend.torch_backend import WitnessProgram
+    from circom_tpu_torch.circuits import sha256_io
     from circom_tpu_torch.circuits.gen_poseidon import generate
     from circom_tpu_torch.compiler.pipeline import compile_source
-    from circom_tpu_torch.convert import to_device
+    from circom_tpu_torch.convert import (K1B_OPCODES, narrow_unit_arrays,
+                                          plan_from_arrays, to_device)
     from circom_tpu_torch.emit.binfmt import write_wtns
     from circom_tpu_torch.field.primes import field_spec
     from circom_tpu_torch.ops import build
     from circom_tpu_torch.ops import field_kernels as fk
     from circom_tpu_torch.ops.field import TorchField, as_i64
     from circom_tpu_torch.ops.limbs import limbs_to_int
+    from circom_tpu_torch.ops.narrow import NARROW_OPS
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e})",
           file=sys.stderr)
@@ -56,8 +67,12 @@ HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12
 
 BATCH = 65536
-CHECK_LANES = 8192     # R1CSChecker's batch slice
+SHA_FULL_BATCH = 8192   # the full-limb SHA256 witness: 14.3 GB at 8,192
+SHA_PLAIN_BATCH = 4096  # K1b and K3 against the plain versions, all rows
+CHECK_LANES = 8192      # R1CSChecker's cap on its batch slice
 SAMPLE_LANES = 64
+SHA_HOST_LANES = 4      # the host calculator takes ~4 s a SHA256 lane
+EDGE_COUNTS = (0, 1, 31, 32, 33, -1)
 SEED = 7
 
 
@@ -88,15 +103,30 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def wall_ms(fn):
+    """ms of one fn() by the host clock, synchronised on both sides."""
+    sync()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t) * 1e3
+
+
 def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / LANE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_abs_err(x, y):
-    d = (as_i64(x) - as_i64(y)).abs()
-    return int(d.max()) if d.numel() else 0
+def max_abs_err(x, y, rows=1024):
+    """Largest |x - y| over integer tensors, taken in slices of `rows`
+    rows so that the int64 copies stay small."""
+    err = 0
+    for s in range(0, x.shape[0], rows):
+        d = (as_i64(x[s:s + rows]) - as_i64(y[s:s + rows])).abs()
+        if d.numel():
+            err = max(err, int(d.max()))
+    return err
 
 
 def canonical_limbs(rng, spec, shape, device):
@@ -110,12 +140,18 @@ def canonical_limbs(rng, spec, shape, device):
     return to_device(x, device)
 
 
+def random_int32(rng, shape, device):
+    v = rng.integers(-2 ** 31, 2 ** 31, size=shape)
+    v.reshape(-1)[:4] = (-2 ** 31, -1, 0, 2 ** 31 - 1)
+    return to_device(v.astype(np.int32), device)
+
+
 class Report:
     def __init__(self):
         self.rows = {}
 
     def add(self, name, source, replaces, err, ms, plain_ms, nbytes, ops,
-            library_ms=None):
+            library_ms=None, on_path=True, **extra):
         if err != 0:
             raise SystemExit(f"FAIL {name}: kernel differs from its plain "
                              f"version (max abs err {err})")
@@ -124,10 +160,35 @@ class Report:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "bound_by": b_by, "library_ms": library_ms, "on_path": on_path,
+            **extra}
         say(f"  {name}: bit-exact; {ms:.4f} ms (plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms by {b_by}"
             + (f", library {library_ms:.4f} ms" if library_ms else "") + ")")
+
+
+class Paths:
+    """Launch counts of each main path, read around exactly its run."""
+
+    def __init__(self, rehearse):
+        self.rehearse = rehearse
+        self.counts = {}
+
+    def run(self, name, fn, must_launch):
+        sync()
+        build.reset_launches()
+        out = fn()
+        sync()
+        self.counts[name] = dict(build.LAUNCHES)
+        say(f"  launches on the {name} path: {self.counts[name]}")
+        for k in must_launch:
+            if not self.rehearse and self.counts[name].get(k, 0) == 0:
+                raise SystemExit(f"FAIL: {k} was not launched on the {name} "
+                                 "path")
+        return out
+
+    def of(self, kernel):
+        return {p: c.get(kernel, 0) for p, c in self.counts.items()}
 
 
 def phase_field(rep, dev, nnz, n_rows, lanes):
@@ -160,11 +221,12 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
                 time_ms(lambda: f.mont_mul(a, c), reps=2),
                 4 * (2 * e_mm * L + nnz * L), 2 * L * L * e_mm)
         for name in ("add", "sub"):
+            # the checker subtracts and never adds: add is on no main path
             rep.add(name, "circom_tpu_torch/ops/cuda/field_ops.cu",
                     "circom_tpu/ops/pallas_field.py:140", err[name],
                     time_ms(lambda: getattr(fk, name)(f, x, y)),
                     time_ms(lambda: getattr(f, name)(x, y), reps=2),
-                    4 * 3 * e_xy * L, 0)
+                    4 * 3 * e_xy * L, 0, on_path=name == "sub")
 
 
 def phase_gather(rep, plan, B, dev):
@@ -173,7 +235,7 @@ def phase_gather(rep, plan, B, dev):
     L = plan.L
     bank = to_device(rng.integers(0, 1 << 16, size=(plan.n_bank_rows, L, B),
                                   dtype=np.uint32), dev)
-    idx = plan.dev["wit_rows"]
+    idx = plan.dev["wd_src"]
     got = gather_w(bank, idx)
     err = max_abs_err(got, gather_rows(bank, idx))
     W = idx.shape[0]
@@ -192,7 +254,7 @@ def k1a_ops(plan):
     terms (n+1)L^2, a trailing REDC L^2."""
     L2 = plan.L * plan.L
     per_op = {0: 0, 1: 2 * L2, 2: 2 * L2, 3: 0, 4: 3 * L2, 5: 4 * L2}
-    ops = sum(per_op[int(o)] for o in plan.table[:, 0])
+    ops = sum(per_op.get(int(o), 0) for o in plan.table[:plan.n_steps, 0])
     return ops + int(plan.mont_tab.sum()) * L2
 
 
@@ -201,11 +263,10 @@ def phase_interp(rep, prog, x_w):
     rows compared bit for bit after the trailing REDC."""
     plan, f = prog.interp.plan, prog.field
     B = x_w.shape[-1]
-    got = interp_k1a(plan, f, x_w)
-    t = time.perf_counter()
-    want = run_plan(plan, f, as_i64(x_w))
-    sync()
-    plain_ms = (time.perf_counter() - t) * 1e3
+    x_n = torch.zeros((0, B), dtype=torch.int32, device=x_w.device)
+    got, _ = interp_k1(plan, f, x_w, x_n)
+    (want, _), plain_ms = wall_ms(
+        lambda: run_plan(plan, f, as_i64(x_w), as_i64(x_n)))
     rows = torch.as_tensor(plan.written_rows(), device=x_w.device)
     err = max_abs_err(got.view(torch.int32).index_select(0, rows)
                       .view(torch.uint32), want.index_select(0, rows))
@@ -213,12 +274,12 @@ def phase_interp(rep, prog, x_w):
     nbytes = 4 * plan.L * B * (x_w.shape[0] + len(rows))
     rep.add("interp_k1a", "circom_tpu_torch/ops/cuda/interp.cu",
             "circom_tpu/backend/interp.py:2462", err,
-            time_ms(lambda: interp_k1a(plan, f, x_w), reps=3), plain_ms,
-            nbytes, k1a_ops(plan) * B)
+            time_ms(lambda: interp_k1(plan, f, x_w, x_n), reps=3), plain_ms,
+            nbytes, k1a_ops(plan) * B, plan="Poseidon2/bn128")
     return got
 
 
-def main_path(cc, spec, dev, B):
+def poseidon2_path(paths, cc, spec, dev, B):
     """Poseidon2/bn128 witnesses at batch B, then the R1CS check of every
     lane; launch counts are read around exactly this."""
     prog = WitnessProgram(cc.build_tape()[0], spec, device=dev)
@@ -226,29 +287,25 @@ def main_path(cc, spec, dev, B):
     inputs = canonical_limbs(rng, spec, (prog.n_inputs, spec.n_limbs, B), dev)
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
                           device=dev, lanes=CHECK_LANES)
-    launches = None
-    for _ in range(2):
-        # the first run is the one counted; the second, warm, is timed
-        sync()
-        if launches is None:
-            build.reset_launches()
-        t0 = time.perf_counter()
-        wit = prog.run(inputs)
-        sync()
-        t1 = time.perf_counter()
-        ok, first_bad = checker.check_detailed(wit)
-        sync()
-        t2 = time.perf_counter()
-        if launches is None:
-            launches = dict(build.LAUNCHES)
+
+    def run_and_check():
+        wit, run_ms = wall_ms(lambda: prog.run(inputs))
+        (ok, first_bad), check_ms = wall_ms(
+            lambda: checker.check_detailed(wit))
         n_bad = int((~ok).sum())
         if n_bad:
             raise SystemExit(f"FAIL R1CS check: {n_bad} of {B} lanes violate "
                              f"a constraint (first: "
                              f"{first_bad[~ok][:5].tolist()})")
-    say(f"  witnesses: {tuple(wit.shape)} in {(t1 - t0) * 1e3:.1f} ms "
-        f"({B / (t1 - t0):.0f} witnesses/s); R1CS check of all {B} lanes "
-        f"in {(t2 - t1) * 1e3:.1f} ms")
+        return wit, run_ms, check_ms
+
+    # the first run is the one counted; the second, warm, is timed
+    paths.run("poseidon2", run_and_check,
+              ("interp_k1a", "gather_w", "mont_mul", "sub"))
+    wit, run_ms, check_ms = run_and_check()
+    say(f"  witnesses: {tuple(wit.shape)} in {run_ms:.1f} ms "
+        f"({B / run_ms * 1e3:.0f} witnesses/s); R1CS check of all {B} "
+        f"lanes in {check_ms:.1f} ms")
     # 64 sampled lanes against the host calculator
     lanes = random.Random(SEED).sample(range(B), min(SAMPLE_LANES, B))
     sel = torch.as_tensor(lanes, device=wit.device)
@@ -264,42 +321,229 @@ def main_path(cc, spec, dev, B):
             raise SystemExit(f"FAIL lane {lane}: witness differs from the "
                              "host calculator")
     say(f"  {len(lanes)} sampled lanes equal the host calculator")
-    return prog, inputs, launches, {"run_ms": (t1 - t0) * 1e3,
-                                    "check_ms": (t2 - t1) * 1e3}
+    return prog, inputs, {"run_ms": run_ms, "check_ms": check_ms}
 
 
-def phase_entry_point(cc, device):
-    """python -m circom_tpu_torch.witness on a saved artifact, 4 inputs;
-    the .wtns bytes must equal write_wtns of the host witness."""
+def phase_entry_point(cc, device, name, batch):
+    """python -m circom_tpu_torch.witness on a saved artifact; the .wtns
+    bytes must equal write_wtns of the host witness."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        _entry_point_in(cc, device, tmp)
-    say("  entry point: 4 .wtns files equal the host calculator's")
+        art = os.path.join(tmp, f"{name}.tpu.json")
+        save_program(cc, art)
+        inp = os.path.join(tmp, "inputs.json")
+        with open(inp, "w") as fh:
+            json.dump(batch, fh)
+        out = os.path.join(tmp, "out")
+        r = subprocess.run([sys.executable, "-m", "circom_tpu_torch.witness",
+                            art, inp, "-o", out, "--device", device],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise SystemExit(f"FAIL entry point on {name} (exit "
+                             f"{r.returncode}):\n{r.stdout}\n{r.stderr}")
+        for bi, raw in enumerate(batch):
+            ref = os.path.join(tmp, f"ref.{bi}.wtns")
+            write_wtns(ref, cc.p, list(cc.witness_host(raw)))
+            with open(ref, "rb") as a, \
+                    open(os.path.join(out, f"{name}.{bi}.wtns"), "rb") as b:
+                if a.read() != b.read():
+                    raise SystemExit(f"FAIL entry point on {name}: witness "
+                                     f"{bi} .wtns differs from the host "
+                                     "calculator's")
+    say(f"  entry point: {len(batch)} {name} .wtns files equal the host "
+        "calculator's")
 
 
-def _entry_point_in(cc, device, tmp):
-    art = os.path.join(tmp, "pos.tpu.json")
-    save_program(cc, art)
-    rng = random.Random(SEED + 3)
-    batch = [{"inputs": [rng.randrange(cc.p), rng.randrange(cc.p)]}
-             for _ in range(4)]
-    inp = os.path.join(tmp, "inputs.json")
-    with open(inp, "w") as fh:
-        json.dump(batch, fh)
-    out = os.path.join(tmp, "out")
-    r = subprocess.run([sys.executable, "-m", "circom_tpu_torch.witness", art,
-                        inp, "-o", out, "--device", device], cwd=ROOT,
-                       capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise SystemExit(f"FAIL entry point (exit {r.returncode}):\n"
-                         f"{r.stdout}\n{r.stderr}")
-    for bi, raw in enumerate(batch):
-        ref = os.path.join(tmp, f"ref.{bi}.wtns")
-        write_wtns(ref, cc.p, list(cc.witness_host(raw)))
-        with open(ref, "rb") as a, open(os.path.join(out, f"pos.{bi}.wtns"),
-                                        "rb") as b:
-            if a.read() != b.read():
-                raise SystemExit(f"FAIL entry point: witness {bi} .wtns "
-                                 "differs from the host calculator's")
+def phase_narrow_units(dev, B):
+    """Phase A: every K1b opcode at the edge shift counts (a unit plan,
+    one step each) and K3 on random int32 values, against ops/narrow.py
+    and the plain gather, bit for bit."""
+    rng = np.random.default_rng(SEED + 4)
+    arrays, cases = narrow_unit_arrays(16, EDGE_COUNTS)
+    plan = plan_from_arrays(arrays, dev)
+    f = TorchField(field_spec("bn128"), dev)
+    x_n = random_int32(rng, (2, B), dev)
+    x_w = torch.zeros((0, 16, B), dtype=torch.uint32, device=dev)
+    _, got = interp_k1(plan, f, x_w, x_n)
+    a, b = as_i64(x_n)
+    for t, (op, s) in enumerate(cases):
+        want = NARROW_OPS[op](a, b, s)
+        if not torch.equal(got[t].long(), want):
+            raise SystemExit(f"FAIL K1b {op} by {s}: differs from "
+                             "ops/narrow.py")
+    say(f"  K1b: {len(K1B_OPCODES)} opcodes x shift counts {EDGE_COUNTS} "
+        f"at batch {B} bit-exact")
+    for b_ in (B, B + 3):   # vector and scalar paths of K3
+        bank_n = random_int32(rng, (300, b_), dev)
+        xs = random_int32(rng, (40, b_), dev)
+        src = to_device(rng.integers(0, 340, size=2000).astype(np.int32), dev)
+        shift = to_device(np.resize(np.asarray(EDGE_COUNTS, np.int32), 2000),
+                          dev)
+        if not torch.equal(gather_n(bank_n, xs, src, shift),
+                           gather_n_rows(bank_n, xs, src, shift)):
+            raise SystemExit(f"FAIL K3 at batch {b_}: differs from the "
+                             "plain gather")
+    say(f"  K3: 2,000 rows from bank and inputs, shifts {EDGE_COUNTS}, "
+        f"batch {B} and {B + 3} bit-exact")
+
+
+def sha256_messages(B, seed):
+    rng = np.random.default_rng(seed)
+    return [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
+                                           dtype=np.uint8)]
+
+
+def profile_breakdown(fn, wall):
+    """Where one warm run's time goes: device time by kernel from
+    torch.profiler, and the device's idle share of the run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ms = wall_ms(fn)
+    # kernels only: an aten op carries its kernels' device time as well
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: -e.self_device_time_total)
+    say(f"  profile of one warm run ({ms:.1f} ms under the profiler, "
+        f"{wall:.1f} ms without): device busy {busy:.2f} ms, idle share "
+        f"{max(0.0, 1 - busy / ms):.3f}")
+    for e in events[:8]:
+        say(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<3d} "
+            f"{e.key[:90]}")
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    say("  host time by op: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}"
+        for e in host[:6]))
+
+
+def sha256_path(paths, cc, prog, dev, B):
+    """Phase B: SHA256/bn128 mixed witnesses at batch B through
+    run_mixed; every lane's digest against hashlib, sampled lanes against
+    the host calculator."""
+    msgs = sha256_messages(B, SEED + 5)
+    x = to_device(sha256_io.input_rows(msgs), dev)
+    want = to_device(sha256_io.digest_bits_batch(msgs), dev)
+    layout = prog.mixed_layout()
+    (narrow, _wide), first_ms = wall_ms(lambda: paths.run(
+        "sha256_mixed", lambda: prog.run_mixed(x),
+        ("interp_k1b", "gather_n")))
+    got = sha256_io.digest_bits_from_witness(narrow, layout)
+    n_bad = int((got != want).any(dim=0).sum())
+    if n_bad:
+        raise SystemExit(f"FAIL SHA256: {n_bad} of {B} digests differ from "
+                         "hashlib's")
+    say(f"  all {B} digests equal hashlib's (first run {first_ms:.1f} ms)")
+    del got
+    _, run_ms = wall_ms(lambda: prog.run_mixed(x))
+    say(f"  mixed witnesses: {tuple(narrow.shape)} int32 in {run_ms:.1f} ms "
+        f"({B / run_ms * 1e3:.0f} mixed witnesses/s, warm)")
+    if dev.type == "cuda":
+        profile_breakdown(lambda: prog.run_mixed(x), run_ms)
+    lanes = random.Random(SEED).sample(range(B), min(SHA_HOST_LANES, B))
+    rows = narrow[:, torch.as_tensor(lanes, device=dev)].cpu().numpy()
+    n_idx = layout[0]
+    bits = sha256_io.msgs_to_bits_batch([msgs[j] for j in lanes])
+    for j, lane in enumerate(lanes):
+        host = list(cc.witness_host({"in": [int(v) for v in bits[:, j]]}))
+        if any(int(rows[r, j]) % cc.p != host[w]
+               for r, w in enumerate(n_idx)):
+            raise SystemExit(f"FAIL SHA256 lane {lane}: witness differs "
+                             "from the host calculator")
+    say(f"  {len(lanes)} sampled lanes equal the host calculator")
+    del narrow
+    return x, run_ms
+
+
+def phase_sha_kernels(rep, prog, x, dev, B_cmp):
+    """Phase C: K1b and K3 against their plain versions on the SHA256
+    plan: every written narrow bank row and every gathered row at batch
+    B_cmp, and the times of both at the main path's batch."""
+    plan, f = prog.interp.plan, prog.field
+    _, x_w, x_n = prog.interp._inputs(x)
+    B = x_n.shape[1]
+    src, shift = plan.dev["nw_src"], plan.dev["nw_shift"]
+    rows_n = torch.as_tensor(plan.written_rows(narrow=True), device=dev)
+    # bit for bit on every written row, at B_cmp lanes
+    xs_w, xs_n = x_w[..., :B_cmp].contiguous(), x_n[:, :B_cmp].contiguous()
+    _, bank_n = interp_k1(plan, f, xs_w, xs_n)
+    _, want_n = run_plan(plan, f, as_i64(xs_w), as_i64(xs_n))
+    err_k1 = max_abs_err(bank_n[rows_n], want_n[rows_n])
+    err_k3 = max_abs_err(gather_n(bank_n, xs_n, src, shift),
+                         gather_n_rows(bank_n, xs_n, src, shift))
+    say(f"  K1b: {len(rows_n)} written narrow bank rows at batch {B_cmp}, "
+        f"max abs err {err_k1}; K3: {len(src)} rows, max abs err {err_k3}")
+    del bank_n, want_n
+    # times at the main path's batch; the plain versions run once
+    _, bank_n = interp_k1(plan, f, x_w, x_n)
+    k1_ms = time_ms(lambda: interp_k1(plan, f, x_w, x_n), reps=3)
+    (_, plain_n), k1_plain_ms = wall_ms(
+        lambda: run_plan(plan, f, as_i64(x_w), as_i64(x_n)))
+    err_full = max_abs_err(bank_n[rows_n], plain_n[rows_n])
+    del plain_n
+    say(f"  K1b at batch {B}: max abs err {err_full} on every written row")
+    n_steps = plan.n_steps
+    rep.add("interp_k1b", "circom_tpu_torch/ops/cuda/interp.cu",
+            "circom_tpu/backend/interp.py:2462", max(err_k1, err_full),
+            k1_ms, k1_plain_ms, 4 * B * (x_n.shape[0] + len(rows_n)),
+            n_steps * B, plan="SHA256/bn128")
+    k3_ms = time_ms(lambda: gather_n(bank_n, x_n, src, shift))
+    got = gather_n(bank_n, x_n, src, shift)
+    want, k3_plain_ms = wall_ms(
+        lambda: gather_n_rows(bank_n, x_n, src, shift))
+    err_full = max_abs_err(got, want)
+    del got, want
+    both = torch.cat([bank_n, x_n])
+    src_l = src.to(torch.int64)
+    sel_ms = time_ms(lambda: both.index_select(0, src_l))
+    n_src = len(set(plan.nw_src.tolist()))
+    W = len(src)
+    say(f"  K3 at batch {B}: max abs err {err_full}; index_select of the "
+        f"same {W} source rows (no unpack) {sel_ms:.4f} ms")
+    rep.add("gather_n", "circom_tpu_torch/ops/cuda/gather.cu",
+            "circom_tpu/backend/interp.py:2681", max(err_k3, err_full),
+            k3_ms, k3_plain_ms, 4 * B * (W + n_src), 0,
+            index_select_ms=sel_ms)
+    return k1_ms, k3_ms
+
+
+def sha256_full_path(paths, cc, prog, spec, dev, B):
+    """Phase D: the full-limb SHA256 witness at batch B and the R1CS check
+    of every lane, the checker's slice sized by its byte budget."""
+    msgs = sha256_messages(B, SEED + 6)
+    x = np.zeros((512, spec.n_limbs, B), np.uint32)
+    x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
+    x = to_device(x, dev)
+    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
+                          device=dev, lanes=CHECK_LANES)
+    say(f"  checker slice: {checker.lanes} lanes (max nnz "
+        f"{max(len(c[0]) for c in checker.coo)})")
+
+    def run_and_check():
+        wit, run_ms = wall_ms(lambda: prog.run(x))
+        (ok, first_bad), check_ms = wall_ms(
+            lambda: checker.check_detailed(wit))
+        n_bad = int((~ok).sum())
+        if n_bad:
+            raise SystemExit(f"FAIL SHA256 R1CS check: {n_bad} of {B} lanes "
+                             f"violate a constraint (first: "
+                             f"{first_bad[~ok][:5].tolist()})")
+        return tuple(wit.shape), run_ms, check_ms
+
+    shape, run_ms, check_ms = paths.run(
+        "sha256_full", run_and_check,
+        ("interp_k1b", "gather_n", "mont_mul", "sub"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev.type == "cuda" else 0.0
+    if dev.type == "cuda":
+        profile_breakdown(lambda: prog.run(x), run_ms)
+    say(f"  full-limb witness {shape} in {run_ms:.1f} ms; R1CS check of all "
+        f"{B} lanes in {check_ms:.1f} ms; peak device memory {peak:.1f} GiB")
+    return run_ms, check_ms
 
 
 def main():
@@ -310,11 +554,13 @@ def main():
     args = ap.parse_args()
     if args.rehearse:
         dev, B, lanes = torch.device("cpu"), 8, 8
+        b_full, b_cmp = 4, 4
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
         dev, B, lanes = torch.device("cuda", 0), BATCH, CHECK_LANES
+        b_full, b_cmp = SHA_FULL_BATCH, SHA_PLAIN_BATCH
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True)
@@ -332,15 +578,10 @@ def main():
     rows = cc.r1cs_rows()
     nnz = max(sum(len(r[m]) for r in rows) for m in range(3))
     rep = Report()
+    paths = Paths(args.rehearse)
 
-    say("phase 1: the main path (Poseidon2/bn128, batch %d)" % B)
-    prog, inputs, launches, times = main_path(cc, spec, dev, B)
-    say(f"  launches on the main path: {launches}")
-    for name in ("interp_k1a", "gather_w", "mont_mul", "sub"):
-        if not args.rehearse and launches.get(name, 0) == 0:
-            raise SystemExit(f"FAIL: {name} was not launched on the main "
-                             "path")
-
+    say("phase 1: the Poseidon2 main path (Poseidon2/bn128, batch %d)" % B)
+    prog, inputs, times = poseidon2_path(paths, cc, spec, dev, B)
     say("phase 2: K5/K6 against TorchField")
     phase_field(rep, dev, nnz, len(rows), lanes)
     say("phase 3: K2 against the plain gather")
@@ -349,22 +590,60 @@ def main():
     order = torch.as_tensor(prog.interp.plan.win_order, device=dev)
     phase_interp(rep, prog, gather_rows(inputs, order))
     del prog, inputs
-    say("phase 5: the witness entry point")
-    phase_entry_point(cc, dev.type)
+    say("phase 5: the witness entry point (Poseidon2)")
+    rng = random.Random(SEED + 3)
+    phase_entry_point(cc, dev.type, "pos",
+                      [{"inputs": [rng.randrange(cc.p), rng.randrange(cc.p)]}
+                       for _ in range(4)])
+
+    say("phase A: K1b opcodes and K3 against ops/narrow.py")
+    phase_narrow_units(dev, B)
+    t0 = time.perf_counter()
+    sha = compile_source(
+        open(os.path.join(ROOT, "circom_tpu_torch/circuits/sha256.circom"))
+        .read() + "\ncomponent main = Sha256Block();\n")
+    t1 = time.perf_counter()
+    sha_prog = WitnessProgram(sha.build_tape()[0], spec, device=dev,
+                              input_ranges=sha.input_range_hints())
+    say(f"SHA256: compiled in {t1 - t0:.1f} s, planned in "
+        f"{time.perf_counter() - t1:.1f} s")
+    say(f"phase B: the SHA256 main path (SHA256/bn128 run_mixed, batch {B})")
+    sha_x, sha_ms = sha256_path(paths, sha, sha_prog, dev, B)
+    say("phase C: K1b and K3 against their plain versions (SHA256 plan)")
+    k1b_ms, k3_ms = phase_sha_kernels(rep, sha_prog, sha_x, dev, b_cmp)
+    del sha_x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    say(f"phase D: the full-limb SHA256 witness and R1CS check (batch "
+        f"{b_full})")
+    full_ms, full_check_ms = sha256_full_path(paths, sha, sha_prog, spec, dev,
+                                              b_full)
+    del sha_prog
+    say("phase E: the witness entry point (SHA256)")
+    msgs = sha256_messages(2, SEED + 7)
+    bits = sha256_io.msgs_to_bits_batch(msgs)
+    phase_entry_point(sha, dev.type, "sha",
+                      [{"in": [int(v) for v in bits[:, j]]} for j in range(2)])
 
     for name, row in rep.rows.items():
-        row["launches"] = launches.get(name, 0)
-    on_path = [r for n, r in rep.rows.items() if n != "add"]
-    say(f"main path: {times['run_ms']:.1f} ms witness run, "
-        f"{times['check_ms']:.1f} ms R1CS check; smoke total "
-        f"{time.perf_counter() - t_all:.1f} s")
-    # `add` (K6) is held against its plain version above but is not on
-    # the main path: the checker subtracts and never adds
-    say(json.dumps({"off_path_kernels": [rep.rows["add"]]}))
+        by_path = paths.of(name)
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+    say(f"Poseidon2 path: {times['run_ms']:.1f} ms witness run, "
+        f"{times['check_ms']:.1f} ms R1CS check (batch {B})")
+    say(f"SHA256 mixed path: {sha_ms:.1f} ms run_mixed, "
+        f"{B / sha_ms * 1e3:.0f} mixed witnesses/s (batch {B}); K1b "
+        f"{k1b_ms:.3f} ms, K3 {k3_ms:.3f} ms")
+    say(f"SHA256 full path: {full_ms:.1f} ms full-limb run, "
+        f"{full_check_ms:.1f} ms R1CS check (batch {b_full})")
+    say(f"smoke total {time.perf_counter() - t_all:.1f} s")
     if args.rehearse:
+        print(json.dumps({"kernels": list(rep.rows.values())}),
+              file=sys.stderr)
         print("rehearsal on the CPU: no result", file=sys.stderr)
         return 3
-    print(json.dumps({"kernels": on_path}))
+    print(json.dumps({"kernels": list(rep.rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,12 @@ int64 `index_add_` sums of the product limbs, and one Montgomery reduction
 of the wide sums plus a multiply by R^2 brings them back into the field.
 The final Az·Bz − Cz uses K5 and the subtract kernel K6.
 
-The batch is checked in slices of at most `lanes` witnesses, so the
-(nnz, L, lanes) gather stays near a gigabyte at batch 65,536.
+The batch is checked in slices whose width comes from a byte budget: a
+slice of `lanes` witnesses holds, for the largest matrix, the
+(nnz, L, lanes) uint32 gather, the uint32 product and its int64 copy, 16
+bytes a limb-lane.  So the slice is budget // (max_nnz · L · 16) lanes,
+capped by `lanes=`: 8,192 lanes for Poseidon2 (2,345 nonzeros), about 260
+for SHA256 (80,458).
 """
 
 import numpy as np
@@ -21,6 +25,9 @@ from ..ops.field import TorchField, as_i64, as_u32
 from ..ops.limbs import ints_to_limbs
 from ..utils.device import resolve_device
 
+# device bytes a slice of the check may take for its largest matrix
+SLICE_BUDGET_BYTES = 5 << 30
+
 
 class R1CSChecker:
     def __init__(self, rows, n_wires: int, spec: FieldSpec, device="cuda",
@@ -31,7 +38,6 @@ class R1CSChecker:
         self.field = TorchField(spec, self.device)
         self.n_rows = len(rows)
         self.n_wires = n_wires
-        self.lanes = lanes
         L = self.field.L
         R = 1 << (LIMB_BITS * L)
         p = spec.p
@@ -52,6 +58,9 @@ class R1CSChecker:
                           self.device),                 # (nnz, L, 1)
             ))
         self.R2 = as_u32(self.field.R2_limbs)  # (L, 1)
+        max_nnz = max(len(rws) for rws, _, _ in self.coo)
+        self.lanes = max(1, min(lanes, SLICE_BUDGET_BYTES
+                                // (max(max_nnz, 1) * L * 16)))
 
     def _reduce_wide(self, sums):
         """int64 (..., L, B) row sums of MONT values (V < 2^16·p per row)

@@ -1,57 +1,91 @@
-"""The witness interpreter on the card: kernel K1a, then the gather K2.
+"""The witness interpreter on the card: kernel K1, then the gathers K2, K3.
 
-`TorchInterpreter(plan, field)._run(inputs)` maps uint32 inputs
-(n_inputs, L, B) to the witness (n_witness, L, B).  On CUDA it launches the
-interpreter kernel (ops/cuda/interp.cu), which also applies the trailing
-REDC, and then the witness gather (ops/cuda/gather.cu).  On the CPU it runs
-the plain executor of backend/interp_ref.py.
+`TorchInterpreter(plan, field)` runs a plan two ways:
 
-The layout is batch-minor throughout, (rows, L, B): bank row
-chunk*(K+1) + em holds emission row em of a chunk.  The JAX package's
-(8, bb) batch blocking and its paging of the tables over several kernel
-calls answer the TPU's memory layout and do not exist here.
+- `_run(inputs)` maps uint32 inputs (n_inputs, L, B) to the full-limb
+  witness (n_witness, L, B);
+- `_run_mixed(inputs)` maps (n_inputs, L, B) inputs, or (n_inputs, 2, B)
+  ones where no input is wide, to the mixed witness: narrow rows int32
+  (n_nw, B) and wide rows uint32 (n_wd, L, B), in the row order of
+  `mixed_layout()`.  A bit-class witness value stays one int32 (SHA256 at
+  batch 65,536: 7.2 GB mixed, 115 GB in limbs).
+
+On CUDA it launches the interpreter kernel K1 (ops/cuda/interp.cu: the
+wide lane K1a with its trailing REDC and the narrow lane K1b, in one
+launch), the wide witness gather K2 and the narrow gather with bit unpack
+K3 (ops/cuda/gather.cu).  On the CPU it runs the plain versions of
+backend/interp_ref.py.  Narrow rows of the full-limb witness are widened
+by plain PyTorch, as the JAX package widens them in XLA.
+
+The layout is batch-minor throughout: wide bank row chunk*(K+1) + em and
+narrow bank row chunk*(KN+1) + em hold emission row em of a chunk.  The
+JAX package's (8, bb) batch blocking and its paging of the tables over
+several kernel calls answer the TPU's memory layout and do not exist here.
 """
 
+import numpy as np
 import torch
 
 from ..convert import DevicePlan, to_device
 from ..ops.build import LAUNCHES, check_launch, library, stream_ptr, u32_array
 from ..ops.field import TorchField, as_i64, as_u32
-from .interp_ref import gather_rows, run_plan
+from ..ops.narrow import to_i32, widen_narrow
+from .interp_ref import gather_n_rows, gather_rows, run_plan
 
 
-def interp_k1a(plan: DevicePlan, field: TorchField, x_w):
-    """Wide inputs uint32 (n_win, L, B) -> emission bank uint32
-    (n_chunks * (K + 1), L, B), flagged rows reduced out of Montgomery
-    form.  On CUDA, bank rows that no step writes are left unset."""
+def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
+    """Wide inputs uint32 (n_win, L, B) and narrow inputs int32 (n_nin, B)
+    -> (wide bank uint32 (n_chunks * (K + 1), L, B), flagged rows reduced
+    out of Montgomery form; narrow bank int32 (n_chunks * (KN + 1), B)).
+    On CUDA, bank rows that no step writes are left unset."""
     if x_w.device.type == "cpu":
-        return as_u32(run_plan(plan, field, as_i64(x_w)))
-    if x_w.device != plan.device:
-        raise ValueError(f"inputs on {x_w.device}, plan on {plan.device}")
-    L = plan.L
+        bank, bank_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
+        return as_u32(bank), to_i32(bank_n)
+    if x_w.device != plan.device or x_n.device != plan.device:
+        raise ValueError(f"inputs on {x_w.device}/{x_n.device}, plan on "
+                         f"{plan.device}")
+    L, B = plan.L, x_w.shape[-1]
     if x_w.dtype != torch.uint32 or x_w.dim() != 3 or x_w.shape[1] != L \
             or x_w.shape[0] != len(plan.win_order):
-        raise ValueError(f"K1a takes uint32 ({len(plan.win_order)}, {L}, B)"
-                         f", got {x_w.dtype} {tuple(x_w.shape)}")
-    x_w = x_w.contiguous()
-    B = x_w.shape[2]
-    rf = torch.empty((plan.n_regs, L, B), dtype=torch.uint32,
-                     device=x_w.device)
+        raise ValueError(f"K1 takes uint32 ({len(plan.win_order)}, {L}, B) "
+                         f"wide inputs, got {x_w.dtype} {tuple(x_w.shape)}")
+    if x_n.dtype != torch.int32 or tuple(x_n.shape) != \
+            (len(plan.nin_order), B):
+        raise ValueError(f"K1 takes int32 ({len(plan.nin_order)}, {B}) "
+                         f"narrow inputs, got {x_n.dtype} "
+                         f"{tuple(x_n.shape)}")
+    x_w, x_n = x_w.contiguous(), x_n.contiguous()
+    dev = x_w.device
+    # a register file the plan neither loads nor steps on is not allocated
+    rf = torch.empty((plan.n_regs, L, B), dtype=torch.uint32, device=dev) \
+        if "wide" in plan.lanes or len(plan.win_order) or \
+        len(plan.mat_regs) else None
+    rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev) \
+        if "narrow" in plan.lanes or len(plan.nin_order) or \
+        len(plan.nmat_regs) else None
     bank = torch.empty((plan.n_bank_rows, L, B), dtype=torch.uint32,
-                       device=x_w.device)
+                       device=dev)
+    bank_n = torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
+                         device=dev)
     d = plan.dev
     lib = library("interp")
-    rc = lib.ctpu_interp_k1a(
-        L, B, x_w.data_ptr(), x_w.shape[0], d["table"].data_ptr(),
-        d["r_op"].data_ptr(), d["r_s0"].data_ptr(), d["rstarts"].data_ptr(),
-        plan.n_chunks, d["cbank"].data_ptr(), d["mont_tab"].data_ptr(),
-        d["mat_regs"].data_ptr(), d["mat_limbs"].data_ptr(),
-        len(plan.mat_regs), rf.data_ptr(), bank.data_ptr(), plan.K,
-        u32_array(field.p_list), u32_array(field.r2_list), field.n0inv,
-        stream_ptr(x_w.device))
-    LAUNCHES["interp_k1a"] += 1
-    check_launch(rc, "interp_k1a")
-    return bank
+    rc = lib.ctpu_interp_k1(
+        L, B, x_w.data_ptr(), x_w.shape[0], x_n.data_ptr(), x_n.shape[0],
+        d["table"].data_ptr(), d["r_op"].data_ptr(), d["r_s0"].data_ptr(),
+        d["rstarts"].data_ptr(), plan.n_chunks, d["cbank"].data_ptr(),
+        d["mont_tab"].data_ptr(), d["mat_regs"].data_ptr(),
+        d["mat_limbs"].data_ptr(), len(plan.mat_regs),
+        d["nmat_regs"].data_ptr(), d["nmat_vals"].data_ptr(),
+        len(plan.nmat_regs), rf.data_ptr() if rf is not None else None,
+        bank.data_ptr(), plan.K, rf_n.data_ptr() if rf_n is not None
+        else None, bank_n.data_ptr(), plan.KN, u32_array(field.p_list),
+        u32_array(field.r2_list), field.n0inv, stream_ptr(dev))
+    # one launch runs both lanes; it counts for each lane its plan runs
+    # (interp_k1a: wide steps, interp_k1b: narrow steps)
+    for lane in plan.lanes or ("wide",):
+        LAUNCHES["interp_k1a" if lane == "wide" else "interp_k1b"] += 1
+    check_launch(rc, "interp_k1")
+    return bank, bank_n
 
 
 def gather_w(bank, idx):
@@ -66,13 +100,12 @@ def gather_w(bank, idx):
     bank = bank.contiguous()
     idx = idx.contiguous()
     W = idx.shape[0]
-    if W:
-        lo, hi = torch.aminmax(idx)
-        if int(lo) < 0 or int(hi) >= bank.shape[0]:
-            raise IndexError(f"gather_w: index outside [0, {bank.shape[0]})")
+    _check_index(idx, bank.shape[0], "gather_w")
     out = torch.empty((W,) + tuple(bank.shape[1:]), dtype=torch.uint32,
                       device=bank.device)
     row = bank[0].numel() if bank.shape[0] else 0
+    if out.numel() == 0:
+        return out   # nothing to launch
     lib = library("gather")
     rc = lib.ctpu_gather_rows(bank.data_ptr(), idx.data_ptr(),
                               out.data_ptr(), row, W,
@@ -80,6 +113,42 @@ def gather_w(bank, idx):
     LAUNCHES["gather_w"] += 1
     check_launch(rc, "gather_w")
     return out
+
+
+def gather_n(bank_n, x_n, src, shift):
+    """Narrow witness gather: row src[w] of [bank_n; x_n], with bit
+    shift[w] unpacked where shift[w] >= 0.  int32 (R_n, B), (n_nin, B),
+    (W,), (W,) -> int32 (W, B)."""
+    if bank_n.device.type == "cpu":
+        return gather_n_rows(bank_n, x_n, src, shift)
+    dev = bank_n.device
+    B = bank_n.shape[1]
+    if any(t.dtype != torch.int32 or t.device != dev
+           for t in (bank_n, x_n, src, shift)) or x_n.shape[1:] != (B,) \
+            or src.shape != shift.shape:
+        raise ValueError("gather_n takes int32 (R_n, B), (n_nin, B), (W,) "
+                         "and (W,) tensors on one device")
+    bank_n, x_n = bank_n.contiguous(), x_n.contiguous()
+    src, shift = src.contiguous(), shift.contiguous()
+    W = src.shape[0]
+    _check_index(src, bank_n.shape[0] + x_n.shape[0], "gather_n")
+    out = torch.empty((W, B), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out   # nothing to launch
+    lib = library("gather")
+    rc = lib.ctpu_gather_n(bank_n.data_ptr(), bank_n.shape[0],
+                           x_n.data_ptr(), src.data_ptr(), shift.data_ptr(),
+                           out.data_ptr(), W, B, stream_ptr(dev))
+    LAUNCHES["gather_n"] += 1
+    check_launch(rc, "gather_n")
+    return out
+
+
+def _check_index(idx, n, what):
+    if idx.shape[0]:
+        lo, hi = torch.aminmax(idx)
+        if int(lo) < 0 or int(hi) >= n:
+            raise IndexError(f"{what}: index outside [0, {n})")
 
 
 class TorchInterpreter:
@@ -91,18 +160,107 @@ class TorchInterpreter:
         self.plan = plan
         self.field = field
         self.device = plan.device
-        self.n_witness = len(plan.wit_rows)
+        self.n_witness = plan.n_witness
 
-    def _run(self, inputs):
-        """uint32 (n_inputs, L, B) -> witness uint32 (n_witness, L, B)."""
+    def mixed_layout(self):
+        """(narrow witness indices, wide witness indices) in the row order
+        of _run_mixed's two arrays."""
+        return self.plan.nw_idx.tolist(), self.plan.wd_idx.tolist()
+
+    def _inputs(self, inputs):
+        """uint32 (n_inputs, Lin, B) -> (inputs on the device, wide inputs
+        uint32 (n_win, L, B) in win_of order, narrow inputs int32
+        (n_nin, B) in nin_of order: limb0 | limb1 << 16).  Lin may be 2
+        (or 1) when no input is wide."""
         plan = self.plan
         if not isinstance(inputs, torch.Tensor):
             inputs = to_device(inputs, self.device)
         elif inputs.device != self.device:
             inputs = inputs.view(torch.int32).to(self.device) \
                 .view(torch.uint32)
-        order = torch.as_tensor(plan.win_order, dtype=torch.int64,
-                                device=inputs.device)
-        x_w = gather_rows(inputs, order)
-        bank = interp_k1a(plan, self.field, x_w)
-        return gather_w(bank, plan.dev["wit_rows"])
+        n, lin, B = inputs.shape
+        if plan.win_order:
+            if lin != plan.L:
+                raise ValueError(f"wide inputs need full-limb input rows "
+                                 f"({plan.L} limbs), got {lin}")
+            x_w = gather_rows(inputs, plan.dev["win_order"])
+        else:
+            x_w = torch.empty((0, plan.L, B), dtype=torch.uint32,
+                              device=self.device)
+        if plan.nin_order:
+            xs = as_i64(gather_rows(inputs, plan.dev["nin_order"]))
+            v = xs[:, 0] | (xs[:, 1] << 16) if lin > 1 else xs[:, 0]
+            x_n = to_i32(v)
+        else:
+            x_n = torch.empty((0, B), dtype=torch.int32, device=self.device)
+        return inputs, x_w, x_n
+
+    def _as_index(self, a):
+        return torch.as_tensor(a, dtype=torch.int64, device=self.device)
+
+    def _put(self, out, pos, rows):
+        """out[pos] = rows (through int32 views: PyTorch's uint32 has no
+        index_put)."""
+        out.view(torch.int32)[self._as_index(pos)] = rows.view(torch.int32)
+
+    def _wide_rows(self, bank, x_w, B):
+        """The wide rows of the mixed witness, uint32 (n_wd, L, B): rows of
+        [wide bank; wide inputs (at least one slot); consts] at wd_src,
+        gathered by K2.  Planned circuits emit every witness row, so the
+        source is the bank alone unless a plan names inputs or consts."""
+        plan = self.plan
+        if not len(plan.wd_src) or plan.wd_src.max() < plan.n_bank_rows:
+            return gather_w(bank, plan.dev["wd_src"])
+        slots = x_w if len(plan.win_order) else torch.zeros(
+            (1, plan.L, B), dtype=torch.uint32, device=self.device)
+        consts = plan.dev["consts"][:, :, None].expand(-1, -1, B)
+        source = torch.cat([t.view(torch.int32) for t in (bank, slots,
+                                                           consts)])
+        return gather_w(source.view(torch.uint32), plan.dev["wd_src"])
+    def _run_mixed(self, inputs):
+        """inputs uint32 (n_inputs, L or 2, B) -> (narrow int32 (n_nw, B),
+        wide uint32 (n_wd, L, B)) in the row order of mixed_layout()."""
+        plan = self.plan
+        _, x_w, x_n = self._inputs(inputs)
+        B = x_w.shape[-1]
+        bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
+        if len(plan.nw_src):
+            narrow = gather_n(bank_n, x_n, plan.dev["nw_src"],
+                              plan.dev["nw_shift"])
+        else:
+            narrow = torch.empty((0, B), dtype=torch.int32,
+                                 device=self.device)
+        return narrow, self._wide_rows(bank, x_w, B)
+
+    def _run(self, inputs):
+        """uint32 (n_inputs, L, B) -> witness uint32 (n_witness, L, B)."""
+        plan = self.plan
+        inputs, x_w, x_n = self._inputs(inputs)
+        if inputs.shape[1] != plan.L:
+            raise ValueError(f"the full-limb witness needs full-limb input "
+                             f"rows ({plan.L} limbs), got {inputs.shape[1]}")
+        B = inputs.shape[-1]
+        bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
+        # the witness in parts: (witness indices, their rows uint32
+        # (k, L, B)); narrow emission rows go through K3 and the widening,
+        # narrow input rows are the input's own limbs
+        emitted = plan.nw_src < plan.n_bank_n_rows
+        narrow_rows = self._as_index(np.flatnonzero(emitted))
+        parts = [
+            (plan.wd_idx, lambda: self._wide_rows(bank, x_w, B)),
+            (plan.nw_idx[emitted], lambda: widen_narrow(gather_n(
+                bank_n, x_n, plan.dev["nw_src"][narrow_rows],
+                plan.dev["nw_shift"][narrow_rows]), self.field.p, plan.L)),
+            (plan.nw_idx[~emitted], lambda: gather_rows(inputs, plan.dev[
+                "nin_order"][self._as_index(
+                    plan.nw_src[~emitted] - plan.n_bank_n_rows)])),
+        ]
+        parts = [(idx, rows) for idx, rows in parts if len(idx)]
+        if len(parts) == 1 and np.array_equal(parts[0][0],
+                                              np.arange(plan.n_witness)):
+            return parts[0][1]()   # one part, already in witness order
+        out = torch.empty((plan.n_witness, plan.L, B), dtype=torch.uint32,
+                          device=self.device)
+        for idx, rows in parts:
+            self._put(out, idx, rows())
+        return out

@@ -68,6 +68,50 @@ for _o in _CMP:
     _OPERAND_FILES[f"{_o}_ww"] = ("w", "w", "w")
 
 
+def mixed_split(wit_src, nin_of, win_of, K, KN, n_chunks):
+    """Classify wit_src into narrow and wide witness rows, in the port's
+    bank layout: every chunk in order (row chunk*(K+1) + em), with no
+    per-call padding, so a plan without steps has one dump row a bank.
+
+    Returns ((nw_src, nw_shift, wd_src), (nw_idx, wd_idx), consts).  A
+    narrow row reads [narrow bank; narrow inputs] and unpacks bit
+    nw_shift (-1: raw); a wide row reads [wide bank; wide inputs (at least
+    one slot); consts].  nw_idx and wd_idx are the witness indices."""
+    n_flat_w, n_flat_n = n_chunks * (K + 1), n_chunks * (KN + 1)
+    nw_src, wd_src, nw_idx, wd_idx = [], [], [], []
+    nw_shift = []   # per narrow row: -1 raw, else unpack bit index
+    consts = []
+    const_pos = {}
+    for w_i, src in enumerate(wit_src):
+        if src[0] == "emitb":
+            nw_src.append(src[1] * (KN + 1) + src[2])
+            nw_shift.append(src[3])
+            nw_idx.append(w_i)
+        elif src[0] == "emitn":
+            nw_src.append(src[1] * (KN + 1) + src[2])
+            nw_shift.append(-1)
+            nw_idx.append(w_i)
+        elif src[0] == "emit":
+            wd_src.append(src[1] * (K + 1) + src[2])
+            wd_idx.append(w_i)
+        elif src[0] == "input":
+            if src[1] in nin_of:
+                nw_src.append(n_flat_n + nin_of[src[1]])
+                nw_shift.append(-1)
+                nw_idx.append(w_i)
+            else:
+                wd_src.append(n_flat_w + win_of[src[1]])
+                wd_idx.append(w_i)
+        else:
+            v = src[1]
+            if v not in const_pos:
+                const_pos[v] = len(consts)
+                consts.append(v)
+            wd_src.append(n_flat_w + max(len(win_of), 1) + const_pos[v])
+            wd_idx.append(w_i)
+    return (nw_src, nw_shift, wd_src), (nw_idx, wd_idx), consts
+
+
 class InterpreterPlan:
     """Instruction tables of the interpreter for one field."""
 
@@ -1543,62 +1587,11 @@ class InterpreterPlan:
         return order
 
     # ------------------------------------------------------------------
-    def _mixed_split(self):
-        """Classify wit_src into (narrow bank rows, wide bank rows) and
-        the witness indices each covers.  Cached."""
-        hit = getattr(self, "_mixed_cache", None)
-        if hit is not None:
-            return hit
-        K, KN = self.K, self.KN
-        # the port's emission banks hold every chunk in order (row
-        # chunk*(K+1) + em), with no per-call padding
-        if self.n_steps:
-            cb_w = [g * (K + 1) for g in range(self.n_chunks)]
-            cb_n = [g * (KN + 1) for g in range(self.n_chunks)]
-        else:
-            cb_w = cb_n = []
-        n_flat_w = (len(cb_w) * (K + 1)) if cb_w else 1
-        n_flat_n = (len(cb_n) * (KN + 1)) if cb_n else 1
-        nw_src, wd_src, nw_idx, wd_idx = [], [], [], []
-        nw_shift = []   # per narrow row: -1 raw, else unpack bit index
-        consts = []
-        const_pos = {}
-        for w_i, src in enumerate(self.wit_src):
-            if src[0] == "emitb":
-                nw_src.append(cb_n[src[1]] + src[2])
-                nw_shift.append(src[3])
-                nw_idx.append(w_i)
-            elif src[0] == "emitn":
-                nw_src.append(cb_n[src[1]] + src[2])
-                nw_shift.append(-1)
-                nw_idx.append(w_i)
-            elif src[0] == "emit":
-                wd_src.append(cb_w[src[1]] + src[2])
-                wd_idx.append(w_i)
-            elif src[0] == "input":
-                if src[1] in self.nin_of:
-                    nw_src.append(n_flat_n + self.nin_of[src[1]])
-                    nw_idx.append(w_i)
-                else:
-                    wd_src.append(n_flat_w + self.win_of[src[1]])
-                    wd_idx.append(w_i)
-            else:
-                v = src[1]
-                if v not in const_pos:
-                    const_pos[v] = len(consts)
-                    consts.append(v)
-                wd_src.append(n_flat_w + max(len(self.win_of), 1)
-                              + const_pos[v])
-                wd_idx.append(w_i)
-        self._mixed_consts = consts
-        self._mixed_cache = ((nw_src, nw_shift, wd_src),
-                             (nw_idx, wd_idx))
-        return self._mixed_cache
-
     def mixed_layout(self):
         """(narrow witness indices, wide witness indices) matching the
         row order of run_mixed's two arrays."""
-        _, idx = self._mixed_split()
+        _, idx, _ = mixed_split(self.wit_src, self.nin_of, self.win_of,
+                                self.K, self.KN, self.n_chunks)
         return idx
 
     def plan_arrays(self):

@@ -1,23 +1,28 @@
 """Plain PyTorch executor of the interpreter plan.
 
-The plain version of the interpreter kernel K1a (ops/cuda/interp.cu) and of
-the witness gather K2: it walks the same tables in the same order, with the
-register file and the emission bank as int64 tensors (rows, L, B) and the
-field arithmetic of TorchField.  It is the CPU path of the port and the
-reference the kernels are held against on the card.
+The plain version of the interpreter kernel K1 (K1a's wide lane and K1b's
+narrow lane, ops/cuda/interp.cu) and of the witness gathers K2 and K3
+(ops/cuda/gather.cu): it walks the same tables in the same order, with the
+wide register file and emission bank as int64 limb tensors (rows, L, B),
+the field arithmetic of TorchField, the narrow register file and bank as
+int64 tensors (rows, B) of signed 32-bit values, and the narrow ops of
+ops/narrow.py.  It is the CPU path of the port and the reference the
+kernels are held against on the card.
 """
 
 import torch
 
-from ..convert import K1A_OPCODES, DevicePlan
+from ..convert import N_OPERANDS, OPCODES, DevicePlan
 from ..ops.field import TorchField
+from ..ops.narrow import NARROW_OPS, i32, unpack_bits
 
 
-def run_plan(plan: DevicePlan, field: TorchField, x_w):
-    """Wide inputs int64 (n_win, L, B) -> emission bank int64
-    (n_chunks * (K + 1), L, B), Montgomery rows already reduced.  Rows no
-    step writes stay zero."""
-    L, K = plan.L, plan.K
+def run_plan(plan: DevicePlan, field: TorchField, x_w, x_n):
+    """Wide inputs int64 (n_win, L, B) and narrow inputs (n_nin, B) ->
+    (wide bank int64 (n_chunks * (K + 1), L, B), Montgomery rows already
+    reduced; narrow bank int64 (n_chunks * (KN + 1), B)).  Rows no step
+    writes stay zero."""
+    L, K, KN = plan.L, plan.K, plan.KN
     B = x_w.shape[-1]
     dev = x_w.device
     rf = torch.zeros((plan.n_regs, L, B), dtype=torch.int64, device=dev)
@@ -26,19 +31,35 @@ def run_plan(plan: DevicePlan, field: TorchField, x_w):
         rf[torch.as_tensor(plan.mat_regs, dtype=torch.int64, device=dev)] = \
             torch.as_tensor(plan.mat_limbs.astype("int64"),
                             device=dev)[:, :, None]
+    # narrow inputs in slots 0..n_nin-1, then the signed int32 constants
+    rf_n = torch.zeros((plan.n_nregs, B), dtype=torch.int64, device=dev)
+    rf_n[:x_n.shape[0]] = i32(x_n.to(torch.int64))
+    if len(plan.nmat_regs):
+        rf_n[torch.as_tensor(plan.nmat_regs, dtype=torch.int64,
+                             device=dev)] = torch.as_tensor(
+            plan.nmat_vals.astype("int64"), device=dev)[:, None]
     bank = torch.zeros((plan.n_bank_rows, L, B), dtype=torch.int64,
                        device=dev)
+    bank_n = torch.zeros((plan.n_bank_n_rows, B), dtype=torch.int64,
+                         device=dev)
     cb = torch.as_tensor(plan.cbank.astype("int64"), device=dev)[:, :, None]
     r2 = field.R2_limbs.to(dev)
     table = plan.table.tolist()
     r_op, r_s0, rstarts = (plan.r_op.tolist(), plan.r_s0.tolist(),
                            plan.rstarts.tolist())
     for c in range(plan.n_chunks):
-        base = c * (K + 1)
+        base, base_n = c * (K + 1), c * (KN + 1)
         for rr in range(rstarts[c], rstarts[c + 1]):
-            op = K1A_OPCODES[r_op[rr]]
+            op = OPCODES[r_op[rr]]
+            nop = NARROW_OPS.get(op)
             for t in range(r_s0[rr], r_s0[rr + 1]):
                 _op, ia, ib, ic, dst, em, aux = table[t]
+                if nop is not None:
+                    nb = rf_n[ib] if N_OPERANDS[op] > 1 else None
+                    res = nop(rf_n[ia], nb, aux)
+                    rf_n[dst] = res
+                    bank_n[base_n + em] = res
+                    continue
                 if op == "copyw":
                     res = rf[ia]
                 elif op == "mul":
@@ -64,7 +85,7 @@ def run_plan(plan: DevicePlan, field: TorchField, x_w):
         if flagged:
             rows = torch.as_tensor(flagged, dtype=torch.int64, device=dev)
             bank[rows] = field.mont_reduce64(bank[rows])
-    return bank
+    return bank, bank_n
 
 
 def gather_rows(bank, idx):
@@ -73,3 +94,11 @@ def gather_rows(bank, idx):
     on some devices."""
     src = bank.view(torch.int32) if bank.dtype == torch.uint32 else bank
     return src.index_select(0, idx.to(torch.int64)).view(bank.dtype)
+
+
+def gather_n_rows(bank_n, x_n, src, shift):
+    """The plain version of K3: row w of [bank_n; x_n] at src[w], with bit
+    shift[w] unpacked where shift[w] >= 0.  int32 (R_n, B), (n_nin, B),
+    (W,), (W,) -> int32 (W, B)."""
+    rows = torch.cat([bank_n, x_n]).index_select(0, src.to(torch.int64))
+    return unpack_bits(rows, shift)

@@ -4,9 +4,10 @@ The port of the JAX package's backend/jax_backend.py WitnessProgram for its
 interpreter mode: the tape's dynamic ops are lowered, range analysis marks
 the narrow nodes, DomainTape assigns Montgomery and canonical domains, the
 interpreter planner builds the tables, and TorchInterpreter runs them
-(kernels K1a and K2 on CUDA, the plain executor on the CPU).
+(kernels K1, K2 and K3 on CUDA, the plain executor on the CPU).
 
-A tape the planner refuses, or whose plan needs opcodes outside K1a, raises
+A tape the planner refuses, or whose plan needs opcodes outside the
+interpreter kernel (K1a's wide ones and K1b's narrow ones), raises
 UnsupportedTapeOp naming what is missing; nothing falls back to another
 executor on the card.
 """
@@ -67,8 +68,18 @@ class WitnessProgram:
         return self.interp._run(inputs)
 
     def run_mixed(self, inputs):
-        raise UnsupportedTapeOp(
-            "run_mixed (narrow witness rows) is not in the port yet")
+        """Witness in MIXED representation: (narrow int32 tensor (n_nw, B),
+        wide uint32 tensor (n_wd, L, B)) on the program's device, rows in
+        the order of mixed_layout().  inputs: uint32 (n_inputs, L, B), or
+        (n_inputs, 2, B) when every input is narrow (range-hinted).  A
+        bit-class witness value stays one int32: the SHA256 witness at
+        batch 65,536 takes 7.2 GB so, against 115 GB in limbs."""
+        return self.interp._run_mixed(inputs)
+
+    def mixed_layout(self):
+        """(narrow witness indices, wide witness indices) matching the row
+        order of run_mixed's two arrays."""
+        return self.interp.mixed_layout()
 
     # -- host-side convenience ------------------------------------------
     def encode_inputs(self, columns):

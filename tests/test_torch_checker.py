@@ -12,7 +12,8 @@ import torch
 
 from circom_tpu.backend.checker import R1CSChecker as JaxChecker
 from circom_tpu.field.primes import field_spec as jax_field_spec
-from circom_tpu_torch.backend.checker import R1CSChecker
+from circom_tpu_torch.backend import checker as checker_mod
+from circom_tpu_torch.backend.checker import SLICE_BUDGET_BYTES, R1CSChecker
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits.gen_poseidon import generate
 from circom_tpu_torch.compiler.pipeline import compile_source
@@ -88,3 +89,47 @@ def test_check_witness_list():
                        field_spec("bn128"), device="cpu")
     assert port.check_witness_list([[1, 6, 5], [1, 7, 5]]).tolist() == \
         [False, True]
+
+
+@pytest.fixture(scope="module")
+def corrupted_poseidon2():
+    """Four Poseidon2 witnesses, lanes 1 and 3 corrupted, and the JAX
+    checker's verdict on them."""
+    cc, z = witnesses(generate((2,)) + "\ncomponent main = Poseidon2();\n",
+                      "bn128", 4, seed=22)
+    z[7, 0, 1] ^= 1
+    z[200, 3, 3] ^= 1
+    ok_j, fb_j = jax.jit(JaxChecker(cc.r1cs_rows(), cc.counts()["n_wires"],
+                                    jax_field_spec("bn128"))
+                         .check_detailed)(z)
+    return cc, z, np.asarray(ok_j), np.asarray(fb_j)
+
+
+@pytest.mark.parametrize("budget, want_lanes", [(SLICE_BUDGET_BYTES, 8192),
+                                                (1, 1)])
+def test_slice_from_budget_keeps_verdicts(monkeypatch, corrupted_poseidon2,
+                                          budget, want_lanes):
+    """Poseidon2 (2,345 nonzeros in C) keeps its 8,192-lane slices under
+    the default budget; a budget too small for one lane checks lane by
+    lane.  The verdicts and first-bad indices stay the reference's."""
+    monkeypatch.setattr(checker_mod, "SLICE_BUDGET_BYTES", budget)
+    cc, z, ok_j, fb_j = corrupted_poseidon2
+    port = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"],
+                       field_spec("bn128"), device="cpu")
+    assert port.lanes == want_lanes
+    ok_t, fb_t = port.check_detailed(torch.from_numpy(z.view(np.int32))
+                                     .view(torch.uint32))
+    np.testing.assert_array_equal(ok_t.numpy(), ok_j)
+    np.testing.assert_array_equal(fb_t.numpy(), fb_j)
+    assert ok_t.tolist() == [True, False, True, False]
+
+
+def test_slice_rule_at_sha256_nnz():
+    """SHA256's C matrix has 80,458 nonzeros: its slice is the most lanes
+    whose gather, product and int64 copy fit the budget (260)."""
+    nnz, L = 80458, 16
+    rows = [({0: 1}, {0: 1}, {w: 1 for w in range(1, nnz + 1)})]
+    port = R1CSChecker(rows, nnz + 1, field_spec("bn128"), device="cpu")
+    assert port.lanes == 260
+    assert port.lanes * nnz * L * 16 <= SLICE_BUDGET_BYTES \
+        < (port.lanes + 1) * nnz * L * 16

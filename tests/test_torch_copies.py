@@ -20,6 +20,7 @@ from circom_tpu_torch.backend.torch_backend import build_plan
 from circom_tpu_torch.circuits.gen_poseidon import generate
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.field.primes import field_spec
+from test_bitpack import WORD_SRC
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -40,6 +41,7 @@ COPIES = [
     "backend/ranges.py", "backend/bitpack.py", "backend/dynops.py",
     "backend/artifacts.py",
     "circuits/__init__.py", "circuits/gen_poseidon.py",
+    "circuits/sha256.circom",
 ]
 
 # the keys of InterpreterPlan.plan_arrays(), read off the JAX
@@ -71,6 +73,11 @@ component main = T();
 
 def poseidon2_src(gen, prime):
     return gen((2,), prime=prime) + "\ncomponent main = Poseidon2();\n"
+
+
+def sha256_src(package):
+    return (ROOT / package / "circuits/sha256.circom").read_text() \
+        + "\ncomponent main = Sha256Block();\n"
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -108,21 +115,48 @@ def _same(a, b):
     return a == b
 
 
-@pytest.mark.parametrize("case", ["poseidon2-bn128", "poseidon2-goldilocks",
-                                  "mixed-goldilocks"])
-def test_plan_arrays_match_jax_planner(case):
+@pytest.fixture(scope="module")
+def planned():
+    """case -> (JAX InterpreterProgram, port InterpreterPlan), each built
+    once per module (SHA256 takes ~50 s for both packages)."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            cache[case] = _plan_both(case)
+        return cache[case]
+    return get
+
+
+def _plan_both(case):
     name, prime = case.split("-")
     if name == "poseidon2":
         src_ref, src_port = (poseidon2_src(jax_generate, prime),
                              poseidon2_src(generate, prime))
+    elif name == "sha256":
+        src_ref, src_port = sha256_src("circom_tpu"), \
+            sha256_src("circom_tpu_torch")
     else:
-        src_ref = src_port = MIXED_SRC
-    tape_ref, _ = jax_compile(src_ref, prime=prime).build_tape()
+        src_ref = src_port = {"mixed": MIXED_SRC, "word": WORD_SRC}[name]
+    cc_ref = jax_compile(src_ref, prime=prime)
+    tape_ref, _ = cc_ref.build_tape()
     jp = JaxProgram(tape_ref, jax_field_spec(prime), unroll_threshold=0,
-                    mode="interp").fused
-    tape, _ = compile_source(src_port, prime=prime).build_tape()
-    _dt, plan = build_plan(lower_dynamic_ops(tape), field_spec(prime))
+                    mode="interp",
+                    input_ranges=cc_ref.input_range_hints()).fused
+    cc = compile_source(src_port, prime=prime)
+    tape, _ = cc.build_tape()
+    _dt, plan = build_plan(lower_dynamic_ops(tape), field_spec(prime),
+                           cc.input_range_hints())
+    return jp, plan
+
+
+@pytest.mark.parametrize("case", ["poseidon2-bn128", "poseidon2-goldilocks",
+                                  "mixed-goldilocks", "word-goldilocks",
+                                  "sha256-bn128"])
+def test_plan_arrays_match_jax_planner(case, planned):
+    jp, plan = planned(case)
     arrays = plan.plan_arrays()
     assert set(arrays) == set(PLAN_KEYS)
     for key in PLAN_KEYS:
         assert _same(arrays[key], getattr(jp, key)), key
+    assert plan.mixed_layout() == jp.mixed_layout()

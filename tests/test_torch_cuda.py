@@ -9,16 +9,23 @@ JAX is not installed, with the JAX-forcing conftest left out:
 Comparisons are exact (tolerance 0): field elements are integers.
 """
 
+import ast
+import random
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from circom_tpu_torch.backend.checker import R1CSChecker
-from circom_tpu_torch.backend.interp import gather_w, interp_k1a
-from circom_tpu_torch.backend.interp_ref import gather_rows, run_plan
+from circom_tpu_torch.backend.interp import gather_n, gather_w, interp_k1
+from circom_tpu_torch.backend.interp_ref import (gather_n_rows, gather_rows,
+                                                 run_plan)
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
+from circom_tpu_torch.circuits import sha256_io
 from circom_tpu_torch.circuits.gen_poseidon import generate
 from circom_tpu_torch.compiler.pipeline import compile_source
+from circom_tpu_torch.convert import narrow_unit_arrays, plan_from_arrays
 from circom_tpu_torch.convert import to_device
 from circom_tpu_torch.field.primes import LIMB_BITS, field_spec
 from circom_tpu_torch.ops import field_kernels as fk
@@ -26,6 +33,8 @@ from circom_tpu_torch.ops.field import TorchField, as_i64
 from circom_tpu_torch.ops.limbs import limbs_to_int
 
 pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parents[1]
+EDGE_COUNTS = (0, 1, 31, 32, 33, -1)
 
 
 @pytest.fixture
@@ -73,11 +82,12 @@ def test_k1a_and_k2_match_plain(card, poseidon2):
     rng = np.random.default_rng(12)
     x_w = to_device(canonical(rng, "bn128",
                               (len(plan.win_order), plan.L, 4096)), card)
-    got = interp_k1a(plan, prog.field, x_w)
-    want = run_plan(plan, prog.field, as_i64(x_w))
+    x_n = torch.zeros((0, 4096), dtype=torch.int32, device=card)
+    got, _ = interp_k1(plan, prog.field, x_w, x_n)
+    want, _ = run_plan(plan, prog.field, as_i64(x_w), as_i64(x_n))
     rows = torch.as_tensor(plan.written_rows(), device=card)
     assert torch.equal(as_i64(got)[rows], want[rows])
-    idx = plan.dev["wit_rows"]
+    idx = plan.dev["wd_src"]
     assert torch.equal(as_i64(gather_w(got, idx)),
                        as_i64(gather_rows(got, idx)))
 
@@ -102,3 +112,81 @@ def test_witness_program_and_checker(card, poseidon2):
         ins = [limbs_to_int(x[i, :, lane]) for i in range(prog.n_inputs)]
         host = list(poseidon2.witness_host({"inputs": ins}))
         assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] == host
+
+
+def random_int32(rng, shape):
+    v = rng.integers(-2 ** 31, 2 ** 31, size=shape)
+    v.reshape(-1)[:4] = (-2 ** 31, -1, 0, 2 ** 31 - 1)
+    return v.astype(np.int32)
+
+
+def k1_against_plain(plan, field, x_n, card):
+    """K1 and the plain executor on the same narrow inputs: every written
+    narrow bank row bit for bit."""
+    x_w = torch.zeros((0, plan.L, x_n.shape[1]), dtype=torch.uint32,
+                      device=card)
+    _, got = interp_k1(plan, field, x_w, x_n)
+    _, want = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
+    rows = torch.as_tensor(plan.written_rows(narrow=True), device=card)
+    assert len(rows)
+    assert torch.equal(got.long()[rows], want[rows])
+
+
+def test_k1b_unit_plan_matches_plain(card):
+    """Every K1b opcode at the edge shift counts, one step each."""
+    arrays, _cases = narrow_unit_arrays(16, EDGE_COUNTS)
+    plan = plan_from_arrays(arrays, card)
+    x_n = to_device(random_int32(np.random.default_rng(21), (2, 4096)), card)
+    k1_against_plain(plan, TorchField(field_spec("bn128"), card), x_n, card)
+
+
+def word_src():
+    """test_bitpack.WORD_SRC, read without importing that module (it
+    imports the JAX package, which the card's machine lacks)."""
+    tree = ast.parse((ROOT / "tests/test_bitpack.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "WORD_SRC":
+            return ast.literal_eval(node.value)
+
+
+@pytest.mark.parametrize("prime", ["goldilocks", "bn128"])
+def test_k1b_word_circuit_matches_plain(card, prime):
+    cc = compile_source(word_src(), prime=prime)
+    spec = field_spec(prime)
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=card,
+                          input_ranges=cc.input_range_hints())
+    rng = np.random.default_rng(22)
+    x_n = to_device(rng.integers(0, 2, size=(64, 2048)).astype(np.int32),
+                    card)
+    k1_against_plain(prog.interp.plan, prog.field, x_n, card)
+
+
+def test_k3_matches_plain(card):
+    """Sources in the narrow bank and in the narrow inputs, raw rows and
+    unpacked bits at the edge shift counts."""
+    rng = np.random.default_rng(23)
+    B = 4099                       # not a multiple of 4: the scalar path
+    for b in (B, 4096):
+        bank_n = to_device(random_int32(rng, (40, b)), card)
+        x_n = to_device(random_int32(rng, (9, b)), card)
+        src = to_device(rng.integers(0, 49, size=700).astype(np.int32),
+                        card)
+        shift = to_device(np.resize(np.asarray(EDGE_COUNTS, np.int32), 700),
+                          card)
+        got = gather_n(bank_n, x_n, src, shift)
+        assert torch.equal(got, gather_n_rows(bank_n, x_n, src, shift))
+
+
+def test_sha256_run_mixed_digests(card):
+    src = (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text() \
+        + "\ncomponent main = Sha256Block();\n"
+    cc = compile_source(src)
+    prog = WitnessProgram(cc.build_tape()[0], field_spec("bn128"),
+                          device=card, input_ranges=cc.input_range_hints())
+    rng = random.Random(24)
+    msgs = [bytes(rng.randrange(256) for _ in range(32))
+            for _ in range(1024)]
+    narrow, _wide = prog.run_mixed(sha256_io.input_rows(msgs))
+    digest = sha256_io.digest_bits_from_witness(narrow, prog.mixed_layout())
+    assert np.array_equal(digest.cpu().numpy(),
+                          sha256_io.digest_bits_batch(msgs))

@@ -1,8 +1,9 @@
-"""The port stands alone: no JAX and nothing of circom_tpu, anywhere in it.
+"""The port stands alone: no JAX, nothing of circom_tpu and not the JAX
+package's benchmark (bench.py), anywhere in it.
 
 An AST walk over every module of circom_tpu_torch/ and chip_smoke.py finds
-no import of `jax` or of `circom_tpu`; a fresh interpreter that imports
-the port's modules has no `jax` in sys.modules.
+no import of `jax`, of `circom_tpu` or of `bench`; a fresh interpreter that
+imports the port's modules has none of them in sys.modules.
 """
 
 import ast
@@ -15,7 +16,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "circom_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "circom_tpu")
+FORBIDDEN = ("jax", "jaxlib", "circom_tpu", "bench")
 
 
 def _imported_modules(path):
@@ -42,8 +43,9 @@ def test_import_leaves_jax_unloaded():
             "import circom_tpu_torch.backend.torch_backend\n"
             "import circom_tpu_torch.backend.checker\n"
             "import circom_tpu_torch.ops.build\n"
+            "import circom_tpu_torch.circuits.sha256_io\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'circom_tpu'))\n"
+            "('jax', 'jaxlib', 'circom_tpu', 'bench'))\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

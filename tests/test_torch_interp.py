@@ -23,7 +23,7 @@ from circom_tpu_torch.backend.plan import UnsupportedTapeOp
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits.gen_poseidon import generate
 from circom_tpu_torch.compiler.pipeline import compile_source
-from circom_tpu_torch.convert import K1A_OPCODES, plan_from_arrays
+from circom_tpu_torch.convert import OPCODES, plan_from_arrays
 from circom_tpu_torch.field.primes import field_spec
 from circom_tpu_torch.ops.field import TorchField
 from circom_tpu_torch.ops.limbs import limbs_to_int
@@ -96,10 +96,12 @@ def test_trailing_redc_and_written_rows(poseidon2):
     spec = field_spec("bn128")
     assert int(plan.mont_tab.sum()) == jp.fused.n_mont_rows > 0
     x_w = torch.from_numpy(x.view(np.int32))[plan.win_order].to(torch.int64)
-    bank = run_plan(plan, TorchField(spec), x_w)
+    x_n = torch.zeros((0, BATCH), dtype=torch.int64)
+    bank, bank_n = run_plan(plan, TorchField(spec), x_w, x_n)
+    assert bank_n.shape == (plan.n_chunks, BATCH)   # KN = 0: dump rows
     written = set(plan.written_rows().tolist())
-    assert set(plan.wit_rows.tolist()) <= written
-    for r in plan.wit_rows.tolist():
+    assert set(plan.wd_src.tolist()) <= written
+    for r in plan.wd_src.tolist():
         for b in range(BATCH):
             assert limbs_to_int(bank[r, :, b].tolist()) < spec.p
 
@@ -108,13 +110,14 @@ def test_opcode_numbering_matches_kernel():
     src = (ROOT / "circom_tpu_torch/ops/cuda/interp.cu").read_text()
     enum = dict((name.lower(), int(v)) for name, v in
                 re.findall(r"OP_([A-Z0-9_]+) = (\d+)", src))
-    assert {op: K1A_OPCODES.index(op) for op in K1A_OPCODES} == enum
+    assert {op: OPCODES.index(op) for op in OPCODES} == enum
+    assert len(enum) == 19   # K1a's 6 wide opcodes and K1b's 13 narrow ones
 
 
 @pytest.mark.parametrize("prime", ["goldilocks", "bn128"])
 def test_opcodes_outside_k1a_raise(prime):
-    """Mixed comparisons/bit ops (and goldilocks' folded products) are
-    not in K1a: the port names them instead of running anything."""
+    """Mixed comparisons and wide bit ops are in neither K1a nor K1b: the
+    port names them instead of running anything."""
     src = """
     pragma circom 2.0.0;
     template T() {
@@ -127,8 +130,18 @@ def test_opcodes_outside_k1a_raise(prime):
     component main = T();
     """
     tape, _ = compile_source(src, prime=prime).build_tape()
-    with pytest.raises(UnsupportedTapeOp, match="K1a"):
+    with pytest.raises(UnsupportedTapeOp, match="K1a wide, K1b narrow") as e:
         WitnessProgram(tape, field_spec(prime), device="cpu")
+    for op in ("band", "bor", "bxor", "lt_ww", "select", "widen"):
+        assert op in str(e.value)
+
+
+def test_goldilocks_poseidon2_is_refused_by_name():
+    """Goldilocks' folded products (K1c) are not in the port yet."""
+    src = poseidon2_src(lambda t: generate(t, prime="goldilocks"))
+    tape, _ = compile_source(src, prime="goldilocks").build_tape()
+    with pytest.raises(UnsupportedTapeOp, match="gmul, gmul_c"):
+        WitnessProgram(tape, field_spec("goldilocks"), device="cpu")
 
 
 def test_cuda_default_raises_without_a_card():

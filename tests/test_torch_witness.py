@@ -30,7 +30,7 @@ component main = T();
 
 
 # a bit-constrained input: its range hint puts it on the narrow int32
-# lane, which this slice of the port does not run yet
+# lane (kernel K1b on the card)
 BIT_INPUT = """
 pragma circom 2.0.0;
 template T() {
@@ -110,9 +110,16 @@ def test_input_errors_are_reported(tmp_path, capsys):
     assert not (tmp_path / "bit.0.wtns").exists()
 
 
-def test_narrow_input_tape_is_refused_by_name(tmp_path, capsys):
+def test_bit_input_tape_matches_jax_entry_point(tmp_path):
+    """A narrow-lane tape (range-hinted input, narrow witness rows) runs
+    through the port's entry point, R1CS check included, and writes the
+    reference's .wtns bytes."""
     art = _artifact(tmp_path, BIT_INPUT, "bit")
-    assert torch_witness([art, _inputs(tmp_path, [{"b": 1}]), "-o",
-                          str(tmp_path), "--device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert "K1a" in err and "ncopy" in err
+    inp = _inputs(tmp_path, [{"b": 1}, {"b": 0}])
+    assert jax_witness([art, inp, "-o", str(tmp_path / "jax")]) == 0
+    assert torch_witness([art, inp, "-o", str(tmp_path / "torch"),
+                          "--device", "cpu"]) == 0
+    for bi in range(2):
+        ref = (tmp_path / "jax" / f"bit.{bi}.wtns").read_bytes()
+        got = (tmp_path / "torch" / f"bit.{bi}.wtns").read_bytes()
+        assert got == ref
