@@ -11,7 +11,18 @@ mismatch exits non-zero.  The paths:
 - SHA256 over bn128, batch 65,536: WitnessProgram.run_mixed, the mixed
   witness (K1b, K3), every lane's digest against hashlib;
 - SHA256 over bn128, batch 8,192: the full-limb run and the R1CS check of
-  every lane (K1b, K3, K5, K6).
+  every lane (K1b, K3, K5, K6);
+- Poseidon2 over goldilocks, batch 65,536: run and R1CS check (K1c with
+  K1a, K2, K5 and K6 at L = 4);
+- bigint-div over bn128, batch 8,192: run and R1CS check (K1d's long
+  division);
+- the stdlib comparators over bn128 (LessThan(64), LessEqThan(64),
+  IsEqual() and Num2Bits(64)), batch 65,536: run and R1CS check (K1a,
+  K1c, K1d, K2, K3).
+
+Unit plans hold every K1b, K1c and K1d opcode at the edge operands
+against its plain version, and K1 is held against the plain executor on
+every path's full plan.
 
     python3 chip_smoke.py            # needs a CUDA card
     python3 chip_smoke.py --rehearse # CPU, small batch, plain versions only;
@@ -44,10 +55,20 @@ try:
                                                      gather_rows, run_plan)
     from circom_tpu_torch.backend.torch_backend import WitnessProgram
     from circom_tpu_torch.circuits import sha256_io
+    from circom_tpu_torch.backend.interp_plan import (
+        _NARROW_RESULT as NARROW_RESULT)
     from circom_tpu_torch.circuits.gen_poseidon import generate
+    from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
+                                                   comparator_inputs,
+                                                   comparators_source,
+                                                   poseidon2_source)
     from circom_tpu_torch.compiler.pipeline import compile_source
-    from circom_tpu_torch.convert import (K1B_OPCODES, narrow_unit_arrays,
-                                          plan_from_arrays, to_device)
+    from circom_tpu_torch.convert import (K1B_OPCODES, K1C_OPCODES,
+                                          K1D_OPCODES, OPCODES,
+                                          narrow_unit_arrays,
+                                          plan_from_arrays, to_device,
+                                          unit_arrays, unit_inputs,
+                                          unit_shifts)
     from circom_tpu_torch.emit.binfmt import write_wtns
     from circom_tpu_torch.field.primes import field_spec
     from circom_tpu_torch.ops import build
@@ -67,6 +88,7 @@ HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12
 
 BATCH = 65536
+BIGDIV_BATCH = 8192     # bench.py's bigint-div batch
 SHA_FULL_BATCH = 8192   # the full-limb SHA256 witness: 14.3 GB at 8,192
 SHA_PLAIN_BATCH = 4096  # K1b and K3 against the plain versions, all rows
 CHECK_LANES = 8192      # R1CSChecker's cap on its batch slice
@@ -249,13 +271,28 @@ def phase_gather(rep, plan, B, dev):
             library_ms=time_ms(lambda: bank_i.index_select(0, idx_l)))
 
 
-def k1a_ops(plan):
-    """32-bit multiplies K1a does per lane: CIOS mul 2L^2, a dot of n
-    terms (n+1)L^2, a trailing REDC L^2."""
-    L2 = plan.L * plan.L
-    per_op = {0: 0, 1: 2 * L2, 2: 2 * L2, 3: 0, 4: 3 * L2, 5: 4 * L2}
-    ops = sum(per_op.get(int(o), 0) for o in plan.table[:plan.n_steps, 0])
-    return ops + int(plan.mont_tab.sum()) * L2
+# 32-bit multiplies of K1's product opcodes per lane, in units of L^2
+_MUL_L2 = {"mul": 2, "mul_r2": 2, "mul_c": 2, "mul_one": 2, "dot2_c": 3,
+           "dot3_c": 4, "gmul": 1, "gmul_c": 1}
+
+
+def k1_ops(plan, bits):
+    """32-bit lane operations K1 does per lane, counted low: the
+    multiplies of the products (CIOS mul 2L^2, a dot of n terms (n+1)L^2,
+    goldilocks' fold L^2, a trailing REDC L^2), 4L a bit of p for the long
+    division (shift, subtract, select, quotient), L for another wide step
+    and 1 for a narrow one."""
+    L = plan.L
+    ops = int(plan.mont_tab.sum()) * L * L
+    for k in plan.table[:plan.n_steps, 0].tolist():
+        op = OPCODES[k]
+        if op in _MUL_L2:
+            ops += _MUL_L2[op] * L * L
+        elif op == "idiv":
+            ops += 4 * L * bits
+        else:
+            ops += 1 if op in NARROW_RESULT else L
+    return ops
 
 
 def phase_interp(rep, prog, x_w):
@@ -275,16 +312,18 @@ def phase_interp(rep, prog, x_w):
     rep.add("interp_k1a", "circom_tpu_torch/ops/cuda/interp.cu",
             "circom_tpu/backend/interp.py:2462", err,
             time_ms(lambda: interp_k1(plan, f, x_w, x_n), reps=3), plain_ms,
-            nbytes, k1a_ops(plan) * B, plan="Poseidon2/bn128")
+            nbytes, k1_ops(plan, f.p.bit_length()) * B,
+            plan="Poseidon2/bn128")
     return got
 
 
-def poseidon2_path(paths, cc, spec, dev, B):
-    """Poseidon2/bn128 witnesses at batch B, then the R1CS check of every
-    lane; launch counts are read around exactly this."""
-    prog = WitnessProgram(cc.build_tape()[0], spec, device=dev)
-    rng = np.random.default_rng(SEED + 2)
-    inputs = canonical_limbs(rng, spec, (prog.n_inputs, spec.n_limbs, B), dev)
+def witness_path(paths, name, cc, prog, inputs, must_launch, host_map):
+    """One witness path: WitnessProgram.run at the inputs' batch, then the
+    R1CS check of every lane (launch counts read around exactly this),
+    a warm timed repeat, and 64 sampled lanes against the host calculator
+    (host_map: the lane's input ints -> the input map)."""
+    dev, spec = prog.device, prog.spec
+    B = inputs.shape[-1]
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
                           device=dev, lanes=CHECK_LANES)
 
@@ -294,19 +333,17 @@ def poseidon2_path(paths, cc, spec, dev, B):
             lambda: checker.check_detailed(wit))
         n_bad = int((~ok).sum())
         if n_bad:
-            raise SystemExit(f"FAIL R1CS check: {n_bad} of {B} lanes violate "
-                             f"a constraint (first: "
+            raise SystemExit(f"FAIL {name} R1CS check: {n_bad} of {B} lanes "
+                             f"violate a constraint (first: "
                              f"{first_bad[~ok][:5].tolist()})")
         return wit, run_ms, check_ms
 
     # the first run is the one counted; the second, warm, is timed
-    paths.run("poseidon2", run_and_check,
-              ("interp_k1a", "gather_w", "mont_mul", "sub"))
+    paths.run(name, run_and_check, must_launch)
     wit, run_ms, check_ms = run_and_check()
     say(f"  witnesses: {tuple(wit.shape)} in {run_ms:.1f} ms "
         f"({B / run_ms * 1e3:.0f} witnesses/s); R1CS check of all {B} "
         f"lanes in {check_ms:.1f} ms")
-    # 64 sampled lanes against the host calculator
     lanes = random.Random(SEED).sample(range(B), min(SAMPLE_LANES, B))
     sel = torch.as_tensor(lanes, device=wit.device)
     w_np = wit.view(torch.int32).index_select(2, sel).cpu().numpy() \
@@ -315,13 +352,25 @@ def poseidon2_path(paths, cc, spec, dev, B):
         .view(np.uint32)
     for j, lane in enumerate(lanes):
         ins = [limbs_to_int(x_np[i, :, j]) for i in range(prog.n_inputs)]
-        host = list(cc.witness_host({"inputs": ins}))
+        host = list(cc.witness_host(host_map(ins)))
         got = [limbs_to_int(w_np[i, :, j]) for i in range(w_np.shape[0])]
         if got != host:
-            raise SystemExit(f"FAIL lane {lane}: witness differs from the "
-                             "host calculator")
+            raise SystemExit(f"FAIL {name} lane {lane}: witness differs from "
+                             "the host calculator")
     say(f"  {len(lanes)} sampled lanes equal the host calculator")
-    return prog, inputs, {"run_ms": run_ms, "check_ms": check_ms}
+    return {"run_ms": run_ms, "check_ms": check_ms}
+
+
+def poseidon2_path(paths, cc, spec, dev, B):
+    """Poseidon2/bn128 witnesses at batch B, then the R1CS check of every
+    lane; launch counts are read around exactly this."""
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=dev)
+    rng = np.random.default_rng(SEED + 2)
+    inputs = canonical_limbs(rng, spec, (prog.n_inputs, spec.n_limbs, B), dev)
+    times = witness_path(paths, "poseidon2", cc, prog, inputs,
+                         ("interp_k1a", "gather_w", "mont_mul", "sub"),
+                         lambda ins: {"inputs": ins})
+    return prog, inputs, times
 
 
 def phase_entry_point(cc, device, name, batch):
@@ -387,38 +436,194 @@ def phase_narrow_units(dev, B):
         f"batch {B} and {B + 3} bit-exact")
 
 
+def phase_k1cd_units(dev, B):
+    """Phase I: every K1c and K1d opcode, one step per case (bank row,
+    shift count), on the edge operands of convert.unit_inputs, against the
+    plain executor (ops/wide.py, ops/narrow.py), bit for bit: at bn128,
+    and at goldilocks with its folded products."""
+    err = 0
+    for prime in ("bn128", "goldilocks"):
+        spec = field_spec(prime)
+        L = spec.n_limbs
+        ops = K1D_OPCODES + (K1C_OPCODES if prime == "goldilocks"
+                             else ("add",))
+        arrays, cases = unit_arrays(spec.p, L, ops)
+        plan = plan_from_arrays(arrays, dev)
+        f = TorchField(spec, dev)
+        x_w, x_n = (to_device(a, dev)
+                    for a in unit_inputs(spec.p, L, B, SEED + 8))
+        got_w, got_n = interp_k1(plan, f, x_w, x_n)
+        want_w, want_n = run_plan(plan, f, as_i64(x_w), as_i64(x_n))
+        n_idx, w_idx = plan.nw_idx.tolist(), plan.wd_idx.tolist()
+        for t, (op, aux) in enumerate(cases):
+            if t in n_idx:
+                r = int(plan.nw_src[n_idx.index(t)])
+                e = max_abs_err(got_n[r:r + 1], want_n[r:r + 1])
+            else:
+                r = int(plan.wd_src[w_idx.index(t)])
+                e = max_abs_err(got_w[r:r + 1], want_w[r:r + 1])
+            if e:
+                raise SystemExit(f"FAIL K1 {op} ({aux}) at {prime}: differs "
+                                 f"from its plain version (max abs err {e})")
+            err = max(err, e)
+        say(f"  {prime}: {len(set(ops))} opcodes in {len(cases)} steps "
+            f"(bank rows {len(arrays['cbank'])}, shift counts "
+            f"{unit_shifts(L)}) at batch {B} bit-exact")
+    return err
+
+
+def phase_k1_path(prog, x, label):
+    """Phase J: K1 against the plain executor on a path's full plan, every
+    written row of both banks, and K1's time, plain time, bytes and
+    operations at the path's batch."""
+    plan, f = prog.interp.plan, prog.field
+    dev = prog.device
+    _, x_w, x_n = prog.interp._inputs(x)
+    B = x_w.shape[-1]
+    got_w, got_n = interp_k1(plan, f, x_w, x_n)
+    (want_w, want_n), plain_ms = wall_ms(
+        lambda: run_plan(plan, f, as_i64(x_w), as_i64(x_n)))
+    rows = torch.as_tensor(plan.written_rows(), device=dev)
+    rows_n = torch.as_tensor(plan.written_rows(narrow=True), device=dev)
+    err = max(max_abs_err(got_w.view(torch.int32).index_select(0, rows)
+                          .view(torch.uint32), want_w.index_select(0, rows)),
+              max_abs_err(got_n.index_select(0, rows_n),
+                          want_n.index_select(0, rows_n)))
+    del got_w, got_n, want_w, want_n
+    ms = time_ms(lambda: interp_k1(plan, f, x_w, x_n), reps=3)
+    nbytes = 4 * B * (plan.L * (x_w.shape[0] + len(rows))
+                      + x_n.shape[0] + len(rows_n))
+    ops = k1_ops(plan, f.p.bit_length()) * B
+    say(f"  K1 on the {label} plan ({plan.n_steps} steps, parts "
+        f"{', '.join(plan.parts)}): {len(rows)} wide and {len(rows_n)} "
+        f"narrow written rows at batch {B}, max abs err {err}; "
+        f"{ms:.4f} ms (plain {plain_ms:.1f} ms; byte bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operation bound "
+        f"{ops / LANE_OPS_PER_S * 1e3:.4f} ms)")
+    return err, ms, plain_ms, nbytes, ops
+
+
+def new_paths(paths, rep, dev, B, b_div, rehearse):
+    """Phases F-K: the paths of K1c and K1d (Poseidon2/goldilocks at
+    batch B, bigint-div/bn128 at b_div, the stdlib comparators/bn128 at
+    B), K1 against its plain version on their plans and on unit plans of
+    every K1c/K1d opcode, and the entry point on a goldilocks artifact."""
+    out = {}
+    gl = field_spec("goldilocks")
+    cc_gl = compile_source(poseidon2_source("goldilocks"), prime="goldilocks")
+    prog_gl = WitnessProgram(cc_gl.build_tape()[0], gl, device=dev)
+    x_gl = canonical_limbs(np.random.default_rng(SEED + 9), gl,
+                           (prog_gl.n_inputs, gl.n_limbs, B), dev)
+    say(f"phase F: the Poseidon2/goldilocks path (batch {B})")
+    out["poseidon2_gl"] = witness_path(
+        paths, "poseidon2_gl", cc_gl, prog_gl, x_gl,
+        ("interp_k1c", "interp_k1a", "gather_w", "mont_mul", "sub"),
+        lambda ins: {"inputs": ins})
+    if not rehearse:
+        profile_breakdown(lambda: prog_gl.run(x_gl),
+                          out["poseidon2_gl"]["run_ms"])
+
+    bn = field_spec("bn128")
+    cc_bd = compile_source(BIGINT_DIV_SRC)
+    prog_bd = WitnessProgram(cc_bd.build_tape()[0], bn, device=dev)
+    rng = random.Random(5)        # bench.py's bigint-div inputs
+    x_bd = to_device(prog_bd.encode_inputs(
+        [[rng.randrange(bn.p) for _ in range(b_div)],
+         [rng.randrange(1, bn.p) for _ in range(b_div)]]), dev)
+    say(f"phase G: the bigint-div/bn128 path (batch {b_div})")
+    out["bigdiv"] = witness_path(
+        paths, "bigdiv", cc_bd, prog_bd, x_bd,
+        ("interp_k1d", "interp_k1a", "gather_w", "mont_mul", "sub"),
+        lambda ins: {"a": ins[0], "b": ins[1]})
+    if not rehearse:
+        profile_breakdown(lambda: prog_bd.run(x_bd), out["bigdiv"]["run_ms"])
+
+    cc_cmp = compile_source(comparators_source())
+    prog_cmp = WitnessProgram(cc_cmp.build_tape()[0], bn, device=dev)
+    x_cmp = to_device(comparator_inputs(B, SEED + 10, bn.n_limbs), dev)
+    say(f"phase H: the stdlib comparators/bn128 path (batch {B})")
+    out["comparators"] = witness_path(
+        paths, "comparators", cc_cmp, prog_cmp, x_cmp,
+        ("interp_k1d", "interp_k1c", "interp_k1a", "gather_w", "gather_n",
+         "mont_mul", "sub"),
+        lambda ins: {"a": ins[0], "b": ins[1]})
+    if not rehearse:
+        profile_breakdown(lambda: prog_cmp.run(x_cmp),
+                          out["comparators"]["run_ms"])
+
+    say("phase I: K1c/K1d opcodes against ops/wide.py and ops/narrow.py")
+    unit_err = phase_k1cd_units(dev, 400 if rehearse else 4096)
+    say("phase J: K1 against the plain executor on the new paths' plans")
+    k1 = {"poseidon2_gl": phase_k1_path(prog_gl, x_gl, "Poseidon2/goldilocks"),
+          "bigdiv": phase_k1_path(prog_bd, x_bd, "bigint-div/bn128"),
+          "comparators": phase_k1_path(prog_cmp, x_cmp,
+                                       "comparators/bn128")}
+    err, ms, plain_ms, nbytes, ops = k1["poseidon2_gl"]
+    rep.add("interp_k1c", "circom_tpu_torch/ops/cuda/interp.cu",
+            "circom_tpu/backend/interp.py:2462", max(err, unit_err), ms,
+            plain_ms, nbytes, ops, plan="Poseidon2/goldilocks")
+    err, ms, plain_ms, nbytes, ops = k1["comparators"]
+    e_bd, ms_bd, plain_bd, nbytes_bd, ops_bd = k1["bigdiv"]
+    rep.add("interp_k1d", "circom_tpu_torch/ops/cuda/interp.cu",
+            "circom_tpu/backend/interp.py:2462", max(err, e_bd, unit_err),
+            ms, plain_ms, nbytes, ops, plan="comparators/bn128",
+            bigdiv_ms=ms_bd, bigdiv_plain_ms=plain_bd,
+            bigdiv_bound_ms=bound(nbytes_bd, ops_bd)[0],
+            bigdiv_bound_by=bound(nbytes_bd, ops_bd)[1])
+    out["k1"] = {name: v[1] for name, v in k1.items()}
+    del prog_gl, x_gl, prog_bd, x_bd, prog_cmp, x_cmp
+
+    say("phase K: the witness entry point (Poseidon2/goldilocks)")
+    rng = random.Random(SEED + 11)
+    phase_entry_point(cc_gl, dev.type, "posgl",
+                      [{"inputs": [rng.randrange(gl.p), gl.p - 1 - k]}
+                       for k in range(4)])
+    return out
+
+
 def sha256_messages(B, seed):
     rng = np.random.default_rng(seed)
     return [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
                                            dtype=np.uint8)]
 
 
-def profile_breakdown(fn, wall):
-    """Where one warm run's time goes: device time by kernel from
-    torch.profiler, and the device's idle share of the run's wall time."""
+def profile_breakdown(fn, wall, reps=3):
+    """Where a warm run's time goes: device time by kernel from
+    torch.profiler, and the device's idle share of the run's wall time,
+    averaged over `reps` runs.  One traced run before them warms the
+    tracer up: without it the kernels of a short first run can go
+    unrecorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, ms = wall_ms(fn)
-    # kernels only: an aten op carries its kernels' device time as well
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
+    ms, traced = 0.0, []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for k in range(1 + reps):
+            _, t = wall_ms(fn)
+            ms += t if k else 0.0
+            prof.step()
+    ms /= reps
+    # kernels and copies only: an aten op carries its kernels' device time
+    # as well, and the schedule's ProfilerStep annotation spans the run
+    events = [e for e in traced[0] if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
     events.sort(key=lambda e: -e.self_device_time_total)
-    say(f"  profile of one warm run ({ms:.1f} ms under the profiler, "
-        f"{wall:.1f} ms without): device busy {busy:.2f} ms, idle share "
-        f"{max(0.0, 1 - busy / ms):.3f}")
+    say(f"  profile of {reps} warm runs (a run {ms:.2f} ms under the "
+        f"profiler, {wall:.2f} ms without): device busy {busy:.3f} ms a "
+        f"run, idle share {max(0.0, 1 - busy / ms):.3f}")
     for e in events[:8]:
-        say(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<3d} "
-            f"{e.key[:90]}")
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU),
+        say(f"    {e.self_device_time_total / 1e3 / reps:8.3f} ms "
+            f"x{e.count / reps:<5g} {e.key[:90]}")
+    host = sorted((e for e in traced[0] if e.device_type == DeviceType.CPU
+                   and not e.key.startswith("ProfilerStep")),
                   key=lambda e: -e.self_cpu_time_total)
-    say("  host time by op: " + ", ".join(
-        f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}"
-        for e in host[:6]))
+    say("  host time a run by op: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3 / reps:.3f} ms "
+        f"x{e.count / reps:g}" for e in host[:6]))
 
 
 def sha256_path(paths, cc, prog, dev, B):
@@ -554,13 +759,14 @@ def main():
     args = ap.parse_args()
     if args.rehearse:
         dev, B, lanes = torch.device("cpu"), 8, 8
-        b_full, b_cmp = 4, 4
+        b_full, b_cmp, b_div = 4, 4, 8
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
         dev, B, lanes = torch.device("cuda", 0), BATCH, CHECK_LANES
         b_full, b_cmp = SHA_FULL_BATCH, SHA_PLAIN_BATCH
+        b_div = BIGDIV_BATCH
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True)
@@ -626,6 +832,12 @@ def main():
     phase_entry_point(sha, dev.type, "sha",
                       [{"in": [int(v) for v in bits[:, j]]} for j in range(2)])
 
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    new = new_paths(paths, rep, dev, B, b_div, args.rehearse)
+    t_new = time.perf_counter() - t_new
+
     for name, row in rep.rows.items():
         by_path = paths.of(name)
         row["launches"] = sum(by_path.values())
@@ -637,7 +849,16 @@ def main():
         f"{k1b_ms:.3f} ms, K3 {k3_ms:.3f} ms")
     say(f"SHA256 full path: {full_ms:.1f} ms full-limb run, "
         f"{full_check_ms:.1f} ms R1CS check (batch {b_full})")
-    say(f"smoke total {time.perf_counter() - t_all:.1f} s")
+    for name, label, b in (("poseidon2_gl", "Poseidon2/goldilocks", B),
+                           ("bigdiv", "bigint-div/bn128", b_div),
+                           ("comparators", "comparators/bn128", B)):
+        t = new[name]
+        say(f"{label} path: {t['run_ms']:.1f} ms witness run "
+            f"({b / t['run_ms'] * 1e3:.0f} witnesses/s), "
+            f"{t['check_ms']:.1f} ms R1CS check (batch {b}); K1 "
+            f"{new['k1'][name]:.3f} ms")
+    say(f"smoke total {time.perf_counter() - t_all:.1f} s, phases F-K "
+        f"{t_new:.1f} s")
     if args.rehearse:
         print(json.dumps({"kernels": list(rep.rows.values())}),
               file=sys.stderr)

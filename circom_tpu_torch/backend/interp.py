@@ -10,8 +10,8 @@
   `mixed_layout()`.  A bit-class witness value stays one int32 (SHA256 at
   batch 65,536: 7.2 GB mixed, 115 GB in limbs).
 
-On CUDA it launches the interpreter kernel K1 (ops/cuda/interp.cu: the
-wide lane K1a with its trailing REDC and the narrow lane K1b, in one
+On CUDA it launches the interpreter kernel K1 (ops/cuda/interp.cu: every
+opcode of the planner, K1a to K1d, with the trailing REDC, in one
 launch), the wide witness gather K2 and the narrow gather with bit unpack
 K3 (ops/cuda/gather.cu).  On the CPU it runs the plain versions of
 backend/interp_ref.py.  Narrow rows of the full-limb witness are widened
@@ -26,11 +26,12 @@ several kernel calls answer the TPU's memory layout and do not exist here.
 import numpy as np
 import torch
 
-from ..convert import DevicePlan, to_device
+from ..convert import GOLDILOCKS_OPS, DevicePlan, to_device
 from ..ops.build import LAUNCHES, check_launch, library, stream_ptr, u32_array
-from ..ops.field import TorchField, as_i64, as_u32
+from ..ops.field import GOLDILOCKS_P, TorchField, as_i64, as_u32
 from ..ops.narrow import to_i32, widen_narrow
 from .interp_ref import gather_n_rows, gather_rows, run_plan
+from .plan import UnsupportedTapeOp
 
 
 def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
@@ -38,6 +39,7 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
     -> (wide bank uint32 (n_chunks * (K + 1), L, B), flagged rows reduced
     out of Montgomery form; narrow bank int32 (n_chunks * (KN + 1), B)).
     On CUDA, bank rows that no step writes are left unset."""
+    check_field(plan, field)
     if x_w.device.type == "cpu":
         bank, bank_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
         return as_u32(bank), to_i32(bank_n)
@@ -56,13 +58,9 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
                          f"{tuple(x_n.shape)}")
     x_w, x_n = x_w.contiguous(), x_n.contiguous()
     dev = x_w.device
-    # a register file the plan neither loads nor steps on is not allocated
-    rf = torch.empty((plan.n_regs, L, B), dtype=torch.uint32, device=dev) \
-        if "wide" in plan.lanes or len(plan.win_order) or \
-        len(plan.mat_regs) else None
-    rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev) \
-        if "narrow" in plan.lanes or len(plan.nin_order) or \
-        len(plan.nmat_regs) else None
+    # the register files (each at least its trash row) and the banks
+    rf = torch.empty((plan.n_regs, L, B), dtype=torch.uint32, device=dev)
+    rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev)
     bank = torch.empty((plan.n_bank_rows, L, B), dtype=torch.uint32,
                        device=dev)
     bank_n = torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
@@ -76,16 +74,31 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
         d["mont_tab"].data_ptr(), d["mat_regs"].data_ptr(),
         d["mat_limbs"].data_ptr(), len(plan.mat_regs),
         d["nmat_regs"].data_ptr(), d["nmat_vals"].data_ptr(),
-        len(plan.nmat_regs), rf.data_ptr() if rf is not None else None,
-        bank.data_ptr(), plan.K, rf_n.data_ptr() if rf_n is not None
-        else None, bank_n.data_ptr(), plan.KN, u32_array(field.p_list),
-        u32_array(field.r2_list), field.n0inv, stream_ptr(dev))
-    # one launch runs both lanes; it counts for each lane its plan runs
-    # (interp_k1a: wide steps, interp_k1b: narrow steps)
-    for lane in plan.lanes or ("wide",):
-        LAUNCHES["interp_k1a" if lane == "wide" else "interp_k1b"] += 1
+        len(plan.nmat_regs), rf.data_ptr(), bank.data_ptr(), plan.K,
+        rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
+        u32_array(field.p_list), u32_array(field.r2_list), field.n0inv,
+        u32_array(field.half_list), u32_array(field.mask_list),
+        u32_array(field.q_list), field.p.bit_length(),
+        int(bool({"interp_k1c", "interp_k1d"} & set(plan.parts))),
+        stream_ptr(dev))
+    # one launch runs every part; it counts for each part its plan runs
+    # (interp_k1a .. interp_k1d, convert.PARTS)
+    for part in plan.parts or ("interp_k1a",):
+        LAUNCHES[part] += 1
     check_launch(rc, "interp_k1")
     return bank, bank_n
+
+
+def check_field(plan: DevicePlan, field: TorchField):
+    """The plan's limbs are the field's, and goldilocks' folded products
+    run on goldilocks only."""
+    if plan.L != field.L:
+        raise ValueError(f"plan has {plan.L} limbs, field {field.L}")
+    gl = sorted(plan.opcodes & GOLDILOCKS_OPS)
+    if gl and field.p != GOLDILOCKS_P:
+        raise UnsupportedTapeOp(
+            f"{', '.join(gl)}: goldilocks' folded products, on the "
+            f"{field.spec.name} field")
 
 
 def gather_w(bank, idx):
@@ -155,8 +168,7 @@ class TorchInterpreter:
     """Executable interpreter plan on one device."""
 
     def __init__(self, plan: DevicePlan, field: TorchField):
-        if plan.L != field.L:
-            raise ValueError(f"plan has {plan.L} limbs, field {field.L}")
+        check_field(plan, field)
         self.plan = plan
         self.field = field
         self.device = plan.device

@@ -6,10 +6,11 @@ the narrow nodes, DomainTape assigns Montgomery and canonical domains, the
 interpreter planner builds the tables, and TorchInterpreter runs them
 (kernels K1, K2 and K3 on CUDA, the plain executor on the CPU).
 
-A tape the planner refuses, or whose plan needs opcodes outside the
-interpreter kernel (K1a's wide ones and K1b's narrow ones), raises
-UnsupportedTapeOp naming what is missing; nothing falls back to another
-executor on the card.
+Every plan the interpreter planner produces runs (kernel K1 takes all of
+its opcodes).  A tape the planner refuses (its register files exceed the
+JAX kernel's VMEM budget) raises UnsupportedTapeOp; the JAX package runs
+such tapes on its segmented and per-op backends, which the port does not
+have yet.  Nothing falls back to another executor on the card.
 """
 
 import numpy as np

@@ -1,0 +1,106 @@
+"""Circuit sources of the port's benchmark-class paths.
+
+- BIGINT_DIV_SRC: a witness-dependent integer division and remainder
+  (a copy of bench.py's BIGINT_DIV_SRC, the circomlib bigint-hint class);
+  its plan runs the wide long division `idiv`.
+- comparators_source(): LessThan(64), LessEqThan(64) and IsEqual() of two
+  inputs a and b, and Num2Bits(64) of a + b, from the standard gadget
+  library circuits/stdlib.circom: the range-check and comparator class
+  that almost every circomlib circuit contains.  Num2Bits' constraint
+  holds for a + b < 2^64.
+- poseidon2_source(prime): the repository's generated Poseidon2 (t = 3).
+"""
+
+from pathlib import Path
+
+import numpy as np
+
+from .gen_poseidon import generate
+
+BIGINT_DIV_SRC = """
+pragma circom 2.0.0;
+template BigDiv() {
+    // circomlib-style bigint hint: witness-dependent integer division
+    // (RSA/ECDSA-class patterns); the in-kernel long-division loop
+    // runs 254 shift/compare/subtract iterations per idiv
+    signal input a;
+    signal input b;
+    signal output q;
+    signal output r;
+    q <-- a \\ b;
+    r <-- a % b;
+    a === q * b + r;
+}
+component main = BigDiv();
+"""
+
+COMPARATORS_MAIN = """
+template Comparators64() {
+    signal input a;
+    signal input b;
+    signal output lt;
+    signal output le;
+    signal output eq;
+    signal output bits[64];
+    component c_lt = LessThan(64);
+    c_lt.in[0] <== a;
+    c_lt.in[1] <== b;
+    lt <== c_lt.out;
+    component c_le = LessEqThan(64);
+    c_le.in[0] <== a;
+    c_le.in[1] <== b;
+    le <== c_le.out;
+    component c_eq = IsEqual();
+    c_eq.in[0] <== a;
+    c_eq.in[1] <== b;
+    eq <== c_eq.out;
+    component n2b = Num2Bits(64);
+    n2b.in <== a + b;
+    for (var i = 0; i < 64; i++) { bits[i] <== n2b.out[i]; }
+}
+component main = Comparators64();
+"""
+
+
+def comparators_source(stdlib=None):
+    """The comparator circuit over the given stdlib text (default: the
+    port's copy, circuits/stdlib.circom)."""
+    if stdlib is None:
+        stdlib = (Path(__file__).resolve().parent
+                  / "stdlib.circom").read_text()
+    return stdlib + COMPARATORS_MAIN
+
+
+def poseidon2_source(prime="bn128"):
+    return generate((2,), prime=prime) + "\ncomponent main = Poseidon2();\n"
+
+
+def comparator_inputs(B, seed, L):
+    """Inputs a, b of the comparator circuit as uint32 limbs (2, L, B),
+    with a + b < 2^64: the first lanes are edge pairs, then every fourth
+    lane has a = b, every fourth a + b just below 2^64 (one operand near
+    2^64, the other tiny), and the rest a random split of a random 64-bit
+    sum, so that a < b and a > b both occur."""
+    rng = np.random.default_rng(seed)
+    top = np.uint64(2 ** 64 - 1)
+    s = rng.integers(0, top, size=B, dtype=np.uint64, endpoint=True)
+    a = rng.integers(0, s, dtype=np.uint64, endpoint=True)
+    lane = np.arange(B)
+    eq = lane % 4 == 0
+    a[eq] = s[eq] // np.uint64(2)
+    s[eq] = a[eq] * np.uint64(2)
+    near = lane % 4 == 1
+    s[near] = top - rng.integers(0, 1024, size=int(near.sum()),
+                                 dtype=np.uint64)
+    j = rng.integers(0, 4, size=int(near.sum()), dtype=np.uint64)
+    a[near] = np.where(lane[near] % 8 == 1, s[near] - j, j)
+    b = s - a
+    edges = [(0, 0), (2 ** 64 - 1, 0), (0, 2 ** 64 - 1), (2 ** 63, 2 ** 63 - 1),
+             (2 ** 63 - 1, 2 ** 63), (1, 0), (0, 1), (2 ** 32, 2 ** 32)]
+    for k, (x, y) in enumerate(edges[:B]):
+        a[k], b[k] = x, y
+    out = np.zeros((2, L, B), np.uint32)
+    for i in range(4):
+        out[0, i] = (a >> np.uint64(16 * i)) & np.uint64(0xFFFF)
+        out[1, i] = (b >> np.uint64(16 * i)) & np.uint64(0xFFFF)
+    return out

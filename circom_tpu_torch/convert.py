@@ -15,22 +15,45 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from .backend.interp_plan import _OPERAND_FILES, mixed_split
+from .backend.interp_plan import (_NARROW_RESULT, _OPERAND_FILES,
+                                  mixed_split)
 from .backend.plan import UnsupportedTapeOp
 from .ops.limbs import int_to_limbs
 from .utils.device import resolve_device
 
 # the opcodes of the interpreter kernel, in its numbering (enum Op in
-# ops/cuda/interp.cu): K1a's wide opcodes, then K1b's narrow ones
+# ops/cuda/interp.cu): K1a's wide opcodes, K1b's narrow ones, K1c's
+# goldilocks ones, then K1d, every other opcode of the planner (wide
+# results first, narrow results after)
 K1A_OPCODES = ("copyw", "mul", "mul_r2", "add_c", "dot2_c", "dot3_c")
 K1B_OPCODES = ("ncopy", "nadd", "nmul", "nband", "nbor", "nbxor", "nshl",
                "nshr", "nshru", "nxbit", "nmshl", "nmshru", "nrotr")
-OPCODES = K1A_OPCODES + K1B_OPCODES
-# register operands each opcode reads (columns 1.. of the table); add_c's
-# column 2 is a constant-bank row, the dots' bank rows start at column 6,
-# and the shift counts of the narrow ops are column 6
-N_OPERANDS = dict(zip(OPCODES, (1, 2, 1, 1, 2, 3,
-                                1, 2, 2, 2, 2, 2, 1, 1, 1, 1, 2, 2, 1)))
+K1C_OPCODES = ("gmul", "gmul_c", "add")
+CMP_OPS = ("eq", "neq", "lt", "le", "gt", "ge", "land", "lor")
+K1D_OPCODES = (
+    ("sub", "sub_c", "csub_c", "mul_c", "mul_one", "select") + CMP_OPS
+    + ("lnot", "band", "bor", "bxor", "bnot", "shl_kw", "shr_kw", "widen",
+       "idiv", "nsub", "nsel", "nsel_w", "nidiv", "nband_w", "lnot_n",
+       "lnot_w")
+    + tuple(f"{o}_nn" for o in CMP_OPS) + tuple(f"{o}_ww" for o in CMP_OPS))
+OPCODES = K1A_OPCODES + K1B_OPCODES + K1C_OPCODES + K1D_OPCODES
+# the kernel's parts, by the opcodes each runs (launch counts per part)
+PARTS = {"interp_k1a": K1A_OPCODES, "interp_k1b": K1B_OPCODES,
+         "interp_k1c": K1C_OPCODES, "interp_k1d": K1D_OPCODES}
+# register operands each opcode reads (columns 1..3 of the table, in the
+# files of _OPERAND_FILES); bank rows are column 2 (add_c, sub_c, csub_c,
+# mul_c, gmul_c) or column 6 (the dots, nband_w); shift counts column 6
+_TWO = {"mul", "dot2_c", "nadd", "nmul", "nband", "nbor", "nbxor", "nmshl",
+        "nmshru", "gmul", "add", "sub", "band", "bor", "bxor", "idiv",
+        "nsub", "nidiv"} | set(CMP_OPS) \
+    | {f"{o}_{f}" for o in CMP_OPS for f in ("nn", "ww")}
+_THREE = {"dot3_c", "select", "nsel", "nsel_w"}
+N_OPERANDS = {op: 3 if op in _THREE else 2 if op in _TWO else 1
+              for op in OPCODES}
+# opcodes whose column 2 is a constant-bank row
+BANK_B = {"add_c", "sub_c", "csub_c", "mul_c", "gmul_c"}
+# goldilocks' folded products: only the goldilocks field runs them
+GOLDILOCKS_OPS = {"gmul", "gmul_c"}
 
 
 @dataclass
@@ -77,24 +100,29 @@ class DevicePlan:
     def n_witness(self):
         return len(self.nw_idx) + len(self.wd_idx)
 
-    @cached_property
-    def lanes(self):
-        """The interpreter's lanes the steps run: "wide" (K1a's opcodes)
-        and/or "narrow" (K1b's)."""
-        run = set(self.table[:self.n_steps, 0].tolist())
-        return tuple(lane for lane, ops in (("wide", K1A_OPCODES),
-                                            ("narrow", K1B_OPCODES))
-                     if run & {OPCODES.index(op) for op in ops})
-
     @property
     def n_steps(self):
         return int(self.r_s0[-1])
 
+    @cached_property
+    def opcodes(self):
+        """The opcodes the steps run, by name."""
+        return {OPCODES[k] for k in set(self.table[:self.n_steps, 0]
+                                        .tolist())}
+
+    @property
+    def parts(self):
+        """The kernel's parts the steps run ("interp_k1a" .. "interp_k1d",
+        see PARTS)."""
+        return tuple(part for part, ops in PARTS.items()
+                     if self.opcodes & set(ops))
+
     def written_rows(self, narrow=False):
         """Bank rows the steps write (emission and dump rows) of the wide
-        bank, or of the narrow bank."""
-        ops = K1B_OPCODES if narrow else K1A_OPCODES
-        codes = [OPCODES.index(op) for op in ops]
+        bank, or of the narrow bank: the rows of the steps whose result
+        lands in that file."""
+        codes = [k for k, op in enumerate(OPCODES)
+                 if (op in _NARROW_RESULT) == narrow]
         per = (self.KN if narrow else self.K) + 1
         rows = set()
         for c in range(self.n_chunks):
@@ -115,8 +143,7 @@ def plan_from_arrays(arrays, device) -> DevicePlan:
     bad = [op for op in used if op not in OPCODES]
     if bad:
         raise UnsupportedTapeOp(
-            "opcodes outside the interpreter kernel (K1a wide, K1b "
-            "narrow): " + ", ".join(bad))
+            "opcodes outside the interpreter kernel K1: " + ", ".join(bad))
     code = np.asarray([OPCODES.index(op) if op in OPCODES else -1
                        for op in opnames] or [0], np.int32)
     table = table.copy()
@@ -191,6 +218,85 @@ def narrow_unit_arrays(L, counts=(0, 1, 31, 32, 33, -1)):
     }, cases
 
 
+NARROW_EDGES = (-2 ** 31, -1, 0, 1, 2 ** 31 - 1)
+
+
+def wide_edges(p):
+    """The wide operand values at the edges of the arithmetic: 0, 1,
+    p - 1, the p/2 pivot of the sign rule and its successor, one full
+    limb, and 2^64 - 2^32 (goldilocks' p - 1)."""
+    return (0, 1, p - 1, p // 2, p // 2 + 1, 2 ** 16 - 1, 2 ** 64 - 2 ** 32)
+
+
+def unit_shifts(L):
+    return (0, 1, 15, 16, 17, 16 * L - 1, 16 * L)
+
+
+def unit_arrays(p, L, ops):
+    """Plan arrays (the keys of plan_arrays()) of a unit plan for opcodes
+    of K1c and K1d: three wide inputs x, y, z (input indices 0-2) and
+    three narrow inputs u, v, w (3-5); one step per case, each reading
+    the operands of its files in that order and emitted to its own bank
+    row and witness row.  An opcode with a bank operand takes one case
+    per bank row, which holds wide_edges(p); a wide shift one per count
+    of unit_shifts(L).  Returns (arrays, [(opcode, aux)] per step)."""
+    edges = wide_edges(p)
+    cases = []
+    for op in ops:
+        if op in BANK_B or op == "nband_w":
+            cases += [(op, k) for k in range(len(edges))]
+        elif op in ("shl_kw", "shr_kw"):
+            cases += [(op, s) for s in unit_shifts(L)]
+        else:
+            cases.append((op, 0))
+    opset_n = sorted({op for op, _ in cases if op in _NARROW_RESULT})
+    opset_w = sorted({op for op, _ in cases if op not in _NARROW_RESULT})
+    opnames = opset_n + opset_w
+    table = np.zeros((len(cases), 7), np.int32)
+    wit_src, em = [], {"n": 0, "w": 0}
+    for t, (op, aux) in enumerate(cases):
+        f = "n" if op in _NARROW_RESULT else "w"
+        cols = [0, 1, 2]
+        if op in BANK_B:
+            cols[1] = aux
+        table[t] = (opnames.index(op), *cols, 3, em[f], aux)
+        wit_src.append(("emitn" if f == "n" else "emit", 0, em[f]))
+        em[f] += 1
+    return {
+        "table": table, "r_op": table[:, 0].copy(),
+        "r_s0": np.arange(len(cases) + 1, dtype=np.int32),
+        "rstarts": np.asarray([0, len(cases)], np.int32),
+        "cbank": np.stack([int_to_limbs(v, L) for v in edges]),
+        "mont_tab": np.zeros(em["w"] + 1, np.int32), "mat_loads": [],
+        "nmat_loads": [], "wit_src": wit_src,
+        "win_of": {0: 0, 1: 1, 2: 2}, "nin_of": {3: 0, 4: 1, 5: 2},
+        "K": em["w"], "KN": em["n"], "n_regs": 4, "n_nregs": 4,
+        "n_chunks": 1, "calls": [(0, 1, 0, len(cases))],
+        "opset_n": opset_n, "opset_w": opset_w,
+    }, cases
+
+
+def unit_inputs(p, L, B, seed):
+    """Inputs of a unit plan: wide uint32 (3, L, B) and narrow int32
+    (3, B).  The first 343 lanes take every triple of wide_edges(p), the
+    first 125 every triple of NARROW_EDGES; the other lanes are random
+    canonical values and random int32s."""
+    rng = np.random.default_rng(seed)
+    top = p >> (16 * (L - 1))
+    x_w = rng.integers(0, 1 << 16, size=(3, L, B), dtype=np.uint32)
+    x_w[:, L - 1] = rng.integers(0, top, size=(3, B), dtype=np.uint32)
+    x_n = rng.integers(-2 ** 31, 2 ** 31, size=(3, B)).astype(np.int32)
+    for vals, out, n in ((wide_edges(p), x_w, 7), (NARROW_EDGES, x_n, 5)):
+        for b in range(min(B, n ** 3)):
+            for k in range(3):
+                v = vals[b // n ** k % n]
+                if out is x_w:
+                    out[k, :, b] = int_to_limbs(v, L)
+                else:
+                    out[k, b] = v
+    return x_w, x_n
+
+
 def _in(a, hi):
     return bool(np.all((a >= 0) & (a < hi)))
 
@@ -220,15 +326,19 @@ def _check_bounds(plan):
         if not len(rows):
             continue
         files = _OPERAND_FILES.get(name, ("w", "w", "w"))
-        narrow = name in K1B_OPCODES
+        narrow = name in _NARROW_RESULT
         ok = ok and all(_in(rows[:, 1 + j], size[files[j]])
                         for j in range(N_OPERANDS[name]))
         ok = ok and _in(rows[:, 4], size["n" if narrow else "w"])
         ok = ok and _in(rows[:, 5], (plan.KN if narrow else plan.K) + 1)
-        if name == "add_c":
+        if name in BANK_B:
             ok = ok and _in(rows[:, 2], n_bank)
         if name in ("dot2_c", "dot3_c"):
             ok = ok and _in(rows[:, 6], n_bank - N_OPERANDS[name])
+        if name == "nband_w":
+            ok = ok and _in(rows[:, 6], n_bank)
+        if name in ("shl_kw", "shr_kw"):
+            ok = ok and bool(np.all(rows[:, 6] >= 0))
     n_wide_src = plan.n_bank_rows + max(len(plan.win_order), 1) \
         + len(plan.consts)
     ok = (

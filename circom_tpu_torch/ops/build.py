@@ -24,7 +24,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "cuda"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_ops", "interp", "gather")
-HEADERS = ("field.cuh", "narrow.cuh")
+HEADERS = ("field.cuh", "narrow.cuh", "wide.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +47,7 @@ SIGNATURES = {
         "ctpu_interp_k1": (
             _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                  _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32, _PU32,
-                 _U32, _P]),
+                 _U32, _PU32, _PU32, _PU32, _I, _I, _P]),
     },
     "gather": {
         "ctpu_gather_rows": (_I, [_P, _P, _P, _LL, _LL, _P]),

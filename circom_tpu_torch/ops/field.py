@@ -56,6 +56,12 @@ class TorchField:
         self.n0inv = int(c["n0inv"])
         self.p_list = [int(x) for x in c["p_limbs"]]
         self.r2_list = [int(x) for x in c["R2_limbs"]]
+        # the p/2 pivot of signed comparisons, the complement mask
+        # 2^bits - 1 and p - 2^32 (the widening of negative int32s)
+        self.half_list = [int(x) for x in c["half_limbs"]]
+        self.mask_list = [int(x) for x in c["mask_limbs"]]
+        self.q_list = [(self.p - (1 << 32)) >> (LIMB_BITS * i) & MASK
+                       for i in range(self.L)]
 
         def limbs(a):
             return torch.as_tensor(a.astype("int64"),

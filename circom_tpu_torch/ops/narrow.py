@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the narrow int32 lane of the interpreter.
 
-The 13 narrow opcodes of kernel K1b (ops/cuda/interp.cu, helpers in
-ops/cuda/narrow.cuh), the bit unpack of the narrow witness gather K3
-(ops/cuda/gather.cu) and the widening of narrow values into canonical limb
-rows.  They copy the semantics of the JAX package's interpreter kernel
+The 13 narrow opcodes of kernel K1b and the narrow-operand ones of K1d
+(nsub, nsel, nidiv, lnot_n and the eight signed *_nn comparisons;
+ops/cuda/interp.cu, helpers in ops/cuda/narrow.cuh), the bit unpack of
+the narrow witness gather K3 (ops/cuda/gather.cu) and the widening of
+narrow values into canonical limb rows.  They copy the semantics of the JAX package's interpreter kernel
 (backend/interp.py, `nbranch`, `_unpack_bits`, `_widen_narrow`), including
 XLA's rules where C++ leaves the result undefined:
 
@@ -13,7 +14,9 @@ XLA's rules where C++ leaves the result undefined:
   gives 0 for `<<` and for a logical `>>`, and the sign fill for an
   arithmetic `>>`;
 - nrotr by r is (a >>u r) | (a << (32 - r)) with both counts under that
-  rule, so a rotate by 0 or 32 is the identity and one by 33 gives 0.
+  rule, so a rotate by 0 or 32 is the identity and one by 33 gives 0;
+- nidiv is jnp's int32 floor division, not C's truncating one, guarded
+  to 0 for a zero divisor; INT32_MIN // -1 wraps to INT32_MIN.
 
 Values are int64 tensors holding signed 32-bit values (sign-extended);
 shift counts are Python ints or int64 tensors that broadcast against them.
@@ -64,7 +67,37 @@ def rotr(x, s):
     return i32(shru(x, s) | shl(x, (32 - s) & M32))
 
 
-# name -> f(a, b, aux) over int64 tensors of signed 32-bit values
+def nidiv(a, b):
+    """a // b rounded to minus infinity, as jnp's int32 `//` (with XLA's
+    INT32_MIN // -1 = INT32_MIN), and 0 where b = 0."""
+    q = torch.div(a, torch.where(b == 0, 1, b), rounding_mode="floor")
+    return torch.where(b == 0, 0, i32(q))
+
+
+def nsel(a, b, c):
+    """b where a != 0, else c."""
+    return torch.where(a != 0, b, c)
+
+
+def _01(mask):
+    return mask.to(torch.int64)
+
+
+# the signed int32 comparisons and booleans of the *_nn opcodes
+CMP_NN = {
+    "eq": lambda a, b: _01(a == b),
+    "neq": lambda a, b: _01(a != b),
+    "lt": lambda a, b: _01(a < b),
+    "le": lambda a, b: _01(a <= b),
+    "gt": lambda a, b: _01(a > b),
+    "ge": lambda a, b: _01(a >= b),
+    "land": lambda a, b: _01((a != 0) & (b != 0)),
+    "lor": lambda a, b: _01((a != 0) | (b != 0)),
+}
+
+# name -> f(a, b, aux) over int64 tensors of signed 32-bit values: K1b's
+# 13 opcodes, then K1d's narrow ones that read narrow operands only (nsel
+# takes three: `nsel` above)
 NARROW_OPS = {
     "ncopy": lambda a, b, s: a,
     "nadd": lambda a, b, s: i32(a + b),
@@ -79,6 +112,11 @@ NARROW_OPS = {
     "nmshl": lambda a, b, s: shl(a & b, s),
     "nmshru": lambda a, b, s: shru(a & b, s),
     "nrotr": lambda a, b, s: rotr(a, s),
+    "nsub": lambda a, b, s: i32(a - b),
+    "nidiv": lambda a, b, s: nidiv(a, b),
+    "lnot_n": lambda a, b, s: _01(a == 0),
+    **{f"{o}_nn": (lambda f: lambda a, b, s: f(a, b))(f)
+       for o, f in CMP_NN.items()},
 }
 
 

@@ -8,6 +8,8 @@ plan to the JAX planner's, table for table.
 
 from pathlib import Path
 
+import ast
+
 import numpy as np
 import pytest
 
@@ -18,7 +20,10 @@ from circom_tpu.field.primes import field_spec as jax_field_spec
 from circom_tpu_torch.backend.dynops import lower_dynamic_ops
 from circom_tpu_torch.backend.torch_backend import build_plan
 from circom_tpu_torch.circuits.gen_poseidon import generate
+from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
+                                               comparators_source)
 from circom_tpu_torch.compiler.pipeline import compile_source
+from circom_tpu_torch.convert import plan_from_arrays
 from circom_tpu_torch.field.primes import field_spec
 from test_bitpack import WORD_SRC
 
@@ -41,7 +46,7 @@ COPIES = [
     "backend/ranges.py", "backend/bitpack.py", "backend/dynops.py",
     "backend/artifacts.py",
     "circuits/__init__.py", "circuits/gen_poseidon.py",
-    "circuits/sha256.circom",
+    "circuits/sha256.circom", "circuits/stdlib.circom",
 ]
 
 # the keys of InterpreterPlan.plan_arrays(), read off the JAX
@@ -136,8 +141,13 @@ def _plan_both(case):
     elif name == "sha256":
         src_ref, src_port = sha256_src("circom_tpu"), \
             sha256_src("circom_tpu_torch")
+    elif name == "cmp":
+        src_ref = comparators_source(
+            (ROOT / "circom_tpu/circuits/stdlib.circom").read_text())
+        src_port = comparators_source()
     else:
-        src_ref = src_port = {"mixed": MIXED_SRC, "word": WORD_SRC}[name]
+        src_ref = src_port = {"mixed": MIXED_SRC, "word": WORD_SRC,
+                              "bigdiv": BIGINT_DIV_SRC}[name]
     cc_ref = jax_compile(src_ref, prime=prime)
     tape_ref, _ = cc_ref.build_tape()
     jp = JaxProgram(tape_ref, jax_field_spec(prime), unroll_threshold=0,
@@ -152,7 +162,8 @@ def _plan_both(case):
 
 @pytest.mark.parametrize("case", ["poseidon2-bn128", "poseidon2-goldilocks",
                                   "mixed-goldilocks", "word-goldilocks",
-                                  "sha256-bn128"])
+                                  "sha256-bn128", "bigdiv-bn128",
+                                  "cmp-bn128"])
 def test_plan_arrays_match_jax_planner(case, planned):
     jp, plan = planned(case)
     arrays = plan.plan_arrays()
@@ -160,3 +171,27 @@ def test_plan_arrays_match_jax_planner(case, planned):
     for key in PLAN_KEYS:
         assert _same(arrays[key], getattr(jp, key)), key
     assert plan.mixed_layout() == jp.mixed_layout()
+
+
+def test_bigint_div_source_is_bench_py_s():
+    """circuits/sources.py's BIGINT_DIV_SRC is bench.py's, read with ast
+    (importing bench.py would run its JAX set-up)."""
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    ref = [ast.literal_eval(n.value) for n in tree.body
+           if isinstance(n, ast.Assign)
+           and getattr(n.targets[0], "id", "") == "BIGINT_DIV_SRC"]
+    assert ref == [BIGINT_DIV_SRC]
+
+
+@pytest.mark.parametrize("case", ["poseidon2-goldilocks", "bigdiv-bn128",
+                                  "cmp-bn128"])
+def test_k1cd_plans_convert_from_both_planners(case, planned):
+    """plan_from_arrays takes the plans of the K1c/K1d paths from the
+    port's planner and from the JAX one, into the same device plan."""
+    jp, plan = planned(case)
+    a = plan_from_arrays(plan.plan_arrays(), "cpu")
+    b = plan_from_arrays({k: getattr(jp, k) for k in PLAN_KEYS}, "cpu")
+    for name in ("table", "r_op", "r_s0", "rstarts", "cbank", "mont_tab",
+                 "nw_src", "wd_src", "consts"):
+        assert np.array_equal(getattr(a, name), getattr(b, name)), name
+    assert a.opcodes == b.opcodes and len(a.parts) >= 2

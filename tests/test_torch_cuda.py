@@ -24,9 +24,14 @@ from circom_tpu_torch.backend.interp_ref import (gather_n_rows, gather_rows,
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits import sha256_io
 from circom_tpu_torch.circuits.gen_poseidon import generate
+from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
+                                               comparator_inputs,
+                                               comparators_source,
+                                               poseidon2_source)
 from circom_tpu_torch.compiler.pipeline import compile_source
-from circom_tpu_torch.convert import narrow_unit_arrays, plan_from_arrays
-from circom_tpu_torch.convert import to_device
+from circom_tpu_torch.convert import (K1C_OPCODES, K1D_OPCODES,
+                                      narrow_unit_arrays, plan_from_arrays,
+                                      to_device, unit_arrays, unit_inputs)
 from circom_tpu_torch.field.primes import LIMB_BITS, field_spec
 from circom_tpu_torch.ops import field_kernels as fk
 from circom_tpu_torch.ops.field import TorchField, as_i64
@@ -190,3 +195,73 @@ def test_sha256_run_mixed_digests(card):
     digest = sha256_io.digest_bits_from_witness(narrow, prog.mixed_layout())
     assert np.array_equal(digest.cpu().numpy(),
                           sha256_io.digest_bits_batch(msgs))
+
+
+@pytest.mark.parametrize("prime", ["bn128", "goldilocks"])
+def test_k1c_k1d_unit_plan_matches_plain(card, prime):
+    """Every K1c/K1d opcode (goldilocks' products at goldilocks only), one
+    step per case, on the edge operands: every written row of both banks
+    bit for bit."""
+    spec = field_spec(prime)
+    L = spec.n_limbs
+    ops = K1D_OPCODES + (K1C_OPCODES if prime == "goldilocks" else ("add",))
+    arrays, _cases = unit_arrays(spec.p, L, ops)
+    plan = plan_from_arrays(arrays, card)
+    x_w, x_n = unit_inputs(spec.p, L, 4096, 31)
+    k1_against_plain_both(plan, TorchField(spec, card),
+                          to_device(x_w, card), to_device(x_n, card), card)
+
+
+def k1_against_plain_both(plan, field, x_w, x_n, card):
+    got_w, got_n = interp_k1(plan, field, x_w, x_n)
+    want_w, want_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
+    torch.cuda.synchronize()
+    rows = torch.as_tensor(plan.written_rows(), device=card)
+    rows_n = torch.as_tensor(plan.written_rows(narrow=True), device=card)
+    assert len(rows) + len(rows_n)
+    assert torch.equal(as_i64(got_w)[rows], want_w[rows])
+    assert torch.equal(got_n.long()[rows_n], want_n[rows_n])
+
+
+def path_program(name, card):
+    """(compiled circuit, WitnessProgram, inputs (n, L, B) numpy) of one of
+    the paths K1c/K1d run, at a small batch."""
+    prime = "goldilocks" if name == "poseidon2-goldilocks" else "bn128"
+    spec = field_spec(prime)
+    src = {"poseidon2-goldilocks": poseidon2_source("goldilocks"),
+           "bigdiv-bn128": BIGINT_DIV_SRC,
+           "cmp-bn128": comparators_source()}[name]
+    cc = compile_source(src, prime=prime)
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=card,
+                          input_ranges=cc.input_range_hints())
+    rng = np.random.default_rng(32)
+    B = 640
+    if name == "cmp-bn128":
+        x = comparator_inputs(B, 33, spec.n_limbs)
+    else:
+        x = canonical(rng, prime, (prog.n_inputs, spec.n_limbs, B))
+        if name == "bigdiv-bn128":
+            x[1, 0, :] |= 1        # a nonzero divisor
+    return cc, prog, x
+
+
+@pytest.mark.parametrize("name", ["poseidon2-goldilocks", "bigdiv-bn128",
+                                  "cmp-bn128"])
+def test_k1cd_path_matches_plain_host_and_r1cs(card, name):
+    cc, prog, x = path_program(name, card)
+    plan = prog.interp.plan
+    _, x_w, x_n = prog.interp._inputs(x)
+    k1_against_plain_both(plan, prog.field, x_w, x_n, card)
+    wit = prog.run(x)
+    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], prog.spec,
+                          device=card, lanes=256)
+    ok, _ = checker.check_detailed(wit)
+    assert bool(ok.all())
+    w = wit.view(torch.int32).cpu().numpy().view(np.uint32)
+    for lane in (0, 1, 5, 321, 639):
+        ins = [limbs_to_int(x[i, :, lane]) for i in range(prog.n_inputs)]
+        raw = {"inputs": ins} if name.startswith("poseidon2") \
+            else {"a": ins[0], "b": ins[1]}
+        host = list(cc.witness_host(raw))
+        assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] \
+            == host

@@ -6,6 +6,7 @@ witness must equal, bit for bit, both the JAX WitnessProgram's scan path
 on the CPU (plain jnp, no Pallas) and the host calculator.
 """
 
+import ast
 import re
 from pathlib import Path
 
@@ -24,7 +25,7 @@ from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits.gen_poseidon import generate
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.convert import OPCODES, plan_from_arrays
-from circom_tpu_torch.field.primes import field_spec
+from circom_tpu_torch.field.primes import FieldSpec, field_spec
 from circom_tpu_torch.ops.field import TorchField
 from circom_tpu_torch.ops.limbs import limbs_to_int
 
@@ -111,13 +112,84 @@ def test_opcode_numbering_matches_kernel():
     enum = dict((name.lower(), int(v)) for name, v in
                 re.findall(r"OP_([A-Z0-9_]+) = (\d+)", src))
     assert {op: OPCODES.index(op) for op in OPCODES} == enum
-    assert len(enum) == 19   # K1a's 6 wide opcodes and K1b's 13 narrow ones
+    # K1a's 6 wide opcodes, K1b's 13 narrow ones, K1c's 3 and K1d's 46
+    assert len(enum) == 68
+
+
+def planner_vocabulary():
+    """Every opcode the port's planner can emit, read off
+    backend/interp_plan.py: the opcode of each `steps.append((op, ...))`
+    and of each call of its emit_n1 / emit_n2 / emit_n2i helpers, where
+    an opcode is a string, a dict of strings indexed by the tape op, a
+    comparison plus "_nn" / "_ww", f"dot{n}_c", or one of the names the
+    planner dispatches by (the tape op `op`, its constant variant `ops_c`,
+    its narrow form `nop`).  An emission in any other form fails the
+    test, so a new one is not missed."""
+    from circom_tpu_torch.backend import interp_plan as ip
+
+    tree = ast.parse(Path(ip.__file__).read_text())
+    dicts = {}      # name -> values of a dict-subscript assignment
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value,
+                                                       ast.Subscript) \
+                and isinstance(node.value.value, ast.Dict):
+            dicts[node.targets[0].id] = {v.value for v in
+                                         node.value.value.values}
+    names = {"op": ip._VV_OPS | set(ip._C_VARIANTS),
+             "ops_c": set(ip._C_VARIANTS.values()), **dicts}
+
+    def resolve(e):
+        if isinstance(e, ast.Constant) and isinstance(e.value, str):
+            return {e.value}
+        if isinstance(e, ast.Subscript) and isinstance(e.value, ast.Dict):
+            return {v.value for v in e.value.values}
+        if isinstance(e, ast.BinOp) and isinstance(e.right, ast.Constant):
+            return {o + e.right.value for o in ip._CMP}
+        if isinstance(e, ast.JoinedStr) and ast.unparse(e) == \
+                "f'dot{n}_c'":
+            return {"dot2_c", "dot3_c"}
+        if isinstance(e, ast.Name) and e.id in names:
+            return names[e.id]
+        raise AssertionError(f"unknown opcode form: {ast.unparse(e)}")
+
+    vocab, sites = set(), 0
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Attribute) and f.attr == "append" and \
+                isinstance(f.value, ast.Name) and f.value.id == "steps":
+            arg = node.args[0]
+            if not isinstance(arg, ast.Tuple):
+                raise AssertionError(f"unknown step: {ast.unparse(arg)}")
+            vocab |= resolve(arg.elts[0])
+        elif isinstance(f, ast.Name) and f.id in ("emit_n1", "emit_n2",
+                                                  "emit_n2i"):
+            if not (isinstance(node.args[0], ast.Name)
+                    and node.args[0].id == "op"):
+                vocab |= resolve(node.args[0])
+        else:
+            continue
+        sites += 1
+    assert sites > 50
+    return vocab
+
+
+def test_planner_vocabulary_is_inside_the_kernel():
+    """convert.OPCODES covers every opcode the planner can emit, so
+    plan_from_arrays refuses nothing the planner produces."""
+    vocab = planner_vocabulary()
+    assert {"gmul", "idiv", "shl_kw", "nsel_w", "lt_ww", "eq_nn", "widen",
+            "dot3_c", "nrotr"} <= vocab
+    assert vocab <= set(OPCODES), sorted(vocab - set(OPCODES))
+    assert vocab == set(OPCODES)     # and the kernel has no other opcode
 
 
 @pytest.mark.parametrize("prime", ["goldilocks", "bn128"])
 def test_opcodes_outside_k1a_raise(prime):
-    """Mixed comparisons and wide bit ops are in neither K1a nor K1b: the
-    port names them instead of running anything."""
+    """Mixed comparisons and wide bit ops lie outside K1a and K1b; K1d
+    runs them, equal to the host calculator.  An opcode outside the whole
+    kernel (one a newer planner might emit) is still refused by name."""
     src = """
     pragma circom 2.0.0;
     template T() {
@@ -129,19 +201,43 @@ def test_opcodes_outside_k1a_raise(prime):
     }
     component main = T();
     """
-    tape, _ = compile_source(src, prime=prime).build_tape()
-    with pytest.raises(UnsupportedTapeOp, match="K1a wide, K1b narrow") as e:
-        WitnessProgram(tape, field_spec(prime), device="cpu")
-    for op in ("band", "bor", "bxor", "lt_ww", "select", "widen"):
-        assert op in str(e.value)
+    cc = compile_source(src, prime=prime)
+    spec = field_spec(prime)
+    prog = WitnessProgram(cc.build_tape()[0], spec, device="cpu")
+    assert {"band", "bor", "bxor", "lt_ww", "select", "widen"} \
+        <= prog.interp.plan.opcodes
+    rng = np.random.default_rng(31)
+    cols = [[int(v) % spec.p for v in rng.integers(0, 2 ** 62, size=3)]
+            + [spec.p - 1] for _ in range(2)]
+    got = prog.decode_outputs(prog.run(prog.encode_inputs(cols)))
+    for b in range(4):
+        host = list(cc.witness_host({"a": cols[0][b], "b": cols[1][b]}))
+        assert [row[b] for row in got] == host
+    arrays = prog.plan.plan_arrays()
+    arrays["opset_w"] = ["bfrob" if op == "bxor" else op
+                         for op in arrays["opset_w"]]
+    with pytest.raises(UnsupportedTapeOp,
+                       match="outside the interpreter kernel K1: bfrob"):
+        plan_from_arrays(arrays, "cpu")
 
 
 def test_goldilocks_poseidon2_is_refused_by_name():
-    """Goldilocks' folded products (K1c) are not in the port yet."""
+    """Goldilocks' folded products (K1c) run on goldilocks, equal to the
+    host calculator, and are refused by name on another 4-limb field."""
     src = poseidon2_src(lambda t: generate(t, prime="goldilocks"))
-    tape, _ = compile_source(src, prime="goldilocks").build_tape()
+    cc = compile_source(src, prime="goldilocks")
+    tape, _ = cc.build_tape()
+    spec = field_spec("goldilocks")
+    prog = WitnessProgram(tape, spec, device="cpu")
+    assert {"gmul", "gmul_c"} <= prog.interp.plan.opcodes
+    cols = [[3, spec.p - 1], [2 ** 63 + 7, 12345]]
+    got = prog.decode_outputs(prog.run(prog.encode_inputs(cols)))
+    for b in range(2):
+        host = list(cc.witness_host({"inputs": [cols[0][b], cols[1][b]]}))
+        assert [row[b] for row in got] == host
+    other = TorchField(FieldSpec("p64", 2 ** 64 - 59))
     with pytest.raises(UnsupportedTapeOp, match="gmul, gmul_c"):
-        WitnessProgram(tape, field_spec("goldilocks"), device="cpu")
+        TorchInterpreter(prog.interp.plan, other)
 
 
 def test_cuda_default_raises_without_a_card():
