@@ -18,11 +18,20 @@ mismatch exits non-zero.  The paths:
   division);
 - the stdlib comparators over bn128 (LessThan(64), LessEqThan(64),
   IsEqual() and Num2Bits(64)), batch 65,536: run and R1CS check (K1a,
-  K1c, K1d, K2, K3).
+  K1c, K1d, K2, K3);
+- Num2Bits(254) and 4 x Num2Bits(254) over bn128, batch 65,536, which
+  the interpreter refuses: run on the segments (K4, one and four
+  segments) and R1CS check;
+- bigint-div + Num2Bits(254) of the quotient and 16 x Num2Bits(254) over
+  bn128, batch 8,192, which both fused backends refuse: run on the per-op
+  path (K5, K6 and plain PyTorch) and R1CS check.
 
 Unit plans hold every K1b, K1c and K1d opcode at the edge operands
 against its plain version, and K1 is held against the plain executor on
-every path's full plan.
+every path's full plan; K4 is held against its plain version on every
+segment of the segmented paths and on two op circuits that reach every
+op a segment can hold.  Every path's sampled lanes equal the host
+calculator.
 
     python3 chip_smoke.py            # needs a CUDA card
     python3 chip_smoke.py --rehearse # CPU, small batch, plain versions only;
@@ -57,11 +66,16 @@ try:
     from circom_tpu_torch.circuits import sha256_io
     from circom_tpu_torch.backend.interp_plan import (
         _NARROW_RESULT as NARROW_RESULT)
+    from circom_tpu_torch.backend.segments import (SegmentedProgram,
+                                                   segment_k4, segment_ref)
     from circom_tpu_torch.circuits.gen_poseidon import generate
     from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
+                                                   bigdiv_num2bits_source,
                                                    comparator_inputs,
                                                    comparators_source,
-                                                   poseidon2_source)
+                                                   num2bits_source,
+                                                   poseidon2_source,
+                                                   segment_ops_source)
     from circom_tpu_torch.compiler.pipeline import compile_source
     from circom_tpu_torch.convert import (K1B_OPCODES, K1C_OPCODES,
                                           K1D_OPCODES, OPCODES,
@@ -73,8 +87,8 @@ try:
     from circom_tpu_torch.field.primes import field_spec
     from circom_tpu_torch.ops import build
     from circom_tpu_torch.ops import field_kernels as fk
-    from circom_tpu_torch.ops.field import TorchField, as_i64
-    from circom_tpu_torch.ops.limbs import limbs_to_int
+    from circom_tpu_torch.ops.field import TorchField, as_i64, as_u32
+    from circom_tpu_torch.ops.limbs import int_to_limbs, limbs_to_int
     from circom_tpu_torch.ops.narrow import NARROW_OPS
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e})",
@@ -98,7 +112,13 @@ EDGE_COUNTS = (0, 1, 31, 32, 33, -1)
 SEED = 7
 
 
+T0 = time.perf_counter()
+
+
 def say(*a):
+    """Print a line at once; a phase's title with the script's seconds."""
+    if a and str(a[0]).startswith("phase"):
+        a = a + (f"[{time.perf_counter() - T0:.1f} s]",)
     print(*a, flush=True)
 
 
@@ -196,7 +216,7 @@ class Paths:
         self.rehearse = rehearse
         self.counts = {}
 
-    def run(self, name, fn, must_launch):
+    def run(self, name, fn, must_launch, never=()):
         sync()
         build.reset_launches()
         out = fn()
@@ -207,6 +227,10 @@ class Paths:
             if not self.rehearse and self.counts[name].get(k, 0) == 0:
                 raise SystemExit(f"FAIL: {k} was not launched on the {name} "
                                  "path")
+        for k in never:
+            if self.counts[name].get(k, 0):
+                raise SystemExit(f"FAIL: {k} was launched on the {name} "
+                                 "path")
         return out
 
     def of(self, kernel):
@@ -214,7 +238,10 @@ class Paths:
 
 
 def phase_field(rep, dev, nnz, n_rows, lanes):
-    """K5 and K6 against TorchField at the checker's shapes."""
+    """K5 and K6 against TorchField at the checker's shapes and at the
+    per-op path's: (L, B) against a constant column (L, 1) on either side
+    (the R^2 and 1 of mul_norm, to_mont and from_mont, the 0 of neg) and
+    against (L, B)."""
     rng = np.random.default_rng(SEED)
     for prime in ("bn128", "goldilocks"):
         spec = field_spec(prime)
@@ -234,6 +261,24 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
             raise SystemExit(f"FAIL K5/K6 at {prime}: max abs err {err}")
         say(f"  K5/K6 {prime}: mont_mul {tuple(a.shape)}x{tuple(c.shape)}, "
             f"add/sub {tuple(x.shape)} bit-exact")
+        u = canonical_limbs(rng, spec, (L, lanes), dev)
+        v = canonical_limbs(rng, spec, (L, lanes), dev)
+        cols = [canonical_limbs(rng, spec, (L, 1), dev),
+                as_u32(f.R2_limbs), as_u32(f.one_limbs),
+                torch.zeros((L, 1), dtype=torch.uint32, device=dev)]
+        cases = [("mont_mul", u, k) for k in cols] \
+            + [("sub", k, u) for k in cols] \
+            + [("add", u, v), ("sub", u, v), ("add", u, cols[0])]
+        for name, a1, b1 in cases:
+            e = max_abs_err(getattr(fk, name)(f, a1, b1),
+                            getattr(f, name)(a1, b1))
+            if e:
+                raise SystemExit(f"FAIL K5/K6 at {prime}: {name} "
+                                 f"{tuple(a1.shape)}, {tuple(b1.shape)}: "
+                                 f"max abs err {e}")
+        say(f"  K5/K6 {prime} at the per-op shapes: mont_mul (L, {lanes}) x "
+            f"(L, 1), sub (L, 1) - (L, {lanes}), add/sub (L, {lanes}) on "
+            f"random, R^2, 1 and 0 columns: bit-exact")
         if prime != "bn128":
             continue
         e_mm, e_xy = nnz * lanes, n_rows * lanes
@@ -317,11 +362,13 @@ def phase_interp(rep, prog, x_w):
     return got
 
 
-def witness_path(paths, name, cc, prog, inputs, must_launch, host_map):
+def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
+                 never=(), n_lanes=SAMPLE_LANES):
     """One witness path: WitnessProgram.run at the inputs' batch, then the
-    R1CS check of every lane (launch counts read around exactly this),
-    a warm timed repeat, and 64 sampled lanes against the host calculator
-    (host_map: the lane's input ints -> the input map)."""
+    R1CS check of every lane (launch counts read around exactly this;
+    kernels in `never` must not launch), a warm timed repeat, and n_lanes
+    sampled lanes against the host calculator (host_map: the lane's input
+    ints -> the input map)."""
     dev, spec = prog.device, prog.spec
     B = inputs.shape[-1]
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
@@ -339,12 +386,12 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map):
         return wit, run_ms, check_ms
 
     # the first run is the one counted; the second, warm, is timed
-    paths.run(name, run_and_check, must_launch)
+    paths.run(name, run_and_check, must_launch, never)
     wit, run_ms, check_ms = run_and_check()
     say(f"  witnesses: {tuple(wit.shape)} in {run_ms:.1f} ms "
         f"({B / run_ms * 1e3:.0f} witnesses/s); R1CS check of all {B} "
         f"lanes in {check_ms:.1f} ms")
-    lanes = random.Random(SEED).sample(range(B), min(SAMPLE_LANES, B))
+    lanes = random.Random(SEED).sample(range(B), min(n_lanes, B))
     sel = torch.as_tensor(lanes, device=wit.device)
     w_np = wit.view(torch.int32).index_select(2, sel).cpu().numpy() \
         .view(np.uint32)
@@ -581,29 +628,248 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     return out
 
 
+K4_SOURCE = "circom_tpu_torch/ops/segment_gen.py"
+K4_REPLACES = "circom_tpu/backend/segments.py:242"
+
+
+def k4_programs(dev):
+    """The programs of the segmented paths, built before the kernels so
+    that their generated K4 sources build in parallel with the fixed
+    ones: name -> (compiled circuit, WitnessProgram)."""
+    progs = {}
+    bn = field_spec("bn128")
+    for name, src, prime in (
+            ("n2b254", num2bits_source(254, 1), "bn128"),
+            ("n2b254x4", num2bits_source(254, 4), "bn128"),
+            ("ops_bn128", segment_ops_source(bn.p.bit_length()), "bn128"),
+            ("ops_goldilocks", segment_ops_source(64), "goldilocks")):
+        cc = compile_source(src, prime=prime)
+        mode = "segments" if name.startswith("ops") else "auto"
+        progs[name] = (cc, WitnessProgram(
+            cc.build_tape()[0], field_spec(prime), device=dev, mode=mode,
+            input_ranges=cc.input_range_hints()))
+    return progs
+
+
+def edge_inputs(spec, n_inputs, B, seed, dev):
+    """Random canonical inputs (n_inputs, L, B) whose first lanes hold the
+    edges 0, 1, p - 1, 2^253 and 2^254 - 1 reduced mod p."""
+    L, p = spec.n_limbs, spec.p
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 16, size=(n_inputs, L, B), dtype=np.uint32)
+    x[:, L - 1] = rng.integers(0, p >> (16 * (L - 1)), size=(n_inputs, B),
+                               dtype=np.uint32)
+    for k, v in enumerate([0, 1, p - 1, 1 << 253, ((1 << 254) - 1) % p]):
+        if k < B:
+            x[:, :, k] = int_to_limbs(v, L)
+    return to_device(x, dev)
+
+
+def k4_ops(seg, L):
+    """32-bit lane operations of one segment a lane, counted low: L
+    (L + nz) multiplies a Montgomery product (nz: the nonzero limbs of a
+    constant operand, else L), a plain product of two values two of them,
+    L^2 a goldilocks product, L for any other op."""
+    ops = 0
+    for op, descs, *_rest in seg.instrs:
+        nz = min([sum(1 for v in d[1] if v) for d in descs
+                  if d[0] == "const"] or [L])
+        if op == "mul" or (op == "mulp" and L > 4):
+            ops += L * (L + nz) * (2 if op == "mulp" and nz == L else 1)
+        elif op == "mulp":
+            ops += L * nz
+        else:
+            ops += L
+    return ops
+
+
+def phase_k4_program(prog, x, label):
+    """K4 against its plain version on every segment of a program at the
+    path's batch, every output row; K4's time (its segments' sum), the
+    plain version's, the bytes and operations."""
+    sp = prog.fused
+    xt, L = sp.xt, sp.L
+    xi = x.view(torch.int32)
+    B = x.shape[-1]
+    vals = {}
+    err, ms, plain_ms, nbytes, ops = 0, 0.0, 0.0, 0, 0
+    for s, seg in enumerate(sp.segments):
+        xin = torch.stack([xi[xt.iidx[a]] if xt.kind[a] == "input"
+                           else vals[a] for a in seg.in_nodes]) \
+            .view(torch.uint32)
+        got = segment_k4(sp, s, xin)
+        want, t = wall_ms(lambda: segment_ref(sp.field, seg, xin))
+        err = max(err, max_abs_err(got, want))
+        del want
+        ms += time_ms(lambda: segment_k4(sp, s, xin))
+        plain_ms += t
+        nbytes += 4 * L * B * (len(seg.in_nodes) + len(seg.out_nodes))
+        ops += k4_ops(seg, L) * B
+        for row, a in enumerate(seg.out_nodes):
+            vals[a] = got.view(torch.int32)[row]
+    b_ms, b_by = bound(nbytes, ops)
+    say(f"  K4 on {label} ({len(sp.segments)} segments, "
+        f"{sp.stats()['nodes']} ops) at batch {B}: every output row, max "
+        f"abs err {err}; {ms:.4f} ms (plain {plain_ms:.1f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by})")
+    return err, ms, plain_ms, nbytes, ops
+
+
+def unit_columns(spec, n_inputs, hints, B, seed):
+    """Input columns of the op circuits: every pair of the edges 0, 1,
+    p - 1, p // 2, p // 2 + 1, 2^16 and 2^64 mod p on inputs a and b,
+    then random values; the range-hinted c is a bit."""
+    p = spec.p
+    edges = [0, 1, p - 1, p // 2, p // 2 + 1, 1 << 16, (1 << 64) % p]
+    rng = random.Random(seed)
+    cols = []
+    for i in range(n_inputs):
+        col = [rng.randrange(p) for _ in range(B)]
+        for lane in range(min(B, 49)):
+            col[lane] = edges[(lane // 7 ** min(i, 1)) % 7]
+        cols.append([lane % 2 for lane in range(B)] if i in hints else col)
+    return cols
+
+
+def phase_k4_units(progs, dev, B):
+    """Phase U: K4 against its plain version on the op circuits (every op
+    of the segmented backend, constants with zero limbs, shift counts 0,
+    1, 15, 16, 17, bits - 1) at bn128 and goldilocks on edge operands,
+    and 16 lanes of each against the host calculator."""
+    err = 0
+    for name in ("ops_bn128", "ops_goldilocks"):
+        cc, prog = progs[name]
+        cols = unit_columns(prog.spec, prog.n_inputs,
+                            cc.input_range_hints(), B, SEED + 12)
+        x = to_device(prog.encode_inputs(cols), dev)
+        err = max(err, phase_k4_program(prog, x, name)[0])
+        w = prog.run(x).view(torch.int32).cpu().numpy().view(np.uint32)
+        lanes = [k for k in range(B) if cols[1][k]][:16]
+        for lane in lanes:
+            host = list(cc.witness_host({"a": cols[0][lane],
+                                         "b": cols[1][lane],
+                                         "c": cols[2][lane]}))
+            if [limbs_to_int(w[i, :, lane]) for i in range(len(host))] \
+                    != host:
+                raise SystemExit(f"FAIL K4 {name} lane {lane}: witness "
+                                 "differs from the host calculator")
+        say(f"  {name}: {len(lanes)} lanes equal the host calculator")
+    return err
+
+
+def segment_perop_paths(paths, rep, progs, dev, B, b_div, rehearse):
+    """Phases S, S4, U, O, Q and W: Num2Bits(254) and 4 x Num2Bits(254)
+    over bn128 at batch B through the segments (K4), K4 against its plain
+    version on their segments and on the op circuits, bigint-div +
+    Num2Bits(254) and 16 x Num2Bits(254) over bn128 at batch b_div
+    through the per-op path (K5, K6), and the entry point on a
+    Num2Bits(254) artifact."""
+    out = {}
+    bn = field_spec("bn128")
+    interp = ("interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d")
+    k4 = {}
+    for name, label, seed in (("n2b254", "Num2Bits(254)/bn128", 13),
+                              ("n2b254x4", "4 x Num2Bits(254)/bn128", 14)):
+        cc, prog = progs[name]
+        if not isinstance(prog.fused, SegmentedProgram):
+            raise SystemExit(f"FAIL {label}: not on the segments")
+        x = edge_inputs(bn, prog.n_inputs, B, SEED + seed, dev)
+        say(f"phase {'S' if name == 'n2b254' else 'S4'}: the {label} path "
+            f"(batch {B}, {prog.fused.stats()})")
+        out[name] = witness_path(paths, name, cc, prog, x, ("k4",),
+                                 lambda ins: {"a": ins}, never=interp)
+        if not rehearse:
+            profile_breakdown(lambda: prog.run(x), out[name]["run_ms"])
+        k4[name] = phase_k4_program(prog, x, label)
+        del x
+    say("phase U: K4 against its plain version on the op circuits")
+    unit_err = phase_k4_units(progs, dev, 400 if rehearse else 4096)
+    (err, ms, plain_ms, nbytes, ops), s4 = k4["n2b254"], k4["n2b254x4"]
+    # nvcc's seconds a program: its segments' libraries, built in
+    # parallel (the longest) and in all; null when a library was found
+    # built in _build/ and not compiled in this run
+    nvcc = {}
+    for name, (_cc, prog) in progs.items():
+        lib = build.generated_name(prog.fused.source())
+        t = [build.BUILD_SECONDS.get(f"{lib}-s{s}")
+             for s in range(len(prog.fused.segments))]
+        nvcc[name] = None if None in t else {"max_s": max(t),
+                                             "sum_s": sum(t)}
+    rep.add("k4", K4_SOURCE, K4_REPLACES, max(err, s4[0], unit_err), ms,
+            plain_ms, nbytes, ops, plan="Num2Bits(254)/bn128", s4_ms=s4[1],
+            s4_plain_ms=s4[2], s4_bound_ms=bound(s4[3], s4[4])[0],
+            s4_bound_by=bound(s4[3], s4[4])[1], nvcc_s=nvcc)
+    out["k4"] = {"n2b254": ms, "n2b254x4": s4[1]}
+
+    for name, label, src in (
+            ("bigdiv_bits", "bigint-div + Num2Bits(254)/bn128",
+             bigdiv_num2bits_source()),
+            ("n2b254x16", "16 x Num2Bits(254)/bn128",
+             num2bits_source(254, 16))):
+        cc = compile_source(src)
+        prog = WitnessProgram(cc.build_tape()[0], bn, device=dev)
+        if prog.fused is not None:
+            raise SystemExit(f"FAIL {label}: not on the per-op path")
+        if name == "bigdiv_bits":
+            rng = random.Random(5)        # bench.py's bigint-div inputs
+            x = to_device(prog.encode_inputs(
+                [[rng.randrange(bn.p) for _ in range(b_div)],
+                 [rng.randrange(1, bn.p) for _ in range(b_div)]]), dev)
+            host_map = (lambda ins: {"a": ins[0], "b": ins[1]})
+        else:
+            x = edge_inputs(bn, prog.n_inputs, b_div, SEED + 15, dev)
+            host_map = (lambda ins: {"a": ins})
+        say(f"phase {'O' if name == 'bigdiv_bits' else 'Q'}: the {label} "
+            f"path (batch {b_div}, per-op: {prog.perop.n_live()} live of "
+            f"{len(prog.dt.ops)} nodes, unroll {prog.unroll})")
+        # the host calculator takes 0.44 s a lane of 16 x Num2Bits(254)
+        out[name] = witness_path(paths, name, cc, prog, x,
+                                 ("mont_mul", "sub"), host_map,
+                                 never=interp + ("k4",),
+                                 n_lanes=8 if name == "n2b254x16"
+                                 else SAMPLE_LANES)
+        if not rehearse:
+            # one traced run: the trace of a run holds up to ~30,000
+            # launches
+            profile_breakdown(lambda: prog.run(x), out[name]["run_ms"],
+                              reps=1, warmup=0, aten=False)
+        del prog, x
+
+    say("phase W: the witness entry point (Num2Bits(254)/bn128)")
+    p = bn.p
+    phase_entry_point(progs["n2b254"][0], dev.type, "n2b",
+                      [{"a": [v]} for v in (0, 1, p - 1, 1 << 253,
+                                            ((1 << 254) - 1) % p)])
+    return out
+
+
 def sha256_messages(B, seed):
     rng = np.random.default_rng(seed)
     return [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
                                            dtype=np.uint8)]
 
 
-def profile_breakdown(fn, wall, reps=3):
+def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True):
     """Where a warm run's time goes: device time by kernel from
     torch.profiler, and the device's idle share of the run's wall time,
-    averaged over `reps` runs.  One traced run before them warms the
+    averaged over `reps` runs.  A traced run before them warms the
     tracer up: without it the kernels of a short first run can go
-    unrecorded."""
+    unrecorded (a run of thousands of launches needs none).  aten=False
+    leaves PyTorch's operator events out of the host times (a per-op run
+    records some 180,000, slow to summarise); the CUDA runtime's calls
+    stay."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     ms, traced = 0.0, []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=reps),
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if aten else []),
+                 schedule=schedule(wait=0, warmup=warmup, active=reps),
                  on_trace_ready=lambda p: traced.append(p.key_averages())
                  ) as prof:
-        for k in range(1 + reps):
+        for k in range(warmup + reps):
             _, t = wall_ms(fn)
-            ms += t if k else 0.0
+            ms += t if k >= warmup else 0.0
             prof.step()
     ms /= reps
     # kernels and copies only: an aten op carries its kernels' device time
@@ -611,10 +877,12 @@ def profile_breakdown(fn, wall, reps=3):
     events = [e for e in traced[0] if e.device_type == DeviceType.CUDA
               and not e.key.startswith("ProfilerStep")]
     busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    n_kernels = sum(e.count for e in events) / reps
     events.sort(key=lambda e: -e.self_device_time_total)
     say(f"  profile of {reps} warm runs (a run {ms:.2f} ms under the "
         f"profiler, {wall:.2f} ms without): device busy {busy:.3f} ms a "
-        f"run, idle share {max(0.0, 1 - busy / ms):.3f}")
+        f"run, idle share {max(0.0, 1 - busy / ms):.3f}, {n_kernels:g} "
+        "kernels and copies a run")
     for e in events[:8]:
         say(f"    {e.self_device_time_total / 1e3 / reps:8.3f} ms "
             f"x{e.count / reps:<5g} {e.key[:90]}")
@@ -772,12 +1040,21 @@ def main():
              "--format=csv,noheader"], capture_output=True, text=True)
         say(smi.stdout.strip().splitlines()[0])
         say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-        secs = build.build_all()
-        say(f"kernels built in {secs:.1f} s")
-        for name, log in build.BUILD_LOG.items():
+    progs = k4_programs(dev)
+    if not args.rehearse:
+        secs = build.build_all(generated=[
+            (prog.fused.source(), len(prog.fused.segments))
+            for _cc, prog in progs.values()])
+        say(f"kernels built in {secs:.1f} s, in parallel")
+        names = {f"{build.generated_name(prog.fused.source())}-s{s}":
+                 f"{name} segment {s}" for name, (_cc, prog) in progs.items()
+                 for s in range(len(prog.fused.segments))}
+        for lib, t in build.BUILD_SECONDS.items():
+            say(f"  nvcc {names.get(lib, lib)} ({lib}): {t:.1f} s")
+        for lib, log in build.BUILD_LOG.items():
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
-                    say(f"  ptxas {name}: {line.strip()}")
+                    say(f"  ptxas {names.get(lib, lib)}: {line.strip()}")
     t_all = time.perf_counter()
     spec = field_spec("bn128")
     cc = compile_source(generate((2,)) + "\ncomponent main = Poseidon2();\n")
@@ -837,6 +1114,12 @@ def main():
     t_new = time.perf_counter()
     new = new_paths(paths, rep, dev, B, b_div, args.rehearse)
     t_new = time.perf_counter() - t_new
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_seg = time.perf_counter()
+    seg = segment_perop_paths(paths, rep, progs, dev, B, b_div,
+                              args.rehearse)
+    t_seg = time.perf_counter() - t_seg
 
     for name, row in rep.rows.items():
         by_path = paths.of(name)
@@ -857,8 +1140,20 @@ def main():
             f"({b / t['run_ms'] * 1e3:.0f} witnesses/s), "
             f"{t['check_ms']:.1f} ms R1CS check (batch {b}); K1 "
             f"{new['k1'][name]:.3f} ms")
+    for name, label, b in (
+            ("n2b254", "Num2Bits(254)/bn128 (segments)", B),
+            ("n2b254x4", "4 x Num2Bits(254)/bn128 (segments)", B),
+            ("bigdiv_bits", "bigint-div + Num2Bits(254)/bn128 (per-op)",
+             b_div),
+            ("n2b254x16", "16 x Num2Bits(254)/bn128 (per-op)", b_div)):
+        t = seg[name]
+        say(f"{label} path: {t['run_ms']:.1f} ms witness run "
+            f"({b / t['run_ms'] * 1e3:.0f} witnesses/s), "
+            f"{t['check_ms']:.1f} ms R1CS check (batch {b})"
+            + (f"; K4 {seg['k4'][name]:.4f} ms" if name in seg["k4"]
+               else ""))
     say(f"smoke total {time.perf_counter() - t_all:.1f} s, phases F-K "
-        f"{t_new:.1f} s")
+        f"{t_new:.1f} s, phases S-W {t_seg:.1f} s")
     if args.rehearse:
         print(json.dumps({"kernels": list(rep.rows.values())}),
               file=sys.stderr)

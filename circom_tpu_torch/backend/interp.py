@@ -26,7 +26,7 @@ several kernel calls answer the TPU's memory layout and do not exist here.
 import numpy as np
 import torch
 
-from ..convert import GOLDILOCKS_OPS, DevicePlan, to_device
+from ..convert import GOLDILOCKS_OPS, DevicePlan, u32_on
 from ..ops.build import LAUNCHES, check_launch, library, stream_ptr, u32_array
 from ..ops.field import GOLDILOCKS_P, TorchField, as_i64, as_u32
 from ..ops.narrow import to_i32, widen_narrow
@@ -185,11 +185,7 @@ class TorchInterpreter:
         (n_nin, B) in nin_of order: limb0 | limb1 << 16).  Lin may be 2
         (or 1) when no input is wide."""
         plan = self.plan
-        if not isinstance(inputs, torch.Tensor):
-            inputs = to_device(inputs, self.device)
-        elif inputs.device != self.device:
-            inputs = inputs.view(torch.int32).to(self.device) \
-                .view(torch.uint32)
+        inputs = u32_on(inputs, self.device)
         n, lin, B = inputs.shape
         if plan.win_order:
             if lin != plan.L:

@@ -1,0 +1,134 @@
+"""The per-op backend: one field-library call per node of the tape.
+
+The port of the JAX package's straight-line per-op path
+(backend/jax_backend.py `WitnessProgram._run_ssa`) for the tapes that
+both fused backends refuse.  Each node of the DomainTape is one call of
+the per-op library (ops/field.py `TorchField`): Montgomery products, adds
+and subtracts are kernels K5 and K6 on the card, the rest plain PyTorch
+over whole limb tensors.  Eager PyTorch does what jax.jit does for the
+JAX package: only the nodes that reach a witness output run, each value
+is freed after its last use, and an output row is written into the
+witness as soon as it is computed.
+
+The same executor serves the tapes the JAX package sends to its scan
+(`_run`, long tapes): the scan bounds XLA's compile time, and eager
+PyTorch compiles nothing.  Its (level, opcode) packing is not ported.
+"""
+
+import numpy as np
+import torch
+
+from ..convert import u32_on
+from ..field.primes import LIMB_BITS
+from ..ops import field_kernels as fk
+from ..ops.field import TorchField
+from ..ops.limbs import int_to_limbs
+from .domain import MONT
+
+
+class PerOpProgram:
+    """Executable per-op form of a DomainTape on one field's device."""
+
+    def __init__(self, dt, field: TorchField):
+        self.dt = dt
+        self.field = field
+        self.L = field.L
+        self.n_witness = len(dt.outputs)
+        n = len(dt.ops)
+        live = [False] * n
+        stack = list(dt.outputs)
+        while stack:
+            i = stack.pop()
+            if not live[i]:
+                live[i] = True
+                stack.extend(dt.args[i])
+        self.order = [i for i in range(n) if live[i]]
+        # the last node that reads each value (outputs are written out
+        # at once, so being an output does not keep a value alive)
+        self.last_use = {i: i for i in self.order}
+        for i in self.order:
+            for a in dt.args[i]:
+                self.last_use[a] = i
+        self.out_pos = {}
+        for w, o in enumerate(dt.outputs):
+            self.out_pos.setdefault(o, []).append(w)
+        R = 1 << (LIMB_BITS * self.L)
+        self.consts = {}
+        for i in self.order:
+            if dt.ops[i] == "const":
+                v = dt.imms[i]
+                if dt.domains[i] == MONT:
+                    v = v * R % field.p
+                self.consts[i] = torch.as_tensor(
+                    int_to_limbs(v, self.L).astype(np.int32),
+                    device=field.device)[:, None].view(torch.uint32)
+
+    def n_live(self):
+        return len(self.order)
+
+    def _node(self, i, a):
+        """The value of compute node i from its operands' values."""
+        f = self.field
+        op, imm = self.dt.ops[i], self.dt.imms[i]
+        if op == "mul":
+            return fk.mont_mul(f, a[0], a[1])
+        if op == "add":
+            return fk.add(f, a[0], a[1])
+        if op == "sub":
+            return fk.sub(f, a[0], a[1])
+        if op == "to_mont":
+            return fk.to_mont(f, a[0])
+        if op == "from_mont":
+            return fk.from_mont(f, a[0])
+        if op == "mulp":
+            return f.mul_norm(a[0], a[1])
+        if op == "div":
+            return f.div_mont(a[0], a[1])
+        if op == "pow_k":
+            return f.pow_mont(a[0], imm)
+        if op == "mod":
+            return f.imod(a[0], a[1])
+        if op == "shl_k":
+            return f.shift_l_const(a[0], imm)
+        if op == "shr_k":
+            return f.shift_r_const(a[0], imm)
+        method = _METHODS.get(op)
+        if method is None:
+            raise NotImplementedError(op)
+        return getattr(f, method)(*a)
+
+    def _run(self, inputs):
+        """uint32 (n_inputs, L, B), an array or a tensor -> witness uint32
+        (n_witness, L, B) on the field's device."""
+        dt = self.dt
+        x = u32_on(inputs, self.field.device).view(torch.int32)
+        B = x.shape[-1]
+        out = torch.empty((self.n_witness, self.L, B), dtype=torch.int32,
+                          device=x.device)
+        vals = {}
+        for i in self.order:
+            op = dt.ops[i]
+            if op == "const":
+                v = self.consts[i]
+            elif op == "input":
+                v = x[dt.imms[i]].view(torch.uint32)
+            else:
+                v = self._node(i, [vals[a] for a in dt.args[i]])
+            for w in self.out_pos.get(i, ()):
+                out[w] = v.view(torch.int32)
+            if self.last_use[i] > i:
+                vals[i] = v
+            for a in set(dt.args[i]):
+                if self.last_use[a] == i:
+                    del vals[a]
+        return out.view(torch.uint32)
+
+
+# ops whose per-op method takes the operands alone
+_METHODS = {
+    "neg": "neg", "idiv": "idiv", "select": "select",
+    "band": "bit_and", "bor": "bit_or", "bxor": "bit_xor",
+    "bnot": "complement", "lt": "lt", "le": "le", "gt": "gt", "ge": "ge",
+    "eq": "eq", "neq": "neq", "land": "bool_and", "lor": "bool_or",
+    "lnot": "bool_not",
+}

@@ -1,16 +1,25 @@
 """WitnessProgram: a witness tape made executable on one device.
 
-The port of the JAX package's backend/jax_backend.py WitnessProgram for its
-interpreter mode: the tape's dynamic ops are lowered, range analysis marks
-the narrow nodes, DomainTape assigns Montgomery and canonical domains, the
-interpreter planner builds the tables, and TorchInterpreter runs them
-(kernels K1, K2 and K3 on CUDA, the plain executor on the CPU).
+The port of the JAX package's backend/jax_backend.py WitnessProgram: the
+tape's dynamic ops are lowered, range analysis marks the narrow nodes,
+DomainTape assigns Montgomery and canonical domains, and one of three
+backends runs it, chosen as the JAX package chooses (`jax_backend.py`
+:220-253):
 
-Every plan the interpreter planner produces runs (kernel K1 takes all of
-its opcodes).  A tape the planner refuses (its register files exceed the
-JAX kernel's VMEM budget) raises UnsupportedTapeOp; the JAX package runs
-such tapes on its segmented and per-op backends, which the port does not
-have yet.  Nothing falls back to another executor on the card.
+1. the in-kernel interpreter (TorchInterpreter: kernels K1, K2 and K3),
+   unless its planner refuses the tape (register files beyond the JAX
+   kernel's VMEM budget);
+2. the segments (SegmentedProgram: kernel K4, generated per program),
+   unless the tape holds a live `idiv` or its unrolled cost is above
+   segments.MAX_COST;
+3. the per-op path (PerOpProgram: a field-library call per node, the
+   products, adds and subtracts on kernels K5 and K6).
+
+The choice depends on the tape alone: it is made at construction from
+the planners' refusals (NotImplementedError / UnsupportedTapeOp), never
+from whether a kernel builds or launches, so both packages send every
+tape to the same backend.  On the CPU each backend runs its kernels'
+plain versions; nothing falls back to another executor on the card.
 """
 
 import numpy as np
@@ -25,39 +34,84 @@ from .domain import DomainTape
 from .dynops import lower_dynamic_ops
 from .interp import TorchInterpreter
 from .interp_plan import InterpreterPlan
+from .perop import PerOpProgram
 from .plan import UnsupportedTapeOp
 from .ranges import narrow_nodes
+from .segments import SegmentedProgram
+
+MODES = ("auto", "interp", "segments", "scan")
+# the JAX package runs per-op tapes of up to this many ops straight-line
+# (`_run_ssa`) and longer ones in its scan; the port runs both
+# straight-line and keeps the JAX default only for `unroll`
+UNROLL_THRESHOLD = 4096
 
 
-def build_plan(tape, spec: FieldSpec, input_ranges=None):
-    """(DomainTape, InterpreterPlan) of a lowered tape, as the JAX
-    package's WitnessProgram builds them."""
-    input_ranges = input_ranges or {}
-    nset, rng = narrow_nodes(tape, input_ranges)
-    dt = DomainTape(tape, narrow=nset, plain_field=spec.p == GOLDILOCKS_P,
-                    node_rng=rng)
+def domain_tape(tape, spec: FieldSpec, input_ranges=None):
+    """The DomainTape of a lowered tape, with the planner's range
+    results, as the JAX package's WitnessProgram builds it."""
+    nset, rng = narrow_nodes(tape, input_ranges or {})
+    return DomainTape(tape, narrow=nset, plain_field=spec.p == GOLDILOCKS_P,
+                      node_rng=rng)
+
+
+def interp_plan(dt, spec: FieldSpec, input_ranges=None):
+    """The InterpreterPlan of a DomainTape; UnsupportedTapeOp when the
+    planner refuses the tape."""
     try:
-        return dt, InterpreterPlan(dt, spec, input_ranges=input_ranges)
+        return InterpreterPlan(dt, spec, input_ranges=input_ranges or {})
     except NotImplementedError as e:
         raise UnsupportedTapeOp(
             f"the interpreter planner refuses this tape: {e}") from e
 
 
+def build_plan(tape, spec: FieldSpec, input_ranges=None):
+    """(DomainTape, InterpreterPlan) of a lowered tape, as the JAX
+    package's WitnessProgram builds them."""
+    dt = domain_tape(tape, spec, input_ranges)
+    return dt, interp_plan(dt, spec, input_ranges)
+
+
 class WitnessProgram:
-    """Executable form of a tape for one field on one device."""
+    """Executable form of a tape for one field on one device.
+
+    mode: "auto" tries the interpreter, then the segments, then the
+    per-op path; "interp" and "segments" raise UnsupportedTapeOp when
+    their backend refuses the tape; "scan" takes the per-op path.
+    `fused` is the TorchInterpreter, the SegmentedProgram or None (the
+    per-op path), and `unroll` mirrors the JAX attribute (see
+    UNROLL_THRESHOLD)."""
 
     def __init__(self, tape, spec: FieldSpec, device="cuda",
-                 input_ranges=None):
+                 input_ranges=None, mode="auto"):
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} is not one of {MODES}")
         self.device = resolve_device(device)
         tape = lower_dynamic_ops(tape)
         self.spec = spec
         self.field = TorchField(spec, self.device)
         self.input_ranges = input_ranges or {}
-        self.dt, self.plan = build_plan(tape, spec, self.input_ranges)
+        self.dt = domain_tape(tape, spec, self.input_ranges)
         self.n_inputs = tape.n_inputs
-        self.interp = TorchInterpreter(
-            plan_from_arrays(self.plan.plan_arrays(), self.device),
-            self.field)
+        self.fused = self.plan = self.interp = self.perop = None
+        if mode in ("auto", "interp"):
+            try:
+                self.plan = interp_plan(self.dt, spec, self.input_ranges)
+            except UnsupportedTapeOp:
+                if mode == "interp":
+                    raise
+            else:
+                self.fused = self.interp = TorchInterpreter(
+                    plan_from_arrays(self.plan.plan_arrays(), self.device),
+                    self.field)
+        if self.fused is None and mode in ("auto", "segments"):
+            try:
+                self.fused = SegmentedProgram(self.dt, spec, self.device)
+            except NotImplementedError:
+                if mode == "segments":
+                    raise
+        if self.fused is None:
+            self.perop = PerOpProgram(self.dt, self.field)
+        self.unroll = len(self.dt.ops) <= UNROLL_THRESHOLD
         self.n_witness = len(self.dt.outputs)
         # trailing guard outputs from predicated while unrolling: the
         # caller must check these rows are zero (see pipeline.build_tape)
@@ -66,7 +120,9 @@ class WitnessProgram:
     def run(self, inputs):
         """uint32 (n_inputs, L, B) array or tensor -> witness uint32
         tensor (n_witness, L, B) on the program's device."""
-        return self.interp._run(inputs)
+        if self.fused is not None:
+            return self.fused._run(inputs)
+        return self.perop._run(inputs)
 
     def run_mixed(self, inputs):
         """Witness in MIXED representation: (narrow int32 tensor (n_nw, B),
@@ -74,13 +130,21 @@ class WitnessProgram:
         the order of mixed_layout().  inputs: uint32 (n_inputs, L, B), or
         (n_inputs, 2, B) when every input is narrow (range-hinted).  A
         bit-class witness value stays one int32: the SHA256 witness at
-        batch 65,536 takes 7.2 GB so, against 115 GB in limbs."""
-        return self.interp._run_mixed(inputs)
+        batch 65,536 takes 7.2 GB so, against 115 GB in limbs.  Only the
+        interpreter produces a narrow part; the other backends return
+        every row wide."""
+        if self.interp is not None:
+            return self.interp._run_mixed(inputs)
+        wide = self.run(inputs)
+        return (torch.zeros((0, wide.shape[2]), dtype=torch.int32,
+                            device=wide.device), wide)
 
     def mixed_layout(self):
         """(narrow witness indices, wide witness indices) matching the row
         order of run_mixed's two arrays."""
-        return self.interp.mixed_layout()
+        if self.interp is not None:
+            return self.interp.mixed_layout()
+        return [], list(range(self.n_witness))
 
     # -- host-side convenience ------------------------------------------
     def encode_inputs(self, columns):

@@ -9,6 +9,21 @@
   that almost every circomlib circuit contains.  Num2Bits' constraint
   holds for a + b < 2^64.
 - poseidon2_source(prime): the repository's generated Poseidon2 (t = 3).
+- num2bits_source(n, copies): `copies` Num2Bits(n) of as many inputs,
+  every bit a witness output; at n = 254 over bn128 the full-width bit
+  decomposition, which the interpreter planner refuses (its register
+  files exceed the JAX kernel's VMEM budget): one copy runs on the
+  segments, four on two segments, sixteen on the per-op path.
+- lessthan_source(n): LessThan(n) of a and b.
+- bigdiv_num2bits_source(): a \\ b and a % b, then Num2Bits(254) of the
+  quotient, the range check a circomlib bigint circuit puts on its hint
+  (idiv: the per-op path).
+- segment_ops_source(bits): one circuit whose segment holds every op of
+  the segmented backend (plan.KERNEL_OPS but idiv), with constant
+  operands that have zero limbs and shift counts 0, 1, 15, 16, 17 and
+  bits - 1; input c is a bit, so that its product by a constant is a
+  plain product (mulp) at bn128 too, and a division at goldilocks gives
+  its Montgomery products.
 """
 
 from pathlib import Path
@@ -104,3 +119,100 @@ def comparator_inputs(B, seed, L):
         out[0, i] = (a >> np.uint64(16 * i)) & np.uint64(0xFFFF)
         out[1, i] = (b >> np.uint64(16 * i)) & np.uint64(0xFFFF)
     return out
+
+
+def _stdlib():
+    return (Path(__file__).resolve().parent / "stdlib.circom").read_text()
+
+
+def num2bits_source(n=254, copies=1, stdlib=None):
+    """`copies` Num2Bits(n) of inputs a[0..copies-1]; outputs o[k][i]."""
+    main = f"""
+template Bits{copies}x{n}() {{
+    signal input a[{copies}];
+    signal output o[{copies}][{n}];
+    component n2b[{copies}];
+    for (var k = 0; k < {copies}; k++) {{
+        n2b[k] = Num2Bits({n});
+        n2b[k].in <== a[k];
+        for (var i = 0; i < {n}; i++) {{ o[k][i] <== n2b[k].out[i]; }}
+    }}
+}}
+component main = Bits{copies}x{n}();
+"""
+    return (stdlib or _stdlib()) + main
+
+
+def lessthan_source(n=252, stdlib=None):
+    main = f"""
+template Lt{n}() {{
+    signal input a;
+    signal input b;
+    signal output lt;
+    component c = LessThan({n});
+    c.in[0] <== a;
+    c.in[1] <== b;
+    lt <== c.out;
+}}
+component main = Lt{n}();
+"""
+    return (stdlib or _stdlib()) + main
+
+
+BIGDIV_NUM2BITS_MAIN = """
+template BigDivBits() {
+    signal input a;
+    signal input b;
+    signal output q;
+    signal output r;
+    signal output bits[254];
+    q <-- a \\ b;
+    r <-- a % b;
+    a === q * b + r;
+    component n2b = Num2Bits(254);
+    n2b.in <== q;
+    for (var i = 0; i < 254; i++) { bits[i] <== n2b.out[i]; }
+}
+component main = BigDivBits();
+"""
+
+
+def bigdiv_num2bits_source(stdlib=None):
+    return (stdlib or _stdlib()) + BIGDIV_NUM2BITS_MAIN
+
+
+def segment_ops_source(bits, division=True):
+    """Every op of the segmented backend in one circuit (see above);
+    division=False leaves out the division (and so, at goldilocks, the
+    Montgomery mul)."""
+    ops = [
+        "a * b", "a * 18446744073709551616",
+        "c * 340282366920938463463374607431768211457", "a + b",
+        "a + 340282366920938463463374607431768211456", "a - b",
+        "65536 - a", "a ? b : c", "b ? 4294967296 : a", "a ? 0 : b",
+        "a == b", "a != 65536", "a < b",
+        "a <= 1606938044258990275541962092341162602522202993782792835301376",
+        "a > b", "a >= b", "a && b", "a || 0", "!a", "a & b",
+        "a & 0xFFFF00000000FFFF", "a | b", "a | 0x10000", "a ^ b",
+        "a ^ 0xFFFF0000", "~a", "(a * b) * (a + 1)", "a * a", "a ** 5"]
+    ops += [f"a {d} {k}" for d in (">>", "<<")
+            for k in (0, 1, 15, 16, 17, bits - 1)]
+    if bits <= 64 and division:
+        # goldilocks' products are plain (mulp): its Montgomery mul is
+        # in the inversion chain of a division (at bn128 a chain of 380
+        # products, above the segments' MAX_COST)
+        ops.append("a / b")
+    body = "\n".join(f"  o[{i}] <-- {e};" for i, e in enumerate(ops))
+    return f"""
+pragma circom 2.0.0;
+template SegmentOps() {{
+  signal input a;
+  signal input b;
+  signal input c;
+  signal output o[{len(ops)}];
+  c * (c - 1) === 0;
+{body}
+  for (var i = 0; i < {len(ops)}; i++) {{ o[i] * 0 === 0; }}
+}}
+component main = SegmentOps();
+"""

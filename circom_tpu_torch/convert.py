@@ -362,3 +362,13 @@ def to_device(arr, device):
         return torch.from_numpy(arr.view(np.int32)).to(device) \
             .view(torch.uint32)
     return torch.from_numpy(arr).to(device)
+
+
+def u32_on(x, device):
+    """uint32 limbs, an array or a tensor on any device -> a uint32
+    tensor on `device` (the same tensor when it is there already)."""
+    if not isinstance(x, torch.Tensor):
+        return to_device(np.asarray(x, np.uint32), device)
+    if x.device != device:
+        return x.view(torch.int32).to(device).view(torch.uint32)
+    return x

@@ -7,6 +7,13 @@ pointers.  Libraries are cached in circom_tpu_torch/_build/ under a hash of
 the sources and flags, so a later process reuses them.  All sources build
 in parallel, one nvcc each.  A failed build raises with nvcc's output.
 
+`build_generated` does the same for a source written at run time (kernel
+K4, ops/segment_gen.py): the text is saved beside its libraries, built
+with the same flags against the headers of ops/cuda/, a library a segment
+(-DK4_SEG=s, all in parallel), and cached under a hash of the text, the
+headers and the flags; `build_all(generated=...)` builds such texts in
+parallel with the fixed sources.
+
 `LAUNCHES` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, and nowhere else.
 """
@@ -19,7 +26,9 @@ import subprocess
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 SRC_DIR = Path(__file__).resolve().parent / "cuda"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -58,6 +67,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _libs = {}
 BUILD_LOG = {}   # name -> nvcc's output of the last build (ptxas usage)
+BUILD_SECONDS = {}   # name -> nvcc's wall time of the last build
 
 
 def reset_launches():
@@ -75,41 +85,89 @@ def nvcc_path():
     return found
 
 
-def _target(name):
+def _digest(text: bytes):
+    """A hash of the flags, a source's text and the headers."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (f"{name}.cu",) + HEADERS:
+    h.update(text)
+    for f in HEADERS:
         h.update((SRC_DIR / f).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
 
 
-def build_all():
-    """Compile every missing library in parallel; returns the seconds
-    spent.  Raises RuntimeError with nvcc's output if a build fails."""
-    t0 = time.perf_counter()
-    todo = [n for n in SOURCES if not _target(n).exists()]
-    if not todo:
-        return 0.0
+def _target(name):
+    digest = _digest((SRC_DIR / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def generated_name(source):
+    """The library name of a generated source."""
+    return f"k4-{_digest(source.encode())}"
+
+
+def _compile(jobs):
+    """nvcc on every (name, source path, target, extra flags) at once, a
+    thread waiting on each; each build's output and wall time land in
+    BUILD_LOG and BUILD_SECONDS.  Raises RuntimeError with nvcc's output
+    if a build fails."""
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in todo:
-        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    errors = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        BUILD_LOG[name] = out
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed on {name}.cu "
-                          f"(exit {proc.returncode}):\n{out}")
+
+    def one(job):
+        name, src, target, extra = job
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        r = subprocess.run([nvcc, *NVCC_FLAGS, *extra, "-I", str(SRC_DIR),
+                            "-o", str(tmp), str(src)],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = r.stdout
+        if r.returncode != 0:
             tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, _target(name))
+            return f"nvcc failed on {src} (exit {r.returncode}):\n{r.stdout}"
+        os.replace(tmp, target)
+        return None
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        errors = [e for e in pool.map(one, jobs) if e]
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def segment_library(name, s):
+    """The library of segment s of the generated source `name`."""
+    return BUILD_DIR / f"{name}-s{s}.so"
+
+
+def _build(names, generated):
+    """Compile the missing libraries of the fixed sources `names` and of
+    the generated sources, (text, number of segments) pairs, a library a
+    segment (-DK4_SEG=s), all in parallel; returns the seconds spent."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = [(n, SRC_DIR / f"{n}.cu", _target(n), ()) for n in names
+            if not _target(n).exists()]
+    for text, n_segments in generated:
+        name = generated_name(text)
+        src = BUILD_DIR / f"{name}.cu"
+        todo = [s for s in range(n_segments)
+                if not segment_library(name, s).exists()
+                and f"{name}-s{s}" not in [j[0] for j in jobs]]
+        if todo:
+            src.write_text(text)
+        jobs += [(f"{name}-s{s}", src, segment_library(name, s),
+                  (f"-DK4_SEG={s}",)) for s in todo]
+    if not jobs:
+        return 0.0
+    _compile(jobs)
     return time.perf_counter() - t0
+
+
+def build_all(generated=()):
+    """Compile every missing library in parallel, and with them the
+    generated K4 sources given as (text, number of segments) pairs;
+    returns the seconds spent.  Raises RuntimeError with nvcc's output
+    if a build fails."""
+    return _build(SOURCES, generated)
 
 
 def library(name):
@@ -123,6 +181,29 @@ def library(name):
                 f = getattr(lib, fn)
                 f.restype = res
                 f.argtypes = args
+            _libs[name] = lib
+        return lib
+
+
+def build_generated(source, n_segments):
+    """The entry points ctpu_k4_seg0 .. ctpu_k4_seg<n_segments - 1> of a
+    generated K4 source, each (const uint32_t* in, uint32_t* out,
+    long long B, void* stream) -> int, as attributes of one namespace:
+    built by nvcc on first use, a library a segment in parallel (build_all
+    builds several sources at once), then cached on disk and in this
+    process."""
+    name = generated_name(source)
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _build((), [(source, n_segments)])
+            lib = SimpleNamespace()
+            for s in range(n_segments):
+                fn = getattr(ctypes.CDLL(str(segment_library(name, s))),
+                             f"ctpu_k4_seg{s}")
+                fn.restype = _I
+                fn.argtypes = [_P, _P, _LL, _P]
+                setattr(lib, f"ctpu_k4_seg{s}", fn)
             _libs[name] = lib
         return lib
 

@@ -159,15 +159,20 @@ __device__ __forceinline__ bool cmp_wide(const uint32_t (&x)[L],
 // or x >> count, count >= 0, by q = count / 16 limbs and r = count % 16
 // bits.  xr points at limb 0 of the operand, limb i at xr[i * stride]; the
 // limbs are read in place because their index depends on the count.
-template <int L, bool LEFT>
+// KEEP: the result limbs to compute, a bit each, the others left unset
+// (the straight-line kernel K4 passes the limbs that are read later; a
+// left shift computes them all for its conditional subtract).
+template <int L, bool LEFT, uint32_t KEEP = 0xFFFFFFFFu>
 __device__ __forceinline__ void shift_w(const uint32_t* xr, long long stride,
                                         int count, uint32_t (&out)[L],
                                         const FieldConsts& fc,
                                         const WideConsts& wc) {
+  static_assert(!LEFT || KEEP == 0xFFFFFFFFu, "a left shift keeps all limbs");
   const int q = count / LIMB_BITS;
   const uint32_t r = (uint32_t)(count % LIMB_BITS);
 #pragma unroll
   for (int j = 0; j < L; ++j) {
+    if (!((KEEP >> j) & 1u)) continue;
     // limbs lo = j -+ q and hi = lo -+ 1, 0 outside the value
     const int lo = LEFT ? j - q : j + q;
     const int hi = LEFT ? lo - 1 : lo + 1;

@@ -4,15 +4,17 @@ An element batch is ``uint32[..., L, B]``: little-endian 16-bit limbs,
 limb-major, batch-minor, the layout of the JAX package's field library.
 `TorchField` is the plain version of the field kernels: the CPU path of
 the port and the reference its CUDA kernels (ops/cuda/field.cuh) are
-held against, bit for bit.
+held against, bit for bit.  It is also the per-op library of the per-op
+backend (backend/perop.py), the counterpart of the JAX package's
+JaxField (see the section of that name below).
 
-Every function computes in int64 and converts only at the edges: torch's
-CPU uint32 has no add, shift or compare.  A limb product is < 2^32 and a
-column of L of them < 2^36, so nothing here overflows.  The Montgomery
-reduction yields (V + M·p)/R with the unique M < R that clears the low
-limbs, followed by one conditional subtract of p; those values depend on
-V alone, so the int64 column sums here give the same bits as the
-16-bit-split columns of the kernels.
+The kernels' plain versions compute in int64 and convert only at the
+edges: torch's CPU uint32 has no add, shift or compare.  A limb product
+is < 2^32 and a column of L of them < 2^36, so nothing here overflows.
+The Montgomery reduction yields (V + M·p)/R with the unique M < R that
+clears the low limbs, followed by one conditional subtract of p; those
+values depend on V alone, so the int64 column sums here give the same
+bits as the 16-bit-split columns of the kernels.
 """
 
 import torch
@@ -71,19 +73,34 @@ class TorchField:
         self.R2_limbs = limbs(c["R2_limbs"])
         self.one_limbs = torch.zeros_like(self.p_limbs)
         self.one_limbs[0, 0] = 1
+        self.half_limbs = limbs(c["half_limbs"])
+        self.mask_limbs = limbs(c["mask_limbs"])
+        # 2^i down the limbs: sum_i sign(d_i)·2^i has the sign of the
+        # highest nonzero d_i (see `borrows`)
+        self.sign_w = torch.as_tensor([1 << i for i in range(self.L)],
+                                      dtype=torch.int64,
+                                      device=self.device)[:, None]
 
     # -- int64 core ----------------------------------------------------
+    def borrows(self, d):
+        """The borrow chain of limb differences d (..., L, B), |d_i| <
+        2^16, at once: (the borrow into each limb (..., L, B), the borrow
+        out (..., B)), int64 0/1.  The borrow into limb i is set when the
+        limbs below i differ by a negative amount, whose sign is that of
+        the highest nonzero d_j, j < i: the sign of sum_j sign(d_j)·2^j."""
+        s = torch.sign(d) * self.sign_w
+        pre = torch.cumsum(s, dim=-2)
+        return (pre - s < 0).to(torch.int64), \
+            (pre[..., -1, :] < 0).to(torch.int64)
+
     def cond_sub64(self, limbs, top):
-        """limbs (..., L, B) + top (..., B): subtract p once when the
-        value is >= p (limb_emit.cond_sub, step for step)."""
-        borrow = torch.zeros_like(top)
-        subbed = []
-        for i in range(self.L):
-            v = limbs[..., i, :] - self.p_limbs[i] - borrow
-            subbed.append(v & MASK)
-            borrow = -(v >> LIMB_BITS)
-        take = (top - borrow) >= 0
-        return torch.where(take[..., None, :], torch.stack(subbed, -2), limbs)
+        """limbs (..., L, B) of 16 bits + top (..., B): subtract p once
+        when the value is >= p (limb_emit.cond_sub), the borrow chain of
+        limbs - p taken at once."""
+        d = limbs - self.p_limbs
+        b_in, b_out = self.borrows(d)
+        take = top >= b_out
+        return torch.where(take[..., None, :], (d - b_in) & MASK, limbs)
 
     def _carry(self, cols, n):
         """Carry chain over the first n columns: (limbs, carry out)."""
@@ -161,3 +178,128 @@ class TorchField:
     def is_zero(a):
         """(..., L, B) -> bool (..., B)."""
         return (as_i64(a) == 0).all(dim=-2)
+
+    # -- the per-op library (the JAX package's JaxField, jfield.py) ----
+    # uint32 (..., L, B) in and out, operands broadcast against each
+    # other.  mont_mul, add and sub go through ops/field_kernels.py:
+    # kernels K5 and K6 on a CUDA tensor, the plain versions above on the
+    # CPU, as JaxField sends them to Pallas on the TPU.  The comparisons,
+    # booleans, bit ops, shifts, idiv and select are thin adapters over
+    # ops/wide.py's plain functions (the ones K1 and K4 are held against)
+    # on int64 limbs, each over whole limb tensors: a few launches a call
+    # on the card, none a limb.
+    def _const_u32(self, limbs, like):
+        return torch.as_tensor(limbs, dtype=torch.int32,
+                               device=like.device)[:, None].view(torch.uint32)
+
+    def _emit(self, op, *xs):
+        """wide.emit's op on uint32 operands."""
+        return as_u32(_wide().emit(self, op, *map(as_i64, xs)))
+
+    def neg(self, a):
+        return _kernels().sub(self, self._const_u32([0] * self.L, a), a)
+
+    def mul_norm(self, a, b):
+        """Product of two canonical values, canonical (2 Montgomery
+        products: a·b·R^-1, then · R^2)."""
+        fk = _kernels()
+        return fk.mont_mul(self, fk.mont_mul(self, a, b),
+                           self._const_u32(self.r2_list, a))
+
+    def pow_mont(self, a, e: int):
+        """a^e in Montgomery form, a Python loop over the exponent's bits
+        (left to right, a square a bit and a product a set bit)."""
+        fk = _kernels()
+        if e == 0:
+            one = spec_constants(self.spec)["one_mont_limbs"]
+            return self._const_u32(one.astype("int64"), a).expand(a.shape)
+        acc = a
+        for bit in bin(e)[3:]:
+            acc = fk.mont_mul(self, acc, acc)
+            if bit == "1":
+                acc = fk.mont_mul(self, acc, a)
+        return acc
+
+    def inv_mont(self, a):
+        """Fermat inversion a^(p-2); 0 maps to 0."""
+        return self.pow_mont(a, self.p - 2)
+
+    def div_mont(self, a, b):
+        return _kernels().mont_mul(self, a, self.inv_mont(b))
+
+    def eq(self, a, b):
+        return self._emit("eq", a, b)
+
+    def neq(self, a, b):
+        return self._emit("neq", a, b)
+
+    def lt(self, a, b):
+        return self._emit("lt", a, b)
+
+    def le(self, a, b):
+        return self._emit("le", a, b)
+
+    def gt(self, a, b):
+        return self._emit("gt", a, b)
+
+    def ge(self, a, b):
+        return self._emit("ge", a, b)
+
+    def bool_and(self, a, b):
+        return self._emit("land", a, b)
+
+    def bool_or(self, a, b):
+        return self._emit("lor", a, b)
+
+    def bool_not(self, a):
+        return self._emit("lnot", a)
+
+    def bit_and(self, a, b):
+        return self._emit("band", a, b)
+
+    def bit_or(self, a, b):
+        return self._emit("bor", a, b)
+
+    def bit_xor(self, a, b):
+        return self._emit("bxor", a, b)
+
+    def complement(self, a):
+        """~a over p.bit_length() bits, mod p."""
+        return self._emit("bnot", a)
+
+    def shift_r_const(self, a, k: int):
+        """a >> k for a static k >= 0."""
+        return as_u32(_wide().shift_w(self, as_i64(a), k, False))
+
+    def shift_l_const(self, a, k: int):
+        """(a << k) masked to the field's bits, mod p; static k >= 0."""
+        return as_u32(_wide().shift_w(self, as_i64(a), k, True))
+
+    def idiv(self, a, b):
+        """a // b of canonical representatives, idiv(a, 0) = 0 (jfield.idiv,
+        the long division of wide.idiv64)."""
+        return as_u32(_wide().idiv64(self, as_i64(a), as_i64(b)))
+
+    def imod(self, a, b):
+        """a mod b of canonical representatives, mod(a, 0) = a: a -
+        (a // b)·b, whose product and difference stay below p."""
+        return _kernels().sub(self, a, self.mul_norm(self.idiv(a, b), b))
+
+    def select(self, c, a, b):
+        """circom ?: — a where the field value c is nonzero, else b."""
+        return self._emit("select", c, a, b)
+
+
+def _kernels():
+    """ops/field_kernels.py (K5, K6), imported at first use: it imports
+    this module."""
+    from . import field_kernels
+
+    return field_kernels
+
+
+def _wide():
+    """ops/wide.py, imported at first use: it imports this module."""
+    from . import wide
+
+    return wide

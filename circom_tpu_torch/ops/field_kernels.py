@@ -68,3 +68,8 @@ def sub(field: TorchField, a, b):
 def to_mont(field: TorchField, a):
     """a·R mod p, as mont_mul by R^2 (K5)."""
     return mont_mul(field, a, as_u32(field.R2_limbs))
+
+
+def from_mont(field: TorchField, a):
+    """a·R^-1 mod p, as mont_mul by 1 (K5)."""
+    return mont_mul(field, a, as_u32(field.one_limbs))

@@ -1,16 +1,20 @@
-"""Plain PyTorch versions of the wide opcodes of K1c and K1d.
+"""Plain PyTorch versions of the wide opcodes of K1c, K1d and K4.
 
 The counterpart of ops/narrow.py for the wide lane of the interpreter
-kernel (ops/cuda/interp.cu, device arithmetic in ops/cuda/wide.cuh): the
-goldilocks folded product, the 16 ops of the JAX package's
-`LimbEmitter.emit` (ops/limb_emit.py), the limb shifts, the widening of a
-narrow value and the long division of backend/interp.py's `wbranch`, each
-step for step with the JAX code, so that the values equal it bit for bit.
+kernel (ops/cuda/interp.cu, device arithmetic in ops/cuda/wide.cuh) and
+for the segment kernel (ops/segment_gen.py): the goldilocks folded
+product, the 16 ops of the JAX package's `LimbEmitter.emit`
+(ops/limb_emit.py), the limb shifts, the widening of a narrow value and
+the long division of backend/interp.py's `wbranch`, with the values of
+the JAX code bit for bit.  They are also the per-op library's
+comparisons, bit ops, shifts and division (ops/field.py `TorchField`), so
+each op is written over whole limb tensors: a borrow chain is one prefix
+sum (`TorchField.borrows`), a shift two slices, not a loop over limbs.
 
 Operands are int64 limb tensors (..., L, B) of canonical field elements
-(16-bit limbs); a constant-bank row (L, 1) broadcasts against them.  The
-JAX code computes these in uint32 and int32; every intermediate here is
-small enough that int64 gives the same values, with `>>` arithmetic on
+(16-bit limbs); a constant (L, 1) broadcasts against them.  The JAX code
+computes these in uint32 and int32; every intermediate here is small
+enough that int64 gives the same values, with `>>` arithmetic on
 negative carries as in int32.
 """
 
@@ -31,11 +35,6 @@ def _zero(x):
     return torch.zeros_like(x[..., 0, :])
 
 
-def _limbs(values, like):
-    return torch.as_tensor(values, dtype=torch.int64,
-                           device=like.device)[:, None]
-
-
 def nonzero(x):
     """(..., L, B) -> bool (..., B): the value is not 0."""
     return (x != 0).any(dim=-2)
@@ -49,28 +48,16 @@ def _bit(mask, like):
     return out
 
 
-def _ult(x, y):
+def _ult(field, x, y):
     """x < y as unsigned integers: the borrow out of x - y."""
-    borrow = 0
-    for i in range(x.shape[-2]):
-        v = x[..., i, :] - y[..., i, :] - borrow
-        borrow = -(v >> LIMB_BITS)
-    return torch.as_tensor(borrow) > 0
-
-
-def _is_neg(field, x):
-    """x > p/2, the field's sign rule (limb_emit's is_neg)."""
-    borrow = 0
-    for i in range(field.L):
-        v = field.half_list[i] - x[..., i, :] - borrow
-        borrow = -(v >> LIMB_BITS)
-    return borrow > 0
+    return field.borrows(x - y)[1] > 0
 
 
 def _lt_signed(field, x, y):
-    na, nb = _is_neg(field, x), _is_neg(field, y)
+    # x > p/2 is negative (limb_emit's is_neg)
+    na, nb = _ult(field, field.half_limbs, x), _ult(field, field.half_limbs, y)
     d = na ^ nb
-    return (d & na) | (~d & _ult(x, y))
+    return (d & na) | (~d & _ult(field, x, y))
 
 
 def emit(field: TorchField, op, x, y=None, z=None):
@@ -89,7 +76,7 @@ def emit(field: TorchField, op, x, y=None, z=None):
         v = x | y if op == "bor" else x ^ y
         return field.cond_sub64(v, _zero(v))
     if op == "bnot":
-        v = x ^ _limbs(field.mask_list, x)
+        v = x ^ field.mask_limbs
         return field.cond_sub64(v, _zero(v))
     if op in ("eq", "neq"):
         m = (x == y).all(dim=-2)
@@ -159,25 +146,24 @@ def gl_mul64(field: TorchField, a, b, carries=False):
 def shift_w(field: TorchField, x, count, left):
     """x << count (masked to the field's bits, then one conditional
     subtract) or x >> count, by q = count // 16 limbs and r = count % 16
-    bits; count >= 0 (backend/interp.py `shift_w`)."""
+    bits; count >= 0 (backend/interp.py `shift_w`).  A limb j takes limb
+    j -+ q shifted by r and the r bits that cross from its neighbour."""
     L = field.L
     q, r = divmod(int(count), LIMB_BITS)
-    zero = _zero(x)
-
-    def limb(i):
-        return x[..., i, :] if 0 <= i < L else zero
-
-    rows = []
-    for j in range(L):
-        if left:
-            v = ((limb(j - q) << r) & MASK) \
-                | (limb(j - q - 1) >> (LIMB_BITS - r))
-            rows.append(v & field.mask_list[j])
-        else:
-            rows.append((limb(j + q) >> r)
-                        | ((limb(j + q + 1) << (LIMB_BITS - r)) & MASK))
-    out = torch.stack(rows, -2)
-    return field.cond_sub64(out, zero) if left else out
+    out = torch.zeros_like(x)
+    if q < L and left:
+        out[..., q:, :] = (x[..., :L - q, :] << r) & MASK
+        if r and q + 1 < L:
+            out[..., q + 1:, :] |= x[..., :L - q - 1, :] >> (LIMB_BITS - r)
+    elif q < L:
+        out[..., :L - q, :] = x[..., q:, :] >> r
+        if r and q + 1 < L:
+            out[..., :L - q - 1, :] |= \
+                (x[..., q + 1:, :] << (LIMB_BITS - r)) & MASK
+    if not left:
+        return out
+    out &= field.mask_limbs
+    return field.cond_sub64(out, _zero(out))
 
 
 def widen64(field: TorchField, v):
@@ -190,29 +176,26 @@ def widen64(field: TorchField, v):
 def idiv64(field: TorchField, a, b):
     """a // b for canonical a and b, 0 where b = 0 (backend/interp.py
     `idiv_rows`): p.bit_length() steps of shift-in, compare and
-    predicated subtract; the bit shifted out of the top limb forces the
-    subtract, and the difference mod 2^(16L) is then exact."""
+    predicated subtract, each on whole limb tensors; the bit shifted out
+    of the top limb forces the subtract, and the difference mod 2^(16L)
+    is then exact."""
     L = field.L
     bits = field.p.bit_length()
-    R = torch.zeros_like(a)
-    Q = torch.zeros_like(a)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    a, b = a.expand(shape), b.expand(shape)
+    R = torch.zeros(shape, dtype=torch.int64, device=a.device)
+    Q = torch.zeros_like(R)
     for t in range(bits):
         li, sh = divmod(bits - 1 - t, LIMB_BITS)
-        bit = (a[..., li, :] >> sh) & 1
-        topbit = R[..., L - 1, :] >> (LIMB_BITS - 1)
-        rws = torch.empty_like(R)
-        rws[..., 0, :] = ((R[..., 0, :] << 1) & MASK) | bit
-        rws[..., 1:, :] = ((R[..., 1:, :] << 1) & MASK) \
-            | (R[..., :-1, :] >> (LIMB_BITS - 1))
-        borrow = 0
-        subs = []
-        for j in range(L):
-            v = rws[..., j, :] - b[..., j, :] - borrow
-            subs.append(v & MASK)
-            borrow = -(v >> LIMB_BITS)
-        ge = (topbit != 0) | (borrow == 0)
-        R = torch.where(ge[..., None, :], torch.stack(subs, -2), rws)
-        Q[..., li, :] |= ge.to(torch.int64) << sh
+        topbit = R[..., L - 1:, :] >> (LIMB_BITS - 1)
+        shifted_in = torch.cat([(a[..., li:li + 1, :] >> sh) & 1,
+                                R[..., :-1, :] >> (LIMB_BITS - 1)], dim=-2)
+        R = ((R << 1) & MASK) | shifted_in
+        d = R - b
+        b_in, b_out = field.borrows(d)
+        ge = (topbit != 0) | (b_out[..., None, :] == 0)
+        R = torch.where(ge, (d - b_in) & MASK, R)
+        Q[..., li:li + 1, :] |= ge.to(torch.int64) << sh
     return torch.where(nonzero(b)[..., None, :], Q, 0)
 
 

@@ -67,7 +67,9 @@ def main(argv=None):
         prog = WitnessProgram(tape, spec, device=args.device,
                               input_ranges=hints)
     except (RuntimeError, UnsupportedTapeOp) as e:
-        # no card for --device cuda, or a tape outside this port
+        # no card for --device cuda; every tape has a backend (interpreter,
+        # segments or per-op), so UnsupportedTapeOp comes only from a
+        # forced mode, which this entry point does not take
         print(f"error: {e}", file=sys.stderr)
         return 1
 

@@ -21,18 +21,24 @@ from circom_tpu_torch.backend.checker import R1CSChecker
 from circom_tpu_torch.backend.interp import gather_n, gather_w, interp_k1
 from circom_tpu_torch.backend.interp_ref import (gather_n_rows, gather_rows,
                                                  run_plan)
+from circom_tpu_torch.backend.segments import (SegmentedProgram, segment_k4,
+                                               segment_ref)
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits import sha256_io
 from circom_tpu_torch.circuits.gen_poseidon import generate
 from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
+                                               bigdiv_num2bits_source,
                                                comparator_inputs,
                                                comparators_source,
-                                               poseidon2_source)
+                                               num2bits_source,
+                                               poseidon2_source,
+                                               segment_ops_source)
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.convert import (K1C_OPCODES, K1D_OPCODES,
                                       narrow_unit_arrays, plan_from_arrays,
                                       to_device, unit_arrays, unit_inputs)
 from circom_tpu_torch.field.primes import LIMB_BITS, field_spec
+from circom_tpu_torch.ops import build
 from circom_tpu_torch.ops import field_kernels as fk
 from circom_tpu_torch.ops.field import TorchField, as_i64
 from circom_tpu_torch.ops.limbs import limbs_to_int
@@ -265,3 +271,124 @@ def test_k1cd_path_matches_plain_host_and_r1cs(card, name):
         host = list(cc.witness_host(raw))
         assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] \
             == host
+
+
+def k4_against_plain(prog, x):
+    """Every segment of a segmented program through K4 and its plain
+    version on the same inputs: every output row bit for bit."""
+    sp = prog.fused
+    xi = x.view(torch.int32)
+    vals = {}
+    for s, seg in enumerate(sp.segments):
+        xin = torch.stack([xi[sp.xt.iidx[a]] if sp.xt.kind[a] == "input"
+                           else vals[a] for a in seg.in_nodes]) \
+            .view(torch.uint32)
+        got = segment_k4(sp, s, xin)
+        want = segment_ref(sp.field, seg, xin)
+        torch.cuda.synchronize()
+        assert torch.equal(as_i64(got), as_i64(want)), f"segment {s}"
+        for row, a in enumerate(seg.out_nodes):
+            vals[a] = got.view(torch.int32)[row]
+
+
+@pytest.mark.parametrize("prime", ["bn128", "goldilocks"])
+def test_k4_op_circuit_matches_plain(card, prime):
+    """Every op of the segmented backend (constants with zero limbs,
+    shift counts 0, 1, 15, 16, 17, bits - 1) on edge operands, at a
+    batch that is not a multiple of the block (the masked ragged edge)."""
+    spec = field_spec(prime)
+    cc = compile_source(segment_ops_source(spec.p.bit_length()), prime=prime)
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=card,
+                          mode="segments",
+                          input_ranges=cc.input_range_hints())
+    p, B = spec.p, 4099
+    edges = [0, 1, p - 1, p // 2, p // 2 + 1, 1 << 16]
+    rng = random.Random(41)
+    cols = [[rng.randrange(p) for _ in range(B)] for _ in range(3)]
+    for lane in range(36):
+        cols[0][lane], cols[1][lane] = edges[lane % 6], edges[lane // 6]
+    cols[2] = [lane % 2 for lane in range(B)]
+    x = to_device(prog.encode_inputs(cols), card)
+    k4_against_plain(prog, x)
+    w = prog.run(x).view(torch.int32).cpu().numpy().view(np.uint32)
+    for lane in (7, 8, 40, B - 1):
+        host = list(cc.witness_host({"a": cols[0][lane], "b": cols[1][lane],
+                                     "c": cols[2][lane]}))
+        assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] \
+            == host
+
+
+@pytest.mark.parametrize("copies", [1, 4])
+def test_k4_num2bits254_matches_plain_host_and_r1cs(card, copies):
+    """Num2Bits(254) over bn128 (one segment) and 4 x Num2Bits(254)
+    (several segments, values crossing the boundaries) through K4."""
+    cc = compile_source(num2bits_source(254, copies))
+    spec = field_spec("bn128")
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=card)
+    assert isinstance(prog.fused, SegmentedProgram)
+    assert (len(prog.fused.segments) > 1) == (copies > 1)
+    x = canonical(np.random.default_rng(42), "bn128", (copies, 16, 1000))
+    x[:, :, 0] = 0
+    x[:, 0, 1] = 1
+    k4_against_plain(prog, to_device(x, card))
+    build.reset_launches()
+    wit = prog.run(x)
+    assert build.LAUNCHES["k4"] == len(prog.fused.segments)
+    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
+                          device=card, lanes=256)
+    assert bool(checker.check(wit).all())
+    w = wit.view(torch.int32).cpu().numpy().view(np.uint32)
+    for lane in (0, 1, 999):
+        ins = [limbs_to_int(x[i, :, lane]) for i in range(copies)]
+        host = list(cc.witness_host({"a": ins}))
+        assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] \
+            == host
+
+
+def test_perop_bigdiv_num2bits_matches_host_and_r1cs(card):
+    """The per-op path on the card: the products, adds and subtracts on
+    K5 and K6, no interpreter and no K4."""
+    cc = compile_source(bigdiv_num2bits_source())
+    spec = field_spec("bn128")
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=card)
+    assert prog.fused is None
+    rng = random.Random(5)
+    B = 512
+    cols = [[rng.randrange(spec.p) for _ in range(B)],
+            [rng.randrange(1, spec.p) for _ in range(B)]]
+    cols[0][0], cols[1][1] = spec.p - 1, 1
+    build.reset_launches()
+    wit = prog.run(prog.encode_inputs(cols))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mont_mul"] and build.LAUNCHES["sub"]
+    assert not any(k.startswith("interp") or k == "k4"
+                   for k in build.LAUNCHES)
+    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
+                          device=card, lanes=256)
+    assert bool(checker.check(wit).all())
+    w = wit.view(torch.int32).cpu().numpy().view(np.uint32)
+    for lane in (0, 1, 300):
+        host = list(cc.witness_host({"a": cols[0][lane],
+                                     "b": cols[1][lane]}))
+        assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] \
+            == host
+
+
+def test_build_generated_is_cached(card, monkeypatch):
+    """A second build of the same generated text loads the library nvcc
+    wrote the first time, without calling nvcc."""
+    cc = compile_source(num2bits_source(254, 1))
+    prog = WitnessProgram(cc.build_tape()[0], field_spec("bn128"),
+                          device=card)
+    text = prog.fused.source()
+    build.build_generated(text, 1)
+    name = build.generated_name(text)
+    assert build.segment_library(name, 0).exists()
+    build._libs.pop(name)
+
+    def no_nvcc(*args, **kwargs):
+        raise AssertionError("nvcc was called for a cached source")
+
+    monkeypatch.setattr(build.subprocess, "run", no_nvcc)
+    lib = build.build_generated(text, 1)
+    assert lib is build._libs[name] and hasattr(lib, "ctpu_k4_seg0")
