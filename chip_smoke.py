@@ -59,7 +59,8 @@ try:
 
     from circom_tpu_torch.backend.artifacts import save_program
     from circom_tpu_torch.backend.checker import R1CSChecker
-    from circom_tpu_torch.backend.interp import gather_n, gather_w, interp_k1
+    from circom_tpu_torch.backend.interp import (gather_n, gather_w,
+                                                 interp_k1, launch_gather_w)
     from circom_tpu_torch.backend.interp_ref import (gather_n_rows,
                                                      gather_rows, run_plan)
     from circom_tpu_torch.backend.torch_backend import WitnessProgram
@@ -87,8 +88,10 @@ try:
     from circom_tpu_torch.field.primes import field_spec
     from circom_tpu_torch.ops import build
     from circom_tpu_torch.ops import field_kernels as fk
-    from circom_tpu_torch.ops.field import TorchField, as_i64, as_u32
-    from circom_tpu_torch.ops.limbs import int_to_limbs, limbs_to_int
+    from circom_tpu_torch.ops.field import (TorchField, as_i64, as_u32,
+                                            mont_edge_values)
+    from circom_tpu_torch.ops.limbs import (int_to_limbs, ints_to_limbs,
+                                            limbs_to_int)
     from circom_tpu_torch.ops.narrow import NARROW_OPS
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e})",
@@ -96,8 +99,12 @@ except ImportError as e:
     sys.exit(2)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32
-# non-tensor rate taken as the rate of 32-bit integer lane operations (an
-# upper bound: IMAD issues at half of it, so the true bound is higher)
+# non-tensor rate taken as the rate of 32-bit integer lane operations.  It
+# overstates what integer code reaches: on an H100 80GB HBM3 at 700 W the
+# 16-bit K5 of earlier versions (2L^2 products, each with a mask, a shift
+# and two adds: ~2,560 operations an element at L = 16) ran at ~29 T/s and
+# was bound by them, while the 32-bit K5 moves 86 % of HBM3's rate, so the
+# operation bounds below are low.
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12
 
@@ -143,6 +150,12 @@ def time_ms(fn, reps=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bare(dev, launch, wrapper):
+    """A kernel's bare launch (no checks, output given) on the card, or
+    its wrapper, which runs the plain version, in a CPU rehearsal."""
+    return launch if dev.type == "cuda" else wrapper
 
 
 def wall_ms(fn):
@@ -237,13 +250,36 @@ class Paths:
         return {p: c.get(kernel, 0) for p, c in self.counts.items()}
 
 
+def k5_ops(L):
+    """32-bit lane operations of K5 an element, counted low: 2 (L/2)^2
+    CIOS steps in 32-bit words, each a 32x32->64 multiply-add (2: the low
+    and the high word) and the add of its carry (1)."""
+    return 3 * 2 * (L // 2) ** 2
+
+
+def edge_operands(spec, dev):
+    """(every pair of mont_edge_values as (1, L, E^2) a and b, each edge
+    as an (L, 1) column)."""
+    L = spec.n_limbs
+    edges = mont_edge_values(spec)
+    pairs = [(x, y) for x in edges for y in edges]
+    a = to_device(ints_to_limbs([x for x, _ in pairs], L).T[None], dev)
+    b = to_device(ints_to_limbs([y for _, y in pairs], L).T[None], dev)
+    cols = [to_device(ints_to_limbs([y], L).T.copy(), dev) for y in edges]
+    return a, b, cols
+
+
 def phase_field(rep, dev, nnz, n_rows, lanes):
-    """K5 and K6 against TorchField at the checker's shapes and at the
-    per-op path's: (L, B) against a constant column (L, 1) on either side
-    (the R^2 and 1 of mul_norm, to_mont and from_mont, the 0 of neg) and
-    against (L, B)."""
+    """K5 and K6 against TorchField at the checker's shapes, at
+    goldilocks, bn128 and secq256r1 (p just under R = 2^256: the edge of
+    the conditional subtract): random canonical operands, the edge
+    operands of mont_edge_values (every pair, and each edge as a column
+    on either side), and the per-op path's shapes: (L, B) against a
+    constant column (L, 1) on either side (the R^2 and 1 of mul_norm,
+    to_mont and from_mont, the 0 of neg) and against (L, B).  K5 is timed
+    by CUDA events around its launch alone."""
     rng = np.random.default_rng(SEED)
-    for prime in ("bn128", "goldilocks"):
+    for prime in ("bn128", "goldilocks", "secq256r1"):
         spec = field_spec(prime)
         L = spec.n_limbs
         f = TorchField(spec, dev)
@@ -257,16 +293,24 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
                 "sub": f.sub(x, y)}
         sync()
         err = {name: max_abs_err(got[name], want[name]) for name in got}
+        ea, eb, ecols = edge_operands(spec, dev)
+        err["mont_mul"] = max([err["mont_mul"], max_abs_err(
+            fk.mont_mul(f, ea, eb), f.mont_mul(ea, eb))]
+            + [max_abs_err(fk.mont_mul(f, *o), f.mont_mul(*o))
+               for k in ecols for o in ((ea, k), (k, ea))])
         if any(err.values()):
             raise SystemExit(f"FAIL K5/K6 at {prime}: max abs err {err}")
         say(f"  K5/K6 {prime}: mont_mul {tuple(a.shape)}x{tuple(c.shape)}, "
-            f"add/sub {tuple(x.shape)} bit-exact")
+            f"add/sub {tuple(x.shape)} bit-exact; mont_mul on "
+            f"{len(ecols)} edge operands, every pair and each as a column "
+            "on either side, bit-exact")
         u = canonical_limbs(rng, spec, (L, lanes), dev)
         v = canonical_limbs(rng, spec, (L, lanes), dev)
         cols = [canonical_limbs(rng, spec, (L, 1), dev),
                 as_u32(f.R2_limbs), as_u32(f.one_limbs),
                 torch.zeros((L, 1), dtype=torch.uint32, device=dev)]
         cases = [("mont_mul", u, k) for k in cols] \
+            + [("mont_mul", k, u) for k in cols] \
             + [("sub", k, u) for k in cols] \
             + [("add", u, v), ("sub", u, v), ("add", u, cols[0])]
         for name, a1, b1 in cases:
@@ -277,16 +321,24 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
                                  f"{tuple(a1.shape)}, {tuple(b1.shape)}: "
                                  f"max abs err {e}")
         say(f"  K5/K6 {prime} at the per-op shapes: mont_mul (L, {lanes}) x "
-            f"(L, 1), sub (L, 1) - (L, {lanes}), add/sub (L, {lanes}) on "
-            f"random, R^2, 1 and 0 columns: bit-exact")
+            f"(L, 1) both ways, sub (L, 1) - (L, {lanes}), add/sub (L, "
+            f"{lanes}) on random, R^2, 1 and 0 columns: bit-exact")
         if prime != "bn128":
             continue
         e_mm, e_xy = nnz * lanes, n_rows * lanes
+        out = torch.empty_like(a)
+        ms = time_ms(bare(dev, lambda: fk.launch(
+            "mont_mul", f, a, c.broadcast_to(a.shape), out),
+            lambda: fk.mont_mul(f, a, c)), reps=20)
+        nbytes, ops = 4 * (2 * e_mm * L + nnz * L), k5_ops(L) * e_mm
+        say(f"  K5 at {tuple(a.shape)}x{tuple(c.shape)}: {ms:.4f} ms, "
+            f"{nbytes / ms / 1e6:.0f} GB/s, {ops / ms / 1e9:.2f} T lane "
+            "operations/s")
         rep.add("mont_mul", "circom_tpu_torch/ops/cuda/field_ops.cu",
-                "circom_tpu/ops/pallas_field.py:94", err["mont_mul"],
-                time_ms(lambda: fk.mont_mul(f, a, c)),
-                time_ms(lambda: f.mont_mul(a, c), reps=2),
-                4 * (2 * e_mm * L + nnz * L), 2 * L * L * e_mm)
+                "circom_tpu/ops/pallas_field.py:94", err["mont_mul"], ms,
+                time_ms(lambda: f.mont_mul(a, c), reps=2), nbytes, ops,
+                bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_bound_ms=ops / LANE_OPS_PER_S * 1e3)
         for name in ("add", "sub"):
             # the checker subtracts and never adds: add is on no main path
             rep.add(name, "circom_tpu_torch/ops/cuda/field_ops.cu",
@@ -297,23 +349,50 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
 
 
 def phase_gather(rep, plan, B, dev):
-    """K2 against the plain gather on a random bank of the plan's shape."""
+    """K2 against the plain gather: on a random bank of P's plan shape
+    with the plan's indices (16 bytes a thread), at B - 3 lanes (rows not
+    a multiple of 16 bytes: 4 bytes a thread), at W = 1, and on a bank 4
+    bytes off 16-byte alignment (4 bytes a thread).  K2's launch and
+    index_select of the same rows into the same output are timed by CUDA
+    events, in turns."""
     rng = np.random.default_rng(SEED + 1)
     L = plan.L
     bank = to_device(rng.integers(0, 1 << 16, size=(plan.n_bank_rows, L, B),
                                   dtype=np.uint32), dev)
     idx = plan.dev["wd_src"]
-    got = gather_w(bank, idx)
-    err = max_abs_err(got, gather_rows(bank, idx))
     W = idx.shape[0]
-    bank_i = bank.view(torch.int32)
+    err = max_abs_err(gather_w(bank, idx), gather_rows(bank, idx))
+    odd = bank[..., :max(B - 3, 1)].contiguous()
+    b_m = min(1000, B - 1)
+    flat = bank.view(-1)[1:1 + plan.n_bank_rows * L * b_m]
+    cases = [(odd, idx), (bank, idx[:1]),
+             (flat.view(plan.n_bank_rows, L, b_m), idx)]
+    for bk, ix in cases:
+        err = max(err, max_abs_err(gather_w(bk, ix), gather_rows(bk, ix)))
+    del odd, flat
+    say(f"  K2: {W} rows of {tuple(bank.shape)}, of {B - 3} lanes, 1 row, "
+        f"and {W} rows of a misaligned bank: max abs err {err}")
+    out = torch.empty((W, L, B), dtype=torch.uint32, device=dev)
+    bank_i, out_i = bank.view(torch.int32), out.view(torch.int32)
     idx_l = idx.to(torch.int64)
+    k2, sel = [], []
+    for _ in range(2):
+        k2.append(time_ms(bare(dev, lambda: launch_gather_w(bank, idx, out),
+                               lambda: gather_w(bank, idx)), reps=20))
+        sel.append(time_ms(lambda: torch.index_select(bank_i, 0, idx_l,
+                                                      out=out_i), reps=20))
+    nbytes = 4 * 2 * W * L * B
+    ms, lib_ms = sum(k2) / 2, sum(sel) / 2
+    # the card's practical copy rate: the same bytes as one contiguous copy
+    copy_ms = time_ms(lambda: out.copy_(bank[:W]), reps=20)
+    say(f"  K2 {k2[0]:.4f}, {k2[1]:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s); "
+        f"index_select {sel[0]:.4f}, {sel[1]:.4f} ms, in turns; a "
+        f"contiguous copy_ of the same bytes {copy_ms:.4f} ms "
+        f"({nbytes / copy_ms / 1e6:.0f} GB/s)")
     rep.add("gather_w", "circom_tpu_torch/ops/cuda/gather.cu",
-            "circom_tpu/backend/interp.py:2579", err,
-            time_ms(lambda: gather_w(bank, idx)),
-            time_ms(lambda: gather_rows(bank, idx)),
-            4 * 2 * W * L * B, 0,
-            library_ms=time_ms(lambda: bank_i.index_select(0, idx_l)))
+            "circom_tpu/backend/interp.py:2579", err, ms,
+            time_ms(lambda: gather_rows(bank, idx)), nbytes, 0,
+            library_ms=lib_ms, copy_ms=copy_ms)
 
 
 # 32-bit multiplies of K1's product opcodes per lane, in units of L^2
@@ -363,12 +442,13 @@ def phase_interp(rep, prog, x_w):
 
 
 def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
-                 never=(), n_lanes=SAMPLE_LANES):
+                 never=(), n_lanes=SAMPLE_LANES, profile_check=False):
     """One witness path: WitnessProgram.run at the inputs' batch, then the
     R1CS check of every lane (launch counts read around exactly this;
     kernels in `never` must not launch), a warm timed repeat, and n_lanes
     sampled lanes against the host calculator (host_map: the lane's input
-    ints -> the input map)."""
+    ints -> the input map); with profile_check, where the check's device
+    time goes (K5's share)."""
     dev, spec = prog.device, prog.spec
     B = inputs.shape[-1]
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
@@ -391,6 +471,8 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
     say(f"  witnesses: {tuple(wit.shape)} in {run_ms:.1f} ms "
         f"({B / run_ms * 1e3:.0f} witnesses/s); R1CS check of all {B} "
         f"lanes in {check_ms:.1f} ms")
+    if profile_check and dev.type == "cuda":
+        profile_check_breakdown(checker, wit, check_ms)
     lanes = random.Random(SEED).sample(range(B), min(n_lanes, B))
     sel = torch.as_tensor(lanes, device=wit.device)
     w_np = wit.view(torch.int32).index_select(2, sel).cpu().numpy() \
@@ -416,7 +498,7 @@ def poseidon2_path(paths, cc, spec, dev, B):
     inputs = canonical_limbs(rng, spec, (prog.n_inputs, spec.n_limbs, B), dev)
     times = witness_path(paths, "poseidon2", cc, prog, inputs,
                          ("interp_k1a", "gather_w", "mont_mul", "sub"),
-                         lambda ins: {"inputs": ins})
+                         lambda ins: {"inputs": ins}, profile_check=True)
     return prog, inputs, times
 
 
@@ -849,7 +931,16 @@ def sha256_messages(B, seed):
                                            dtype=np.uint8)]
 
 
-def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True):
+def profile_check_breakdown(checker, wit, check_ms):
+    """One warm R1CS check under the profiler: its device time by kernel,
+    K5's (mont_mul_kernel) and K6's among them."""
+    say("  the R1CS check:")
+    profile_breakdown(lambda: checker.check_detailed(wit), check_ms, reps=1,
+                      aten=False, show=("mont_mul_kernel",
+                                        "elementwise_kernel<16, 2>"))
+
+
+def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=()):
     """Where a warm run's time goes: device time by kernel from
     torch.profiler, and the device's idle share of the run's wall time,
     averaged over `reps` runs.  A traced run before them warms the
@@ -857,7 +948,8 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True):
     unrecorded (a run of thousands of launches needs none).  aten=False
     leaves PyTorch's operator events out of the host times (a per-op run
     records some 180,000, slow to summarise); the CUDA runtime's calls
-    stay."""
+    stay.  Kernels whose names hold a string of `show` are printed beside
+    the eight longest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -883,7 +975,8 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True):
         f"profiler, {wall:.2f} ms without): device busy {busy:.3f} ms a "
         f"run, idle share {max(0.0, 1 - busy / ms):.3f}, {n_kernels:g} "
         "kernels and copies a run")
-    for e in events[:8]:
+    for e in events[:8] + [e for e in events[8:]
+                           if any(k in e.key for k in show)]:
         say(f"    {e.self_device_time_total / 1e3 / reps:8.3f} ms "
             f"x{e.count / reps:<5g} {e.key[:90]}")
     host = sorted((e for e in traced[0] if e.device_type == DeviceType.CPU
@@ -1005,14 +1098,17 @@ def sha256_full_path(paths, cc, prog, spec, dev, B):
             raise SystemExit(f"FAIL SHA256 R1CS check: {n_bad} of {B} lanes "
                              f"violate a constraint (first: "
                              f"{first_bad[~ok][:5].tolist()})")
-        return tuple(wit.shape), run_ms, check_ms
+        return wit, run_ms, check_ms
 
-    shape, run_ms, check_ms = paths.run(
+    wit, run_ms, check_ms = paths.run(
         "sha256_full", run_and_check,
         ("interp_k1b", "gather_n", "mont_mul", "sub"))
+    shape = tuple(wit.shape)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if dev.type == "cuda" else 0.0
     if dev.type == "cuda":
+        profile_check_breakdown(checker, wit, check_ms)
+        del wit
         profile_breakdown(lambda: prog.run(x), run_ms)
     say(f"  full-limb witness {shape} in {run_ms:.1f} ms; R1CS check of all "
         f"{B} lanes in {check_ms:.1f} ms; peak device memory {peak:.1f} GiB")

@@ -103,7 +103,8 @@ def check_field(plan: DevicePlan, field: TorchField):
 
 def gather_w(bank, idx):
     """Witness gather out[w] = bank[idx[w]]: uint32 (R, L, B), int32 (W,)
-    -> (W, L, B)."""
+    -> (W, L, B).  On the card the indices are first held inside [0, R),
+    a device-to-host sync."""
     if bank.device.type == "cpu":
         return gather_rows(bank, idx)
     if bank.dtype != torch.uint32 or idx.dtype != torch.int32 \
@@ -112,26 +113,29 @@ def gather_w(bank, idx):
                          "on one device")
     bank = bank.contiguous()
     idx = idx.contiguous()
-    W = idx.shape[0]
     _check_index(idx, bank.shape[0], "gather_w")
-    out = torch.empty((W,) + tuple(bank.shape[1:]), dtype=torch.uint32,
-                      device=bank.device)
-    row = bank[0].numel() if bank.shape[0] else 0
-    if out.numel() == 0:
-        return out   # nothing to launch
-    lib = library("gather")
-    rc = lib.ctpu_gather_rows(bank.data_ptr(), idx.data_ptr(),
-                              out.data_ptr(), row, W,
-                              stream_ptr(bank.device))
+    out = torch.empty((idx.shape[0],) + tuple(bank.shape[1:]),
+                      dtype=torch.uint32, device=bank.device)
+    if out.numel():
+        launch_gather_w(bank, idx, out)
+    return out
+
+
+def launch_gather_w(bank, idx, out):
+    """Launch K2 without checks: contiguous uint32 bank (R, ...) and out
+    (W, ...) on the card, int32 idx (W,) inside [0, R), W > 0."""
+    rc = library("gather").ctpu_gather_rows(
+        bank.data_ptr(), idx.data_ptr(), out.data_ptr(), bank[0].numel(),
+        idx.shape[0], stream_ptr(bank.device))
     LAUNCHES["gather_w"] += 1
     check_launch(rc, "gather_w")
-    return out
 
 
 def gather_n(bank_n, x_n, src, shift):
     """Narrow witness gather: row src[w] of [bank_n; x_n], with bit
     shift[w] unpacked where shift[w] >= 0.  int32 (R_n, B), (n_nin, B),
-    (W,), (W,) -> int32 (W, B)."""
+    (W,), (W,) -> int32 (W, B).  On the card src is first held inside
+    the rows, a device-to-host sync."""
     if bank_n.device.type == "cpu":
         return gather_n_rows(bank_n, x_n, src, shift)
     dev = bank_n.device
@@ -143,18 +147,23 @@ def gather_n(bank_n, x_n, src, shift):
                          "and (W,) tensors on one device")
     bank_n, x_n = bank_n.contiguous(), x_n.contiguous()
     src, shift = src.contiguous(), shift.contiguous()
-    W = src.shape[0]
     _check_index(src, bank_n.shape[0] + x_n.shape[0], "gather_n")
-    out = torch.empty((W, B), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
-        return out   # nothing to launch
-    lib = library("gather")
-    rc = lib.ctpu_gather_n(bank_n.data_ptr(), bank_n.shape[0],
-                           x_n.data_ptr(), src.data_ptr(), shift.data_ptr(),
-                           out.data_ptr(), W, B, stream_ptr(dev))
+    out = torch.empty((src.shape[0], B), dtype=torch.int32, device=dev)
+    if out.numel():
+        launch_gather_n(bank_n, x_n, src, shift, out)
+    return out
+
+
+def launch_gather_n(bank_n, x_n, src, shift, out):
+    """Launch K3 without checks: contiguous int32 bank_n (R_n, B), x_n
+    (n_nin, B), src and shift (W,) and out (W, B) on the card, src inside
+    [0, R_n + n_nin), W and B > 0."""
+    W, B = out.shape
+    rc = library("gather").ctpu_gather_n(
+        bank_n.data_ptr(), bank_n.shape[0], x_n.data_ptr(), src.data_ptr(),
+        shift.data_ptr(), out.data_ptr(), W, B, stream_ptr(out.device))
     LAUNCHES["gather_n"] += 1
     check_launch(rc, "gather_n")
-    return out
 
 
 def _check_index(idx, n, what):
@@ -173,6 +182,28 @@ class TorchInterpreter:
         self.field = field
         self.device = plan.device
         self.n_witness = plan.n_witness
+
+    # The plan's gathers.  Their indices were held inside the rows when
+    # the plan was built (convert.plan_from_arrays), so on the card they
+    # launch K2 and K3 without the public wrappers' index check and its
+    # device-to-host sync.
+    def _gather_w(self, bank, idx):
+        if self.device.type == "cpu":
+            return gather_rows(bank, idx)
+        out = torch.empty((idx.shape[0],) + tuple(bank.shape[1:]),
+                          dtype=torch.uint32, device=self.device)
+        if out.numel():
+            launch_gather_w(bank, idx, out)
+        return out
+
+    def _gather_n(self, bank_n, x_n, src, shift):
+        if self.device.type == "cpu":
+            return gather_n_rows(bank_n, x_n, src, shift)
+        out = torch.empty((src.shape[0], bank_n.shape[1]), dtype=torch.int32,
+                          device=self.device)
+        if out.numel():
+            launch_gather_n(bank_n, x_n, src, shift, out)
+        return out
 
     def mixed_layout(self):
         """(narrow witness indices, wide witness indices) in the row order
@@ -218,13 +249,14 @@ class TorchInterpreter:
         source is the bank alone unless a plan names inputs or consts."""
         plan = self.plan
         if not len(plan.wd_src) or plan.wd_src.max() < plan.n_bank_rows:
-            return gather_w(bank, plan.dev["wd_src"])
+            return self._gather_w(bank, plan.dev["wd_src"])
         slots = x_w if len(plan.win_order) else torch.zeros(
             (1, plan.L, B), dtype=torch.uint32, device=self.device)
         consts = plan.dev["consts"][:, :, None].expand(-1, -1, B)
         source = torch.cat([t.view(torch.int32) for t in (bank, slots,
                                                            consts)])
-        return gather_w(source.view(torch.uint32), plan.dev["wd_src"])
+        return self._gather_w(source.view(torch.uint32), plan.dev["wd_src"])
+
     def _run_mixed(self, inputs):
         """inputs uint32 (n_inputs, L or 2, B) -> (narrow int32 (n_nw, B),
         wide uint32 (n_wd, L, B)) in the row order of mixed_layout()."""
@@ -233,8 +265,8 @@ class TorchInterpreter:
         B = x_w.shape[-1]
         bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
         if len(plan.nw_src):
-            narrow = gather_n(bank_n, x_n, plan.dev["nw_src"],
-                              plan.dev["nw_shift"])
+            narrow = self._gather_n(bank_n, x_n, plan.dev["nw_src"],
+                                    plan.dev["nw_shift"])
         else:
             narrow = torch.empty((0, B), dtype=torch.int32,
                                  device=self.device)
@@ -256,7 +288,7 @@ class TorchInterpreter:
         narrow_rows = self._as_index(np.flatnonzero(emitted))
         parts = [
             (plan.wd_idx, lambda: self._wide_rows(bank, x_w, B)),
-            (plan.nw_idx[emitted], lambda: widen_narrow(gather_n(
+            (plan.nw_idx[emitted], lambda: widen_narrow(self._gather_n(
                 bank_n, x_n, plan.dev["nw_src"][narrow_rows],
                 plan.dev["nw_shift"][narrow_rows]), self.field.p, plan.L)),
             (plan.nw_idx[~emitted], lambda: gather_rows(inputs, plan.dev[

@@ -33,7 +33,7 @@ from types import SimpleNamespace
 SRC_DIR = Path(__file__).resolve().parent / "cuda"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_ops", "interp", "gather")
-HEADERS = ("field.cuh", "narrow.cuh", "wide.cuh")
+HEADERS = ("field.cuh", "field32.cuh", "narrow.cuh", "wide.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,7 +50,8 @@ _PU32 = ctypes.POINTER(ctypes.c_uint32)
 SIGNATURES = {
     "field_ops": {
         "ctpu_field_elementwise": (
-            _I, [_I, _I, _P, _PLL, _P, _PLL, _P, _LL, _LL, _PU32, _U32, _P]),
+            _I, [_I, _I, _P, _PLL, _P, _PLL, _P, _LL, _LL, _PU32, _U32, _U32,
+                 _P]),
     },
     "interp": {
         "ctpu_interp_k1": (

@@ -8,8 +8,8 @@
 // product is exact in 32 bits and column sums stay far below 2^32; the
 // results are therefore bit-identical to the JAX kernels by construction,
 // including the single conditional subtract that the lazy dot reduction
-// relies on.  (32-bit limbs with mul.wide products would halve the work; that
-// is a later change.)
+// relies on.  K1 and K4 compute with these functions; the elementwise
+// Montgomery product K5 works in 32-bit words instead (field32.cuh).
 //
 // L is a template parameter (4: goldilocks, 16: bn128 and the other 256-bit
 // primes, 24: room for wider primes), so every loop unrolls and the limb
@@ -27,7 +27,8 @@ constexpr int LIMB_BITS = 16;
 struct FieldConsts {
   uint32_t p[24];
   uint32_t r2[24];
-  uint32_t n0inv;
+  uint32_t n0inv;    // -p^-1 mod 2^16
+  uint32_t n0inv32;  // -p^-1 mod 2^32, for field32.cuh
 };
 
 // Canonicalize a value given as L limbs plus a top word: subtract p once

@@ -42,6 +42,18 @@ def as_u32(x):
     return x.to(torch.int32).view(torch.uint32)
 
 
+def mont_edge_values(spec: FieldSpec):
+    """Edge operands of the Montgomery product, canonical ints: 0, 1,
+    p - 1, R^2 mod p, and the values whose limbs below the top are all
+    0xFFFF under a top limb of 0 and of p's top limb - 1."""
+    L, p = spec.n_limbs, spec.p
+    low = (1 << (LIMB_BITS * (L - 1))) - 1
+    top = p >> (LIMB_BITS * (L - 1))
+    R = 1 << (LIMB_BITS * L)
+    return [0, 1, p - 1, R * R % p, low, ((top - 1) << (LIMB_BITS * (L - 1)))
+            + low]
+
+
 class TorchField:
     """Field ops for one prime on int64 or uint32 tensors (..., L, B).
 
@@ -56,6 +68,8 @@ class TorchField:
         self.L = c["L"]
         self.p = c["p"]
         self.n0inv = int(c["n0inv"])
+        # -p^-1 mod 2^32, for the 32-bit words of kernel K5
+        self.n0inv32 = (-pow(self.p, -1, 1 << 32)) % (1 << 32)
         self.p_list = [int(x) for x in c["p_limbs"]]
         self.r2_list = [int(x) for x in c["R2_limbs"]]
         # the p/2 pivot of signed comparisons, the complement mask

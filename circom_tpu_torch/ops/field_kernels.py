@@ -38,16 +38,24 @@ def _elementwise(name, field: TorchField, a, b):
     a3 = a.broadcast_to(shape).reshape(N, L, B)
     b3 = b.broadcast_to(shape).reshape(N, L, B)
     out = torch.empty((N, L, B), dtype=torch.uint32, device=a.device)
-    if N * B == 0:
-        return out.reshape(shape)
+    if N * B:
+        launch(name, field, a3, b3, out)
+    return out.reshape(shape)
+
+
+def launch(name, field: TorchField, a, b, out):
+    """Launch K5 or K6 on prepared operands, without checks: a and b
+    uint32 (N, L, B) views on the card (strides 0 where they broadcast),
+    out a contiguous uint32 (N, L, B) with N, B > 0."""
+    N, L, B = out.shape
     lib = library("field_ops")
     rc = lib.ctpu_field_elementwise(
-        _OPS[name], L, a3.data_ptr(), ll_array(a3.stride()), b3.data_ptr(),
-        ll_array(b3.stride()), out.data_ptr(), N, B,
-        u32_array(field.p_list), field.n0inv, stream_ptr(a.device))
+        _OPS[name], L, a.data_ptr(), ll_array(a.stride()), b.data_ptr(),
+        ll_array(b.stride()), out.data_ptr(), N, B,
+        u32_array(field.p_list), field.n0inv, field.n0inv32,
+        stream_ptr(out.device))
     LAUNCHES[name] += 1
     check_launch(rc, name)
-    return out.reshape(shape)
 
 
 def mont_mul(field: TorchField, a, b):

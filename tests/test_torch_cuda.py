@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from circom_tpu_torch.backend.checker import R1CSChecker
-from circom_tpu_torch.backend.interp import gather_n, gather_w, interp_k1
+from circom_tpu_torch.backend import interp
+from circom_tpu_torch.backend.interp import (gather_n, gather_w, interp_k1,
+                                             launch_gather_w)
 from circom_tpu_torch.backend.interp_ref import (gather_n_rows, gather_rows,
                                                  run_plan)
 from circom_tpu_torch.backend.segments import (SegmentedProgram, segment_k4,
@@ -40,8 +42,8 @@ from circom_tpu_torch.convert import (K1C_OPCODES, K1D_OPCODES,
 from circom_tpu_torch.field.primes import LIMB_BITS, field_spec
 from circom_tpu_torch.ops import build
 from circom_tpu_torch.ops import field_kernels as fk
-from circom_tpu_torch.ops.field import TorchField, as_i64
-from circom_tpu_torch.ops.limbs import limbs_to_int
+from circom_tpu_torch.ops.field import TorchField, as_i64, mont_edge_values
+from circom_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
@@ -84,6 +86,82 @@ def test_field_kernels_match_plain(card, prime, op):
         want = getattr(tf, op)(a, y)
         torch.cuda.synchronize()
         assert torch.equal(as_i64(got), as_i64(want))
+
+
+@pytest.mark.parametrize("prime", ["secq256r1", "bn128", "goldilocks"])
+def test_k5_edge_operands_match_plain(card, prime):
+    """K5 on every pair of mont_edge_values (secq256r1's p lies just under
+    R = 2^256: the edge of the conditional subtract), full and with each
+    edge as a broadcast column, and at a lane count that is not a
+    multiple of the block."""
+    spec = field_spec(prime)
+    L = spec.n_limbs
+    tf = TorchField(spec, card)
+    edges = mont_edge_values(spec)
+    pairs = [(x, y) for x in edges for y in edges]
+    a = to_device(ints_to_limbs([x for x, _ in pairs], L).T[None], card)
+    b = to_device(ints_to_limbs([y for _, y in pairs], L).T[None], card)
+    assert torch.equal(as_i64(fk.mont_mul(tf, a, b)),
+                       as_i64(tf.mont_mul(a, b)))
+    for y in edges:
+        c = to_device(ints_to_limbs([y], L).T.copy(), card)      # (L, 1)
+        assert torch.equal(as_i64(fk.mont_mul(tf, a, c)),
+                           as_i64(tf.mont_mul(a, c)))
+        assert torch.equal(as_i64(fk.mont_mul(tf, c, a)),
+                           as_i64(tf.mont_mul(c, a)))
+
+
+@pytest.mark.parametrize("n_rows, L, B, offset", [
+    (40, 16, 1024, 0),      # 16 bytes a thread
+    (40, 16, 4099, 0),      # rows of whole 16-byte units, B odd
+    (9, 16, 4099, 1),       # a bank 4 bytes off 16-byte alignment
+    (9, 3, 5, 0),           # rows of 15 words: 4 bytes a thread
+    (6, 2, 2, 0),           # rows of one 16-byte unit
+    (7, 4, 8192, 0)])
+def test_k2_tail_shapes_match_plain(card, n_rows, L, B, offset):
+    """K2 against the plain gather with 16 or 4 bytes a thread, for W = 0,
+    1 and many rows, and into an output 4 bytes off 16-byte alignment."""
+    rng = np.random.default_rng(25)
+    words = rng.integers(0, 1 << 32, size=n_rows * L * B + offset,
+                         dtype=np.uint32)
+    bank = to_device(words, card)[offset:].view(n_rows, L, B)
+    for W in (0, 1, 2 * n_rows):
+        idx = to_device(rng.integers(0, n_rows, size=W).astype(np.int32),
+                        card)
+        got = gather_w(bank, idx)
+        assert got.shape == (W, L, B)
+        assert torch.equal(as_i64(got), as_i64(gather_rows(bank, idx)))
+    out = torch.zeros(W * L * B + 1, dtype=torch.uint32, device=card)
+    launch_gather_w(bank.contiguous(), idx, out[1:].view(W, L, B))
+    assert torch.equal(as_i64(out[1:].view(W, L, B)),
+                       as_i64(gather_rows(bank, idx)))
+    with pytest.raises(IndexError):
+        gather_w(bank, to_device(np.asarray([0, n_rows], np.int32), card))
+
+
+def test_main_path_gathers_make_no_index_sync(card, monkeypatch):
+    """WitnessProgram's run and run_mixed launch K2 and K3 without the
+    public wrappers' index check (a device-to-host sync), and still give
+    the host calculator's witness."""
+    cc = compile_source(comparators_source())
+    spec = field_spec("bn128")
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=card,
+                          input_ranges=cc.input_range_hints())
+
+    def refuse(*args):
+        raise AssertionError("an index check on the main path")
+
+    monkeypatch.setattr(interp, "_check_index", refuse)
+    x = comparator_inputs(300, 55, spec.n_limbs)
+    build.reset_launches()
+    wit = prog.run(x)
+    prog.run_mixed(x)
+    assert build.LAUNCHES["gather_w"] == 2 and build.LAUNCHES["gather_n"] == 2
+    w = wit.view(torch.int32).cpu().numpy().view(np.uint32)
+    for lane in (0, 299):
+        ins = [limbs_to_int(x[i, :, lane]) for i in range(prog.n_inputs)]
+        host = list(cc.witness_host({"a": ins[0], "b": ins[1]}))
+        assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] == host
 
 
 def test_k1a_and_k2_match_plain(card, poseidon2):
