@@ -38,7 +38,8 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
     """Wide inputs uint32 (n_win, L, B) and narrow inputs int32 (n_nin, B)
     -> (wide bank uint32 (n_chunks * (K + 1), L, B), flagged rows reduced
     out of Montgomery form; narrow bank int32 (n_chunks * (KN + 1), B)).
-    On CUDA, bank rows that no step writes are left unset."""
+    On CUDA, bank rows that no step writes, and each chunk's dump rows,
+    are left unset: the rows of plan.emitted_rows() are the output."""
     check_field(plan, field)
     if x_w.device.type == "cpu":
         bank, bank_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
@@ -65,28 +66,37 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
                        device=dev)
     bank_n = torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
                          device=dev)
-    d = plan.dev
-    lib = library("interp")
-    rc = lib.ctpu_interp_k1(
-        L, B, x_w.data_ptr(), x_w.shape[0], x_n.data_ptr(), x_n.shape[0],
-        d["table"].data_ptr(), d["r_op"].data_ptr(), d["r_s0"].data_ptr(),
-        d["rstarts"].data_ptr(), plan.n_chunks, d["cbank"].data_ptr(),
-        d["mont_tab"].data_ptr(), d["mat_regs"].data_ptr(),
-        d["mat_limbs"].data_ptr(), len(plan.mat_regs),
-        d["nmat_regs"].data_ptr(), d["nmat_vals"].data_ptr(),
-        len(plan.nmat_regs), rf.data_ptr(), bank.data_ptr(), plan.K,
-        rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
-        u32_array(field.p_list), u32_array(field.r2_list), field.n0inv,
-        u32_array(field.half_list), u32_array(field.mask_list),
-        u32_array(field.q_list), field.p.bit_length(),
-        int(bool({"interp_k1c", "interp_k1d"} & set(plan.parts))),
-        stream_ptr(dev))
+    rc = library("interp").ctpu_interp_k1(
+        *k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n,
+                 stream_ptr(dev)))
     # one launch runs every part; it counts for each part its plan runs
     # (interp_k1a .. interp_k1d, convert.PARTS)
     for part in plan.parts or ("interp_k1a",):
         LAUNCHES[part] += 1
     check_launch(rc, "interp_k1")
     return bank, bank_n
+
+
+def k1_args(plan: DevicePlan, field: TorchField, x_w, x_n, rf, bank, rf_n,
+            bank_n, stream):
+    """The arguments of ctpu_interp_k1 (ops/cuda/interp.cu), in order: the
+    inputs, the plan's device tables, the register files (scratch) and
+    banks, the field's constants and the stream."""
+    d = plan.dev
+    return (
+        plan.L, x_w.shape[-1], x_w.data_ptr(), x_w.shape[0], x_n.data_ptr(),
+        x_n.shape[0], d["table"].data_ptr(), d["grp"].data_ptr(),
+        d["r_op"].data_ptr(), d["r_s0"].data_ptr(),
+        d["rstarts"].data_ptr(), plan.n_chunks, d["cbank"].data_ptr(),
+        d["cbank_w"].data_ptr(), d["mont_tab"].data_ptr(),
+        d["mat_regs"].data_ptr(), d["mat_limbs"].data_ptr(),
+        len(plan.mat_regs), d["nmat_vals"].data_ptr(),
+        d["nmat_regs"].data_ptr(), len(plan.nmat_regs), rf.data_ptr(),
+        bank.data_ptr(), plan.K, rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
+        u32_array(field.p_list), u32_array(field.r2_list), field.n0inv32,
+        u32_array(field.half_list), u32_array(field.mask_list),
+        u32_array(field.q_list), field.p.bit_length(),
+        int(bool({"interp_k1c", "interp_k1d"} & set(plan.parts))), stream)
 
 
 def check_field(plan: DevicePlan, field: TorchField):

@@ -54,6 +54,9 @@ N_OPERANDS = {op: 3 if op in _THREE else 2 if op in _TWO else 1
 BANK_B = {"add_c", "sub_c", "csub_c", "mul_c", "gmul_c"}
 # goldilocks' folded products: only the goldilocks field runs them
 GOLDILOCKS_OPS = {"gmul", "gmul_c"}
+# the most narrow steps K1 reads before it stores (NGROUP in interp.cu,
+# which ops/build.py sets from this)
+K1B_GROUP = 8
 
 
 @dataclass
@@ -117,6 +120,40 @@ class DevicePlan:
         return tuple(part for part, ops in PARTS.items()
                      if self.opcodes & set(ops))
 
+    @cached_property
+    def grp(self):
+        """(len(table),) int32, K1's groups of narrow steps: each run whose
+        result is narrow cut, from its first step on, into groups of at most
+        K1B_GROUP consecutive steps none of which reads a register that an
+        earlier step of its group writes; the group's length at its first
+        step, 1 at every other step and in the other runs.  The kernel
+        reads a group's operands before it stores any of its results."""
+        grp = np.ones(len(self.table), np.int32)
+        for rr in range(self.rstarts[0], self.rstarts[-1]):
+            op = OPCODES[self.r_op[rr]]
+            if op not in _NARROW_RESULT:
+                continue
+            files = _OPERAND_FILES.get(op, "www")[:N_OPERANDS[op]]
+            t, s1 = int(self.r_s0[rr]), int(self.r_s0[rr + 1])
+            while t < s1:
+                written = {int(self.table[t, 4])}
+                g = 1
+                while t + g < s1 and g < K1B_GROUP and not written & {
+                        int(self.table[t + g, 1 + j])
+                        for j, f in enumerate(files) if f == "n"}:
+                    written.add(int(self.table[t + g, 4]))
+                    g += 1
+                grp[t] = g
+                t += g
+        return grp
+
+    @cached_property
+    def cbank_w(self):
+        """The constant bank in 32-bit words, (n_bank, L/2) uint32: limbs
+        2i and 2i + 1 in word i, as the kernel packs registers."""
+        cb = self.cbank.astype(np.uint32)
+        return cb[:, 0::2] | (cb[:, 1::2] << np.uint32(16))
+
     def written_rows(self, narrow=False):
         """Bank rows the steps write (emission and dump rows) of the wide
         bank, or of the narrow bank: the rows of the steps whose result
@@ -131,6 +168,14 @@ class DevicePlan:
             t = t[np.isin(t[:, 0], codes)]
             rows.update((c * per + t[:, 5]).tolist())
         return np.asarray(sorted(rows), np.int64)
+
+    def emitted_rows(self, narrow=False):
+        """written_rows without each chunk's dump row (K or KN): the rows
+        that K1 stores on the card, and the only ones the witness gathers
+        (wd_src, nw_src) and the trailing REDC (mont_tab) name."""
+        per = (self.KN if narrow else self.K) + 1
+        rows = self.written_rows(narrow)
+        return rows[rows % per != per - 1]
 
 
 def plan_from_arrays(arrays, device) -> DevicePlan:
@@ -183,9 +228,9 @@ def plan_from_arrays(arrays, device) -> DevicePlan:
         device=device,
     )
     _check_bounds(plan)
-    for name in ("table", "r_op", "r_s0", "rstarts", "cbank", "mont_tab",
-                 "mat_regs", "mat_limbs", "nmat_regs", "nmat_vals", "nw_src",
-                 "nw_shift", "wd_src", "consts"):
+    for name in ("table", "grp", "r_op", "r_s0", "rstarts", "cbank",
+                 "cbank_w", "mont_tab", "mat_regs", "mat_limbs", "nmat_regs",
+                 "nmat_vals", "nw_src", "nw_shift", "wd_src", "consts"):
         plan.dev[name] = to_device(getattr(plan, name), device)
     for name in ("win_order", "nin_order"):
         plan.dev[name] = to_device(np.asarray(getattr(plan, name), np.int64),

@@ -1,22 +1,32 @@
-"""Time K2 and K5 against the same kernels built from another checkout.
+"""Time K1, K2 and K5 against the same kernels built from another checkout.
 
     python -m circom_tpu_torch.kernel_ab --other DIR [--reps N]
+        [--kernels k1,k2,k5]
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked with `git archive`.  Its
-circom_tpu_torch/ops/cuda/gather.cu and field_ops.cu are built beside
-this checkout's, with the same nvcc flags, all four at once, and each
-library's entry point is called through ctypes.  K2's entry point has
-the same interface in both; the other checkout's K5 is taken to have the
-16-bit K5's, without n0inv32:
+circom_tpu_torch/ops/cuda/interp.cu, gather.cu and field_ops.cu are built
+beside this checkout's, with the same nvcc flags, all at once (only the
+sources of the kernels --kernels asks for: interp.cu alone takes about a
+minute of nvcc), and each library's entry point is called through
+ctypes.  K2's and K5's entry
+points have the same interface in both (the 32-bit K5's, with n0inv32);
+the other checkout's K1 is taken to have the interface of the 16-bit K1
+(no step groups, no packed constant bank, the 16-bit n0inv):
 
-    ctpu_field_elementwise(op, L, a, a_strides, b, b_strides, out, N, B,
-                           p_limbs, n0inv, stream)
+    ctpu_interp_k1(L, B, x_w, n_win, x_n, n_nin, table, r_op, r_s0,
+                   rstarts, n_chunks, cbank, mont_tab, mat_regs, mat_limbs,
+                   n_mat, nmat_regs, nmat_vals, n_nmat, rf, bank, K, rf_n,
+                   bank_n, KN, p_limbs, r2_limbs, n0inv, half_limbs,
+                   mask_limbs, q_limbs, bits, full, stream)
 
 Both versions run on the same inputs, must agree bit for bit, and are
 timed by CUDA events around their bare launches (no checks, outputs
 allocated before), in turns: other, this, this, other.
 
+- K1 at batch 65,536 on Poseidon2/bn128's plan (P, K1a) and SHA256/bn128's
+  (M, K1b), every emitted row of both banks compared; with the 32-bit
+  products a lane of each plan.
 - K2 at Poseidon2/bn128's plan shape (the plan's wd_src over a random
   bank of (n_bank_rows, 16, 65,536)), beside `index_select` of the same
   rows into the same output.
@@ -35,14 +45,21 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
+import numpy as np
+
 from .backend.checker import R1CSChecker
+from .backend.interp import k1_args
 from .backend.torch_backend import WitnessProgram
+from .circuits import sha256_io
 from .circuits.gen_poseidon import generate
+from .convert import OPCODES, to_device
 from .compiler.pipeline import compile_source
 from .field.primes import LIMB_BITS, field_spec
 from .ops import build
@@ -50,43 +67,52 @@ from .ops import field_kernels as fk
 from .ops.field import TorchField
 
 ROOT = Path(__file__).resolve().parents[1]
-NAMES = ("gather", "field_ops")
+NAMES = ("interp", "gather", "field_ops")
 _P, _I, _LL, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_uint32)
-_PLL = ctypes.POINTER(ctypes.c_longlong)
 _PU32 = ctypes.POINTER(ctypes.c_uint32)
-OTHER_SIGNATURES = {
-    "gather": build.SIGNATURES["gather"],
-    "field_ops": {"ctpu_field_elementwise": (
-        _I, [_I, _I, _P, _PLL, _P, _PLL, _P, _LL, _LL, _PU32, _U32, _P])},
-}
+# the other checkout's entry points: this checkout's, but for K1's
+OTHER_SIGNATURES = dict(build.SIGNATURES, interp={"ctpu_interp_k1": (
+    _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+         _P, _I, _P, _P, _I, _P, _P, _I, _PU32, _PU32, _U32, _PU32, _PU32,
+         _PU32, _I, _I, _P])})
 
 
-def build_libraries(other):
-    """{("this" | "other", name): ctypes library}, all four built by one
-    nvcc each, at once, into circom_tpu_torch/_build/ab/."""
+def build_libraries(other, names=NAMES):
+    """{(tag, name): ctypes library}: "this" and "other" for each of
+    `names`, one nvcc each, all at once, into circom_tpu_torch/_build/ab/.
+    Prints each build's ptxas usage and wall time."""
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build.nvcc_path()
-    jobs = {}
-    for tag, root in (("this", ROOT), ("other", Path(other).resolve())):
+    todo = [(tag, root, name)
+            for tag, root in (("this", ROOT), ("other", Path(other).resolve()))
+            for name in names]
+
+    def one(job):
+        tag, root, name = job
         src_dir = root / "circom_tpu_torch" / "ops" / "cuda"
-        for name in NAMES:
-            so = out_dir / f"{tag}-{name}.so"
-            jobs[tag, name] = (so, subprocess.Popen(
-                [nvcc, *build.NVCC_FLAGS, "-I", str(src_dir), "-o", str(so),
-                 str(src_dir / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        so = out_dir / f"{tag}-{name}.so"
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [nvcc, *build.NVCC_FLAGS, *build.source_flags(name), "-I", str(src_dir), "-o", str(so), str(src_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return so, r, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        done = list(pool.map(one, todo))
     libs = {}
-    for (tag, name), (so, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on the {tag} {name}.cu:\n{log}")
-        for line in log.splitlines():
+    for (tag, _, name), (so, r, seconds) in zip(todo, done):
+        if r.returncode:
+            raise SystemExit(f"nvcc failed on the {tag} {name}.cu:\n"
+                             f"{r.stdout}")
+        print(f"  nvcc {tag} {name}.cu: {seconds:.1f} s")
+        for line in r.stdout.splitlines():
             if "registers" in line:
                 print(f"  ptxas {tag} {name}: {line.strip()}")
         lib = ctypes.CDLL(str(so))
-        sigs = (build.SIGNATURES if tag == "this" else OTHER_SIGNATURES)[name]
+        sigs = (OTHER_SIGNATURES if tag == "other"
+                else build.SIGNATURES)[name]
         for fn, (res, args) in sigs.items():
             getattr(lib, fn).restype = res
             getattr(lib, fn).argtypes = args
@@ -128,6 +154,103 @@ def canonical(gen, spec, shape, dev):
     top = spec.p >> (LIMB_BITS * (spec.n_limbs - 1))
     x[..., -1, :] %= top
     return x.view(torch.uint32)
+
+
+def k1_products32(plan):
+    """32x32->64-bit products a lane of the 32-bit K1: 2 N^2 a Montgomery
+    product (mul, mul_r2, mul_c, mul_one), (n + 1) N^2 a dot of n terms,
+    N^2 a trailing REDC, N = L/2."""
+    n2 = (plan.L // 2) ** 2
+    per = {"mul": 2, "mul_r2": 2, "mul_c": 2, "mul_one": 2, "dot2_c": 3,
+           "dot3_c": 4}
+    steps = plan.table[:plan.n_steps, 0].tolist()
+    emitted = plan.emitted_rows()
+    return n2 * (sum(per.get(OPCODES[k], 0) for k in steps)
+                 + int(plan.mont_tab[emitted].sum()))
+
+
+def k1_case(name, dev, B):
+    """(plan, field, wide inputs, narrow inputs) of P or M at batch B."""
+    spec = field_spec("bn128")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    if name == "P":
+        cc = compile_source(generate((2,))
+                            + "\ncomponent main = Poseidon2();\n")
+        prog = WitnessProgram(cc.build_tape()[0], spec, device=dev)
+        x = canonical(gen, spec, (prog.n_inputs, spec.n_limbs, B), dev)
+    else:
+        cc = compile_source(
+            (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text()
+            + "\ncomponent main = Sha256Block();\n")
+        prog = WitnessProgram(cc.build_tape()[0], spec, device=dev,
+                              input_ranges=cc.input_range_hints())
+        rng = np.random.default_rng(14)
+        msgs = [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
+                                               dtype=np.uint8)]
+        x = to_device(sha256_io.input_rows(msgs), dev)
+    _, x_w, x_n = prog.interp._inputs(x)
+    return prog.interp.plan, prog.field, x_w.contiguous(), x_n.contiguous()
+
+
+def other_k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n, stream):
+    """The 16-bit K1's arguments (see the module's docstring)."""
+    d = plan.dev
+    return (
+        plan.L, x_w.shape[-1], x_w.data_ptr(), x_w.shape[0], x_n.data_ptr(),
+        x_n.shape[0], d["table"].data_ptr(), d["r_op"].data_ptr(),
+        d["r_s0"].data_ptr(), d["rstarts"].data_ptr(), plan.n_chunks,
+        d["cbank"].data_ptr(), d["mont_tab"].data_ptr(),
+        d["mat_regs"].data_ptr(), d["mat_limbs"].data_ptr(),
+        len(plan.mat_regs), d["nmat_regs"].data_ptr(),
+        d["nmat_vals"].data_ptr(), len(plan.nmat_regs), rf.data_ptr(),
+        bank.data_ptr(), plan.K, rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
+        build.u32_array(field.p_list), build.u32_array(field.r2_list),
+        field.n0inv, build.u32_array(field.half_list),
+        build.u32_array(field.mask_list), build.u32_array(field.q_list),
+        field.p.bit_length(),
+        int(bool({"interp_k1c", "interp_k1d"} & set(plan.parts))), stream)
+
+
+def k1(libs, name, dev, reps, B=65536):
+    plan, field, x_w, x_n = k1_case(name, dev, B)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs, fns = {}, {}
+    for tag, make_args in (("other", other_k1_args), ("this", k1_args)):
+        o = outs[tag] = {
+            "rf": torch.empty((plan.n_regs, plan.L, B), dtype=torch.uint32,
+                              device=dev),
+            "bank": torch.empty((plan.n_bank_rows, plan.L, B),
+                                dtype=torch.uint32, device=dev),
+            "rf_n": torch.empty((plan.n_nregs, B), dtype=torch.int32,
+                                device=dev),
+            "bank_n": torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
+                                  device=dev)}
+        args = make_args(plan, field, x_w, x_n, o["rf"], o["bank"], o["rf_n"],
+                         o["bank_n"], stream)
+        fns[tag] = (lambda lib=libs[tag, "interp"], args=args, tag=tag:
+                    checked(lib.ctpu_interp_k1(*args), f"{tag} K1"))
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    rows = torch.as_tensor(plan.emitted_rows(), device=dev)
+    rows_n = torch.as_tensor(plan.emitted_rows(narrow=True), device=dev)
+    other = outs["other"]
+    for tag, got in outs.items():
+        if not (torch.equal(got["bank"].view(torch.int32)[rows],
+                            other["bank"].view(torch.int32)[rows])
+                and torch.equal(got["bank_n"][rows_n],
+                                other["bank_n"][rows_n])):
+            raise SystemExit(f"K1 {name}: {tag} differs from other")
+    ms = in_turns(fns, reps)
+    products = k1_products32(plan)
+    for tag, v in ms.items():
+        print(f"  K1 {name} ({plan.n_steps} steps, parts "
+              f"{', '.join(plan.parts)}) {tag}: {v[0]:.4f}, {v[1]:.4f} ms")
+    print(f"  K1 {name}: {len(rows)} wide and {len(rows_n)} narrow emitted "
+          f"rows bit-exact at batch {B}; {products} 32-bit products a lane")
+    return {"plan": name, "steps": plan.n_steps, "batch": B,
+            "emitted_rows": [len(rows), len(rows_n)],
+            "products32_per_lane": products, "ms": ms}
 
 
 def k2(libs, dev, reps):
@@ -212,16 +335,10 @@ def k5(libs, name, rows, n_wires, B, dev, reps):
                 for k in total}
         args = (0, L, a.data_ptr(), build.ll_array(sa), b.data_ptr(),
                 build.ll_array(sb))
-        fns = {
-            "other": lambda: checked(libs["other", "field_ops"]
-                                     .ctpu_field_elementwise(
-                *args, outs["other"].data_ptr(), N, Bs, p, field.n0inv,
-                stream), "other K5"),
-            "this": lambda: checked(libs["this", "field_ops"]
-                                    .ctpu_field_elementwise(
-                *args, outs["this"].data_ptr(), N, Bs, p, field.n0inv,
-                field.n0inv32, stream), "this K5"),
-        }
+        fns = {tag: (lambda tag=tag: checked(
+            libs[tag, "field_ops"].ctpu_field_elementwise(
+                *args, outs[tag].data_ptr(), N, Bs, p, field.n0inv,
+                field.n0inv32, stream), f"{tag} K5")) for tag in total}
         ms = in_turns(fns, reps)
         if not torch.equal(outs["this"].view(torch.int32),
                            outs["other"].view(torch.int32)):
@@ -245,7 +362,11 @@ def main(argv=None):
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", default="k1,k2,k5",
+                    help="which comparisons to run, and so which sources "
+                         "to build (default: all three)")
     args = ap.parse_args(argv)
+    kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 1
@@ -254,18 +375,28 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip())
-    libs = build_libraries(args.other)
-    result = {"card": card.strip(), "k2": k2(libs, dev, args.reps)}
-    torch.cuda.empty_cache()
-    pos = compile_source(generate((2,)) + "\ncomponent main = Poseidon2();\n")
-    result["k5_P"] = k5(libs, "P", pos.r1cs_rows(),
-                        pos.counts()["n_wires"], 65536, dev, args.reps)
-    sha = compile_source(
-        (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text()
-        + "\ncomponent main = Sha256Block();\n")
-    result["k5_F"] = k5(libs, "F", sha.r1cs_rows(),
-                        sha.counts()["n_wires"], 8192, dev,
-                        max(2, args.reps // 4))
+    names = [n for k, n in (("k1", "interp"), ("k2", "gather"),
+                            ("k5", "field_ops")) if k in kernels]
+    libs = build_libraries(args.other, names)
+    result = {"card": card.strip()}
+    if "k1" in kernels:
+        for name in ("P", "M"):
+            result[f"k1_{name}"] = k1(libs, name, dev, args.reps)
+            torch.cuda.empty_cache()
+    if "k2" in kernels:
+        result["k2"] = k2(libs, dev, args.reps)
+        torch.cuda.empty_cache()
+    if "k5" in kernels:
+        pos = compile_source(generate((2,))
+                             + "\ncomponent main = Poseidon2();\n")
+        result["k5_P"] = k5(libs, "P", pos.r1cs_rows(),
+                            pos.counts()["n_wires"], 65536, dev, args.reps)
+        sha = compile_source(
+            (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text()
+            + "\ncomponent main = Sha256Block();\n")
+        result["k5_F"] = k5(libs, "F", sha.r1cs_rows(),
+                            sha.counts()["n_wires"], 8192, dev,
+                            max(2, args.reps // 4))
     print(json.dumps(result))
     return 0
 

@@ -33,7 +33,8 @@ from types import SimpleNamespace
 SRC_DIR = Path(__file__).resolve().parent / "cuda"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_ops", "interp", "gather")
-HEADERS = ("field.cuh", "field32.cuh", "narrow.cuh", "wide.cuh")
+HEADERS = ("dot32.cuh", "field.cuh", "field32.cuh", "narrow.cuh",
+           "wide.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,9 +56,9 @@ SIGNATURES = {
     },
     "interp": {
         "ctpu_interp_k1": (
-            _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                 _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32, _PU32,
-                 _U32, _PU32, _PU32, _PU32, _I, _I, _P]),
+            _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                 _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32,
+                 _PU32, _U32, _PU32, _PU32, _PU32, _I, _I, _P]),
     },
     "gather": {
         "ctpu_gather_rows": (_I, [_P, _P, _P, _LL, _LL, _P]),
@@ -95,8 +96,19 @@ def _digest(text: bytes):
     return h.hexdigest()[:16]
 
 
+def source_flags(name):
+    """nvcc flags of the fixed source `name` beyond NVCC_FLAGS: interp.cu
+    takes the length of its narrow step groups from convert.K1B_GROUP."""
+    if name != "interp":
+        return ()
+    from ..convert import K1B_GROUP
+
+    return (f"-DCTPU_K1B_GROUP={K1B_GROUP}",)
+
+
 def _target(name):
-    digest = _digest((SRC_DIR / f"{name}.cu").read_bytes())
+    digest = _digest((SRC_DIR / f"{name}.cu").read_bytes()
+                     + " ".join(source_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -145,8 +157,8 @@ def _build(names, generated):
     segment (-DK4_SEG=s), all in parallel; returns the seconds spent."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = [(n, SRC_DIR / f"{n}.cu", _target(n), ()) for n in names
-            if not _target(n).exists()]
+    jobs = [(n, SRC_DIR / f"{n}.cu", _target(n), source_flags(n))
+            for n in names if not _target(n).exists()]
     for text, n_segments in generated:
         name = generated_name(text)
         src = BUILD_DIR / f"{name}.cu"

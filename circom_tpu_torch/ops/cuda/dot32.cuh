@@ -1,0 +1,135 @@
+// The interpreter kernel K1's wide arithmetic in 32-bit words: the lazy
+// dot of dot2_c / dot3_c, the Montgomery reduction it ends with (also the
+// trailing REDC of the flagged emission rows) and the modular add of add_c.
+// The product of mul, mul_r2, mul_c and mul_one is field32.cuh's CIOS.
+//
+// K1's planes hold one 16-bit limb a uint32 word; K1 packs pairs of limbs
+// into N = L/2 words (pack32) and computes on 32x32->64-bit products.  A
+// dot of n terms takes n N^2 products and one reduction N^2 more, where the
+// 16-bit steps of field.cuh (mac_cols, mont_reduce_cols) take (n + 1) L^2
+// narrow products, each with a mask, a shift and two adds.
+//
+// The bits equal field.cuh's mac_cols + mont_reduce_cols (and TorchField's
+// product_cols64 + mont_reduce64) for every input of 16-bit limbs:
+// - V = sum x_i c_i + k is the same integer in either base: the 16-bit
+//   columns are exact in 32 bits, and here each term's product is carried
+//   into a 2N + 1 word accumulator.
+// - M = -V p^-1 mod R is the unique M < R that clears the low half of
+//   V + M p, whatever the base that computes it digit by digit, so both
+//   reductions yield (V + M p) / R.
+// - With x_i, c_i, k < R and at most three terms, V < 4 R^2, so that value
+//   is below 4R + p < 5R: neither version's top word truncates it, and both
+//   subtract p once when it is >= p, a decision on that value alone, and
+//   keep its low L limbs.
+// The modular add is the same argument with V = a + b < 2R and no
+// reduction.
+//
+// Plain C++ on 64-bit integers, no inline PTX: g++ compiles this header for
+// the host (tests/test_torch_k1_words.py, with the CUDA qualifiers defined
+// away), so its arithmetic is checked against field.cuh before it reaches
+// the card.
+#pragma once
+
+#include <cstdint>
+
+#include "field32.cuh"
+
+namespace ctpu {
+
+// acc += x * c, acc 2N + 1 words: the term's schoolbook product (2N words,
+// each row's last carry a fresh word), then added with one carry chain.
+template <int N>
+__device__ __forceinline__ void mac32(uint32_t (&acc)[2 * N + 1],
+                                      const uint32_t (&x)[N],
+                                      const uint32_t (&c)[N]) {
+  uint32_t prod[2 * N];
+#pragma unroll
+  for (int k = 0; k < 2 * N; ++k) prod[k] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      // (2^32 - 1)^2 + 2 (2^32 - 1) = 2^64 - 1: never overflows
+      const uint64_t s = (uint64_t)x[i] * c[j] + prod[i + j] + carry;
+      prod[i + j] = (uint32_t)s;
+      carry = s >> 32;
+    }
+    prod[i + N] = (uint32_t)carry;
+  }
+  uint64_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < 2 * N; ++k) {
+    const uint64_t s = (uint64_t)acc[k] + prod[k] + carry;
+    acc[k] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  acc[2 * N] += (uint32_t)carry;
+}
+
+// acc += k, k N words (the dot's additive constant row).
+template <int N>
+__device__ __forceinline__ void add_low32(uint32_t (&acc)[2 * N + 1],
+                                          const uint32_t (&k)[N]) {
+  uint64_t carry = 0;
+#pragma unroll
+  for (int i = 0; i <= 2 * N; ++i) {
+    const uint64_t s = (uint64_t)acc[i] + (i < N ? k[i] : 0u) + carry;
+    acc[i] = (uint32_t)s;
+    carry = s >> 32;
+  }
+}
+
+// Montgomery reduction of 2N + 1 words in base 2^32: out = the low N words
+// of (t + M p) / R, less p once when that is >= p (field.cuh's
+// mont_reduce_cols).  n0inv32 = -p^-1 mod 2^32.  Each row clears word i
+// and adds its last carry at word i + N; the carry out of that word is
+// held in `pend` and added by the next row at the word above, so no carry
+// chain runs to the top.  `t` is consumed.
+template <int N>
+__device__ __forceinline__ void mont_reduce32(uint32_t (&t)[2 * N + 1],
+                                              const uint32_t (&p)[N],
+                                              uint32_t n0inv32,
+                                              uint32_t (&out)[N]) {
+  uint32_t pend = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t m = t[i] * n0inv32;
+    uint64_t c = ((uint64_t)m * p[0] + t[i]) >> 32;
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
+      const uint64_t s = (uint64_t)m * p[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    const uint64_t s = (uint64_t)t[i + N] + c + pend;
+    t[i + N] = (uint32_t)s;
+    pend = (uint32_t)(s >> 32);
+  }
+  uint32_t hi[N + 1];
+#pragma unroll
+  for (int k = 0; k < N; ++k) hi[k] = t[N + k];
+  hi[N] = t[2 * N] + pend;
+  cond_sub32<N>(hi, p, out);
+}
+
+// (a + b) mod p for a, b < R, one conditional subtract (field.cuh's
+// mod_add).
+template <int N>
+__device__ __forceinline__ void mod_add32(const uint32_t (&a)[N],
+                                          const uint32_t (&b)[N],
+                                          const uint32_t (&p)[N],
+                                          uint32_t (&out)[N]) {
+  uint32_t t[N + 1];
+  uint64_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint64_t s = (uint64_t)a[i] + b[i] + carry;
+    t[i] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  t[N] = (uint32_t)carry;
+  cond_sub32<N>(t, p, out);
+}
+
+}  // namespace ctpu

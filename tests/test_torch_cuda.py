@@ -174,7 +174,7 @@ def test_k1a_and_k2_match_plain(card, poseidon2):
     x_n = torch.zeros((0, 4096), dtype=torch.int32, device=card)
     got, _ = interp_k1(plan, prog.field, x_w, x_n)
     want, _ = run_plan(plan, prog.field, as_i64(x_w), as_i64(x_n))
-    rows = torch.as_tensor(plan.written_rows(), device=card)
+    rows = torch.as_tensor(plan.emitted_rows(), device=card)
     assert torch.equal(as_i64(got)[rows], want[rows])
     idx = plan.dev["wd_src"]
     assert torch.equal(as_i64(gather_w(got, idx)),
@@ -210,13 +210,13 @@ def random_int32(rng, shape):
 
 
 def k1_against_plain(plan, field, x_n, card):
-    """K1 and the plain executor on the same narrow inputs: every written
+    """K1 and the plain executor on the same narrow inputs: every emitted
     narrow bank row bit for bit."""
     x_w = torch.zeros((0, plan.L, x_n.shape[1]), dtype=torch.uint32,
                       device=card)
     _, got = interp_k1(plan, field, x_w, x_n)
     _, want = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
-    rows = torch.as_tensor(plan.written_rows(narrow=True), device=card)
+    rows = torch.as_tensor(plan.emitted_rows(narrow=True), device=card)
     assert len(rows)
     assert torch.equal(got.long()[rows], want[rows])
 
@@ -226,6 +226,21 @@ def test_k1b_unit_plan_matches_plain(card):
     arrays, _cases = narrow_unit_arrays(16, EDGE_COUNTS)
     plan = plan_from_arrays(arrays, card)
     x_n = to_device(random_int32(np.random.default_rng(21), (2, 4096)), card)
+    k1_against_plain(plan, TorchField(field_spec("bn128"), card), x_n, card)
+
+
+@pytest.mark.parametrize("name", ["overwrite", "groups"])
+def test_k1b_overwritten_constants_and_groups_match_plain(card, name):
+    """Constant operands read before and after a step overwrites their
+    register, across two chunks; a run read in groups of steps, cut where a
+    step reads an earlier one's result; steps emitted to the dump row."""
+    import test_torch_k1_host as unit
+
+    arrays = {"overwrite": unit.overwrite_arrays(16),
+              "groups": unit.groups_arrays(16)[0]}[name]
+    plan = plan_from_arrays(arrays, card)
+    x_n = to_device(random_int32(np.random.default_rng(22),
+                                 (len(plan.nin_order), 4096)), card)
     k1_against_plain(plan, TorchField(field_spec("bn128"), card), x_n, card)
 
 
@@ -284,7 +299,7 @@ def test_sha256_run_mixed_digests(card):
 @pytest.mark.parametrize("prime", ["bn128", "goldilocks"])
 def test_k1c_k1d_unit_plan_matches_plain(card, prime):
     """Every K1c/K1d opcode (goldilocks' products at goldilocks only), one
-    step per case, on the edge operands: every written row of both banks
+    step per case, on the edge operands: every emitted row of both banks
     bit for bit."""
     spec = field_spec(prime)
     L = spec.n_limbs
@@ -300,8 +315,8 @@ def k1_against_plain_both(plan, field, x_w, x_n, card):
     got_w, got_n = interp_k1(plan, field, x_w, x_n)
     want_w, want_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
     torch.cuda.synchronize()
-    rows = torch.as_tensor(plan.written_rows(), device=card)
-    rows_n = torch.as_tensor(plan.written_rows(narrow=True), device=card)
+    rows = torch.as_tensor(plan.emitted_rows(), device=card)
+    rows_n = torch.as_tensor(plan.emitted_rows(narrow=True), device=card)
     assert len(rows) + len(rows_n)
     assert torch.equal(as_i64(got_w)[rows], want_w[rows])
     assert torch.equal(got_n.long()[rows_n], want_n[rows_n])
