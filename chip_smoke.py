@@ -98,15 +98,15 @@ except ImportError as e:
           file=sys.stderr)
     sys.exit(2)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32
-# non-tensor rate taken as the rate of 32-bit integer lane operations.  It
-# overstates what integer code reaches: on an H100 80GB HBM3 at 700 W the
-# 16-bit K5 of earlier versions (2L^2 products, each with a mask, a shift
-# and two adds: ~2,560 operations an element at L = 16) ran at ~29 T/s and
-# was bound by them, while the 32-bit K5 moves 86 % of HBM3's rate, so the
-# operation bounds below are low.
+# H100 SXM peak HBM3 bandwidth (NVIDIA data sheet), and the peak rate of
+# 32-bit integer instructions, which main() reads off the card: 64 integer
+# adds or multiply-adds a clock on each SM (the CUDA C++ Programming
+# Guide's throughput table, compute capability 9.0) x the SMs x the
+# card's maximum SM clock.  Until then (and in a CPU rehearsal, which
+# keeps no number), an H100 SXM's 132 SMs at 1,980 MHz.
 HBM_BYTES_PER_S = 3.35e12
-LANE_OPS_PER_S = 67e12
+INT_OPS_PER_SM_CLOCK = 64
+LANE_OPS_PER_S = INT_OPS_PER_SM_CLOCK * 132 * 1980e6
 
 BATCH = 65536
 BIGDIV_BATCH = 8192     # bench.py's bigint-div batch
@@ -167,9 +167,14 @@ def wall_ms(fn):
     return out, (time.perf_counter() - t) * 1e3
 
 
+def bounds(nbytes, ops):
+    """The least time of a kernel's work, ms: (its bytes over HBM3's rate,
+    its 32-bit integer instructions over the card's peak rate)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / LANE_OPS_PER_S * 1e3
+
+
 def bound(nbytes, ops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / LANE_OPS_PER_S * 1e3
+    t_bytes, t_ops = bounds(nbytes, ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -211,14 +216,16 @@ class Report:
             raise SystemExit(f"FAIL {name}: kernel differs from its plain "
                              f"version (max abs err {err})")
         b_ms, b_by = bound(nbytes, ops)
+        t_bytes, t_ops = bounds(nbytes, ops)
         self.rows[name] = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms, "on_path": on_path,
-            **extra}
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops, **extra}
         say(f"  {name}: bit-exact; {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms by {b_by}"
+            f"bound {b_ms:.4f} ms by {b_by}; bytes {t_bytes:.4f}, "
+            f"operations {t_ops:.4f}"
             + (f", library {library_ms:.4f} ms" if library_ms else "") + ")")
 
 
@@ -251,10 +258,23 @@ class Paths:
 
 
 def k5_ops(L):
-    """32-bit lane operations of K5 an element, counted low: 2 (L/2)^2
-    CIOS steps in 32-bit words, each a 32x32->64 multiply-add (2: the low
-    and the high word) and the add of its carry (1)."""
-    return 3 * 2 * (L // 2) ** 2
+    """32-bit integer instructions of K5 an element, counted low: 2 N^2
+    32x32->64-bit products of CIOS in N = L/2 words, two instructions
+    each (the low and the high word); the carries' adds are not
+    counted."""
+    return 2 * 2 * (L // 2) ** 2
+
+
+def lane_ops_per_s(dev):
+    """The card's peak rate of 32-bit integer instructions:
+    INT_OPS_PER_SM_CLOCK x its SMs x its maximum SM clock (nvidia-smi
+    clocks.max.sm, MHz)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    mhz = float(smi.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return INT_OPS_PER_SM_CLOCK * sms * mhz * 1e6, sms, mhz
 
 
 def edge_operands(spec, dev):
@@ -336,9 +356,7 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
             "operations/s")
         rep.add("mont_mul", "circom_tpu_torch/ops/cuda/field_ops.cu",
                 "circom_tpu/ops/pallas_field.py:94", err["mont_mul"], ms,
-                time_ms(lambda: f.mont_mul(a, c), reps=2), nbytes, ops,
-                bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                ops_bound_ms=ops / LANE_OPS_PER_S * 1e3)
+                time_ms(lambda: f.mont_mul(a, c), reps=2), nbytes, ops)
         for name in ("add", "sub"):
             # the checker subtracts and never adds: add is on no main path
             rep.add(name, "circom_tpu_torch/ops/cuda/field_ops.cu",
@@ -395,28 +413,31 @@ def phase_gather(rep, plan, B, dev):
             library_ms=lib_ms, copy_ms=copy_ms)
 
 
-# 32-bit multiplies of K1's product opcodes per lane, in units of L^2
-_MUL_L2 = {"mul": 2, "mul_r2": 2, "mul_c": 2, "mul_one": 2, "dot2_c": 3,
-           "dot3_c": 4, "gmul": 1, "gmul_c": 1}
+# 32x32->64-bit products of K1's product opcodes a lane, in units of N^2
+# (N = L/2 words): a Montgomery product 2, a dot of n terms n + 1, a
+# goldilocks product (one 64x64->128-bit product in N = 2 words) 1
+_PRODUCTS_N2 = {"mul": 2, "mul_r2": 2, "mul_c": 2, "mul_one": 2,
+                "dot2_c": 3, "dot3_c": 4, "gmul": 1, "gmul_c": 1}
 
 
 def k1_ops(plan, bits):
-    """32-bit lane operations K1 does per lane, counted low: the
-    multiplies of the products (CIOS mul 2L^2, a dot of n terms (n+1)L^2,
-    goldilocks' fold L^2, a trailing REDC L^2), 4L a bit of p for the long
-    division (shift, subtract, select, quotient), L for another wide step
-    and 1 for a narrow one."""
-    L = plan.L
-    ops = int(plan.mont_tab.sum()) * L * L
+    """32-bit integer instructions K1 executes a lane, counted low: two a
+    32x32->64-bit product (the low and the high word) of the products,
+    dots, goldilocks products and trailing REDCs (N^2 products each) in
+    N = L/2 words; 4N a bit of p for the long division (shift, subtract,
+    select, quotient); N for another wide step and 1 for a narrow one."""
+    N = plan.L // 2
+    products = int(plan.mont_tab.sum()) * N * N
+    ops = 0
     for k in plan.table[:plan.n_steps, 0].tolist():
         op = OPCODES[k]
-        if op in _MUL_L2:
-            ops += _MUL_L2[op] * L * L
+        if op in _PRODUCTS_N2:
+            products += _PRODUCTS_N2[op] * N * N
         elif op == "idiv":
-            ops += 4 * L * bits
+            ops += 4 * N * bits
         else:
-            ops += 1 if op in NARROW_RESULT else L
-    return ops
+            ops += 1 if op in NARROW_RESULT else N
+    return 2 * products + ops
 
 
 def phase_interp(rep, prog, x_w):
@@ -650,7 +671,7 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
         lambda ins: {"inputs": ins})
     if not rehearse:
         profile_breakdown(lambda: prog_gl.run(x_gl),
-                          out["poseidon2_gl"]["run_ms"])
+                          out["poseidon2_gl"]["run_ms"], runs=20)
 
     bn = field_spec("bn128")
     cc_bd = compile_source(BIGINT_DIV_SRC)
@@ -665,7 +686,8 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
         ("interp_k1d", "interp_k1a", "gather_w", "mont_mul", "sub"),
         lambda ins: {"a": ins[0], "b": ins[1]})
     if not rehearse:
-        profile_breakdown(lambda: prog_bd.run(x_bd), out["bigdiv"]["run_ms"])
+        profile_breakdown(lambda: prog_bd.run(x_bd), out["bigdiv"]["run_ms"],
+                          runs=20)
 
     cc_cmp = compile_source(comparators_source())
     prog_cmp = WitnessProgram(cc_cmp.build_tape()[0], bn, device=dev)
@@ -698,7 +720,9 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
             ms, plain_ms, nbytes, ops, plan="comparators/bn128",
             bigdiv_ms=ms_bd, bigdiv_plain_ms=plain_bd,
             bigdiv_bound_ms=bound(nbytes_bd, ops_bd)[0],
-            bigdiv_bound_by=bound(nbytes_bd, ops_bd)[1])
+            bigdiv_bound_by=bound(nbytes_bd, ops_bd)[1],
+            bigdiv_bytes_bound_ms=bounds(nbytes_bd, ops_bd)[0],
+            bigdiv_ops_bound_ms=bounds(nbytes_bd, ops_bd)[1])
     out["k1"] = {name: v[1] for name, v in k1.items()}
     del prog_gl, x_gl, prog_bd, x_bd, prog_cmp, x_cmp
 
@@ -748,10 +772,12 @@ def edge_inputs(spec, n_inputs, B, seed, dev):
 
 
 def k4_ops(seg, L):
-    """32-bit lane operations of one segment a lane, counted low: L
-    (L + nz) multiplies a Montgomery product (nz: the nonzero limbs of a
-    constant operand, else L), a plain product of two values two of them,
-    L^2 a goldilocks product, L for any other op."""
+    """32-bit integer instructions of one segment a lane, counted low: K4
+    computes in 16-bit limbs (field.cuh), one instruction a 16x16-bit
+    product (its mask, shift and adds not counted): L (L + nz) products
+    a Montgomery product (nz: the nonzero limbs of a constant operand,
+    else L), a plain product of two values two of them, L^2 a goldilocks
+    product; L for any other op."""
     ops = 0
     for op, descs, *_rest in seg.instrs:
         nz = min([sum(1 for v in d[1] if v) for d in descs
@@ -880,7 +906,8 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, rehearse):
     rep.add("k4", K4_SOURCE, K4_REPLACES, max(err, s4[0], unit_err), ms,
             plain_ms, nbytes, ops, plan="Num2Bits(254)/bn128", s4_ms=s4[1],
             s4_plain_ms=s4[2], s4_bound_ms=bound(s4[3], s4[4])[0],
-            s4_bound_by=bound(s4[3], s4[4])[1], nvcc_s=nvcc)
+            s4_bound_by=bound(s4[3], s4[4])[1],
+            s4_ops_bound_ms=bounds(s4[3], s4[4])[1], nvcc_s=nvcc)
     out["k4"] = {"n2b254": ms, "n2b254x4": s4[1]}
 
     for name, label, src in (
@@ -940,12 +967,16 @@ def profile_check_breakdown(checker, wit, check_ms):
                                         "elementwise_kernel<16, 2>"))
 
 
-def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=()):
+def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
+                      runs=1):
     """Where a warm run's time goes: device time by kernel from
     torch.profiler, and the device's idle share of the run's wall time,
-    averaged over `reps` runs.  A traced run before them warms the
-    tracer up: without it the kernels of a short first run can go
-    unrecorded (a run of thousands of launches needs none).  aten=False
+    averaged over `reps` profiler steps of `runs` runs each.  A traced
+    step before them warms the tracer up: without it the kernels of a
+    short first run can go unrecorded (a run of thousands of launches
+    needs none).  A run of a few launches needs runs > 1: traced one at a
+    time, the kernels of Poseidon2/goldilocks' 3-launch run went
+    unrecorded altogether.  aten=False
     leaves PyTorch's operator events out of the host times (a per-op run
     records some 180,000, slow to summarise); the CUDA runtime's calls
     stay.  Kernels whose names hold a string of `show` are printed beside
@@ -960,10 +991,11 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=()):
                  on_trace_ready=lambda p: traced.append(p.key_averages())
                  ) as prof:
         for k in range(warmup + reps):
-            _, t = wall_ms(fn)
+            _, t = wall_ms(lambda: [fn() for _ in range(runs)])
             ms += t if k >= warmup else 0.0
             prof.step()
-    ms /= reps
+    ms /= reps * runs
+    reps *= runs
     # kernels and copies only: an aten op carries its kernels' device time
     # as well, and the schedule's ProfilerStep annotation spans the run
     events = [e for e in traced[0] if e.device_type == DeviceType.CUDA
@@ -971,7 +1003,7 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=()):
     busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
     n_kernels = sum(e.count for e in events) / reps
     events.sort(key=lambda e: -e.self_device_time_total)
-    say(f"  profile of {reps} warm runs (a run {ms:.2f} ms under the "
+    say(f"  profile of {reps} warm runs (a run {ms:.3f} ms under the "
         f"profiler, {wall:.2f} ms without): device busy {busy:.3f} ms a "
         f"run, idle share {max(0.0, 1 - busy / ms):.3f}, {n_kernels:g} "
         "kernels and copies a run")
@@ -1138,6 +1170,11 @@ def main():
              "--format=csv,noheader"], capture_output=True, text=True)
         say(smi.stdout.strip().splitlines()[0])
         say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+        global LANE_OPS_PER_S
+        LANE_OPS_PER_S, sms, mhz = lane_ops_per_s(dev)
+        say(f"operation bounds at {LANE_OPS_PER_S / 1e12:.3f} T 32-bit "
+            f"integer instructions/s ({INT_OPS_PER_SM_CLOCK} a clock an SM "
+            f"x {sms} SMs x {mhz:.0f} MHz)")
     progs = k4_programs(dev)
     if not args.rehearse:
         secs = build.build_all(generated=[

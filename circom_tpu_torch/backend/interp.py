@@ -60,7 +60,7 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
     x_w, x_n = x_w.contiguous(), x_n.contiguous()
     dev = x_w.device
     # the register files (each at least its trash row) and the banks
-    rf = torch.empty((plan.n_regs, L, B), dtype=torch.uint32, device=dev)
+    rf = torch.empty(k1_file_shape(plan, B), dtype=torch.uint32, device=dev)
     rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev)
     bank = torch.empty((plan.n_bank_rows, L, B), dtype=torch.uint32,
                        device=dev)
@@ -77,22 +77,31 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
     return bank, bank_n
 
 
+def k1_file_shape(plan: DevicePlan, B):
+    """K1's wide register file, uint32: L/2 32-bit words a register a
+    lane, (n_regs, L/2, B), or for goldilocks (L = 4) a register's two
+    words side by side, (n_regs, B, 2): one 64-bit word."""
+    if plan.L == 4:
+        return (plan.n_regs, B, 2)
+    return (plan.n_regs, plan.L // 2, B)
+
+
 def k1_args(plan: DevicePlan, field: TorchField, x_w, x_n, rf, bank, rf_n,
             bank_n, stream):
     """The arguments of ctpu_interp_k1 (ops/cuda/interp.cu), in order: the
-    inputs, the plan's device tables, the register files (scratch) and
-    banks, the field's constants and the stream."""
+    inputs, the plan's device tables, the register files (scratch, rf of
+    k1_file_shape) and banks, the field's constants and the stream."""
     d = plan.dev
     return (
         plan.L, x_w.shape[-1], x_w.data_ptr(), x_w.shape[0], x_n.data_ptr(),
         x_n.shape[0], d["table"].data_ptr(), d["grp"].data_ptr(),
         d["r_op"].data_ptr(), d["r_s0"].data_ptr(),
-        d["rstarts"].data_ptr(), plan.n_chunks, d["cbank"].data_ptr(),
-        d["cbank_w"].data_ptr(), d["mont_tab"].data_ptr(),
-        d["mat_regs"].data_ptr(), d["mat_limbs"].data_ptr(),
-        len(plan.mat_regs), d["nmat_vals"].data_ptr(),
-        d["nmat_regs"].data_ptr(), len(plan.nmat_regs), rf.data_ptr(),
-        bank.data_ptr(), plan.K, rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
+        d["rstarts"].data_ptr(), plan.n_chunks, d["cbank_w"].data_ptr(),
+        d["mont_tab"].data_ptr(), d["mat_regs"].data_ptr(),
+        d["mat_limbs"].data_ptr(), len(plan.mat_regs),
+        d["nmat_vals"].data_ptr(), d["nmat_regs"].data_ptr(),
+        len(plan.nmat_regs), rf.data_ptr(), bank.data_ptr(), plan.K,
+        rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
         u32_array(field.p_list), u32_array(field.r2_list), field.n0inv32,
         u32_array(field.half_list), u32_array(field.mask_list),
         u32_array(field.q_list), field.p.bit_length(),

@@ -228,8 +228,8 @@ def plan_from_arrays(arrays, device) -> DevicePlan:
         device=device,
     )
     _check_bounds(plan)
-    for name in ("table", "grp", "r_op", "r_s0", "rstarts", "cbank",
-                 "cbank_w", "mont_tab", "mat_regs", "mat_limbs", "nmat_regs",
+    for name in ("table", "grp", "r_op", "r_s0", "rstarts", "cbank_w",
+                 "mont_tab", "mat_regs", "mat_limbs", "nmat_regs",
                  "nmat_vals", "nw_src", "nw_shift", "wd_src", "consts"):
         plan.dev[name] = to_device(getattr(plan, name), device)
     for name in ("win_order", "nin_order"):

@@ -9,24 +9,28 @@ circom_tpu_torch/ops/cuda/interp.cu, gather.cu and field_ops.cu are built
 beside this checkout's, with the same nvcc flags, all at once (only the
 sources of the kernels --kernels asks for: interp.cu alone takes about a
 minute of nvcc), and each library's entry point is called through
-ctypes.  K2's and K5's entry
-points have the same interface in both (the 32-bit K5's, with n0inv32);
-the other checkout's K1 is taken to have the interface of the 16-bit K1
-(no step groups, no packed constant bank, the 16-bit n0inv):
+ctypes.  K2's and K5's entry points have the same interface in both
+(the 32-bit K5's, with n0inv32); the other checkout's K1 is taken to
+have the interface of the K1 whose wide file was 16-bit limbs for K1c
+and K1d (step groups, the constant bank in limbs and in words):
 
-    ctpu_interp_k1(L, B, x_w, n_win, x_n, n_nin, table, r_op, r_s0,
-                   rstarts, n_chunks, cbank, mont_tab, mat_regs, mat_limbs,
-                   n_mat, nmat_regs, nmat_vals, n_nmat, rf, bank, K, rf_n,
-                   bank_n, KN, p_limbs, r2_limbs, n0inv, half_limbs,
-                   mask_limbs, q_limbs, bits, full, stream)
+    ctpu_interp_k1(L, B, x_w, n_win, x_n, n_nin, table, grp, r_op, r_s0,
+                   rstarts, n_chunks, cbank, cbank_w, mont_tab, mat_regs,
+                   mat_limbs, n_mat, nmat_vals, nmat_regs, n_nmat, rf,
+                   bank, K, rf_n, bank_n, KN, p_limbs, r2_limbs, n0inv32,
+                   half_limbs, mask_limbs, q_limbs, bits, full, stream)
 
-Both versions run on the same inputs, must agree bit for bit, and are
-timed by CUDA events around their bare launches (no checks, outputs
-allocated before), in turns: other, this, this, other.
+with rf (n_regs, L, B).  Both versions run on the same inputs, must agree
+bit for bit, and are timed by CUDA events around their bare launches (no
+checks, outputs allocated before), in turns: other, this, this, other.
 
-- K1 at batch 65,536 on Poseidon2/bn128's plan (P, K1a) and SHA256/bn128's
-  (M, K1b), every emitted row of both banks compared; with the 32-bit
-  products a lane of each plan.
+- K1 on five plans, every emitted row of both banks compared, with the
+  32-bit products a lane of each: Poseidon2/bn128 (P, K1a) and
+  SHA256/bn128 (M, K1b) at batch 65,536, Poseidon2/goldilocks (G, K1c)
+  at 65,536 and at 16,384 (a quarter of the lanes: a time that hardly
+  moves says each lane's chain of dependent steps, not the card's
+  throughput, bounds K1), the stdlib comparators/bn128 (C, K1d) at
+  65,536, bigint-div/bn128 (D, K1d's long division) at 8,192.
 - K2 at Poseidon2/bn128's plan shape (the plan's wd_src over a random
   bank of (n_bank_rows, 16, 65,536)), beside `index_select` of the same
   rows into the same output.
@@ -55,11 +59,14 @@ import torch
 import numpy as np
 
 from .backend.checker import R1CSChecker
-from .backend.interp import k1_args
+from .backend.interp import k1_args, k1_file_shape
 from .backend.torch_backend import WitnessProgram
 from .circuits import sha256_io
 from .circuits.gen_poseidon import generate
-from .convert import OPCODES, to_device
+from .circuits.sources import (BIGINT_DIV_SRC, comparator_inputs,
+                               comparators_source, poseidon2_source)
+from .backend.interp_plan import _NARROW_RESULT, _OPERAND_FILES
+from .convert import N_OPERANDS, OPCODES, to_device
 from .compiler.pipeline import compile_source
 from .field.primes import LIMB_BITS, field_spec
 from .ops import build
@@ -73,9 +80,9 @@ _P, _I, _LL, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _PU32 = ctypes.POINTER(ctypes.c_uint32)
 # the other checkout's entry points: this checkout's, but for K1's
 OTHER_SIGNATURES = dict(build.SIGNATURES, interp={"ctpu_interp_k1": (
-    _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-         _P, _I, _P, _P, _I, _P, _P, _I, _PU32, _PU32, _U32, _PU32, _PU32,
-         _PU32, _I, _I, _P])})
+    _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+         _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32, _PU32, _U32,
+         _PU32, _PU32, _PU32, _I, _I, _P])})
 
 
 def build_libraries(other, names=NAMES):
@@ -95,7 +102,8 @@ def build_libraries(other, names=NAMES):
         so = out_dir / f"{tag}-{name}.so"
         t0 = time.perf_counter()
         r = subprocess.run(
-            [nvcc, *build.NVCC_FLAGS, *build.source_flags(name), "-I", str(src_dir), "-o", str(so), str(src_dir / f"{name}.cu")],
+            [nvcc, *build.NVCC_FLAGS, *build.source_flags(name), "-I",
+             str(src_dir), "-o", str(so), str(src_dir / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         return so, r, time.perf_counter() - t0
 
@@ -159,66 +167,110 @@ def canonical(gen, spec, shape, dev):
 def k1_products32(plan):
     """32x32->64-bit products a lane of the 32-bit K1: 2 N^2 a Montgomery
     product (mul, mul_r2, mul_c, mul_one), (n + 1) N^2 a dot of n terms,
-    N^2 a trailing REDC, N = L/2."""
+    N^2 a goldilocks product (one 64x64-bit product) and a trailing REDC,
+    N = L/2."""
     n2 = (plan.L // 2) ** 2
     per = {"mul": 2, "mul_r2": 2, "mul_c": 2, "mul_one": 2, "dot2_c": 3,
-           "dot3_c": 4}
+           "dot3_c": 4, "gmul": 1, "gmul_c": 1}
     steps = plan.table[:plan.n_steps, 0].tolist()
     emitted = plan.emitted_rows()
     return n2 * (sum(per.get(OPCODES[k], 0) for k in steps)
                  + int(plan.mont_tab[emitted].sum()))
 
 
+def k1_file_bytes(plan, words):
+    """Bytes of wide register-file traffic a lane of K1, counted from the
+    plan with `words` 32-bit words a register (L/2 for the word file, L
+    for a file of 16-bit limbs): each wide register operand read and each
+    wide result written once; a shift reads two words an output word,
+    select its test and the register it picks, nband_w one word (two
+    limbs), the long division its divisor and one word a bit of p (16L
+    bits counted)."""
+    reads = writes = 0
+    for k in plan.table[:plan.n_steps, 0].tolist():
+        op = OPCODES[k]
+        files = _OPERAND_FILES.get(op, "www")[:N_OPERANDS[op]]
+        if op in ("shl_kw", "shr_kw", "select"):
+            reads += 2 * words
+        elif op == "nband_w":
+            reads += 1 if words == plan.L // 2 else 2
+        elif op == "idiv":
+            reads += words + 16 * plan.L
+        else:
+            reads += words * files.count("w")
+        writes += 0 if op in _NARROW_RESULT else words
+    return 4 * (reads + writes)
+
+
+# K1's plans and batches
+K1_CASES = (("P", 65536), ("M", 65536), ("G", 65536), ("G", 16384),
+            ("C", 65536), ("D", 8192))
+
+
 def k1_case(name, dev, B):
-    """(plan, field, wide inputs, narrow inputs) of P or M at batch B."""
-    spec = field_spec("bn128")
+    """(plan, field, wide inputs, narrow inputs) of K1_CASES' plan `name`
+    at batch B."""
+    prime = "goldilocks" if name == "G" else "bn128"
+    spec = field_spec(prime)
     gen = torch.Generator(device=dev).manual_seed(13)
-    if name == "P":
-        cc = compile_source(generate((2,))
-                            + "\ncomponent main = Poseidon2();\n")
-        prog = WitnessProgram(cc.build_tape()[0], spec, device=dev)
-        x = canonical(gen, spec, (prog.n_inputs, spec.n_limbs, B), dev)
-    else:
+    if name == "M":
         cc = compile_source(
             (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text()
             + "\ncomponent main = Sha256Block();\n")
-        prog = WitnessProgram(cc.build_tape()[0], spec, device=dev,
-                              input_ranges=cc.input_range_hints())
+    else:
+        cc = compile_source({"P": poseidon2_source(), "G": poseidon2_source(
+            "goldilocks"), "C": comparators_source(),
+            "D": BIGINT_DIV_SRC}[name], prime=prime)
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=dev,
+                          input_ranges=cc.input_range_hints())
+    if name == "M":
         rng = np.random.default_rng(14)
         msgs = [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
                                                dtype=np.uint8)]
         x = to_device(sha256_io.input_rows(msgs), dev)
+    elif name == "C":
+        x = to_device(comparator_inputs(B, 15, spec.n_limbs), dev)
+    else:
+        x = canonical(gen, spec, (prog.n_inputs, spec.n_limbs, B), dev)
+        if name == "D":
+            x.view(torch.int32)[1, 0] |= 1     # a nonzero divisor
     _, x_w, x_n = prog.interp._inputs(x)
     return prog.interp.plan, prog.field, x_w.contiguous(), x_n.contiguous()
 
 
 def other_k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n, stream):
-    """The 16-bit K1's arguments (see the module's docstring)."""
+    """The other K1's arguments (see the module's docstring); the constant
+    bank in limbs is kept on the plan beside its other device tables."""
     d = plan.dev
+    d.setdefault("cbank", to_device(plan.cbank, x_w.device))
     return (
         plan.L, x_w.shape[-1], x_w.data_ptr(), x_w.shape[0], x_n.data_ptr(),
-        x_n.shape[0], d["table"].data_ptr(), d["r_op"].data_ptr(),
-        d["r_s0"].data_ptr(), d["rstarts"].data_ptr(), plan.n_chunks,
-        d["cbank"].data_ptr(), d["mont_tab"].data_ptr(),
+        x_n.shape[0], d["table"].data_ptr(), d["grp"].data_ptr(),
+        d["r_op"].data_ptr(), d["r_s0"].data_ptr(),
+        d["rstarts"].data_ptr(), plan.n_chunks, d["cbank"].data_ptr(),
+        d["cbank_w"].data_ptr(), d["mont_tab"].data_ptr(),
         d["mat_regs"].data_ptr(), d["mat_limbs"].data_ptr(),
-        len(plan.mat_regs), d["nmat_regs"].data_ptr(),
-        d["nmat_vals"].data_ptr(), len(plan.nmat_regs), rf.data_ptr(),
+        len(plan.mat_regs), d["nmat_vals"].data_ptr(),
+        d["nmat_regs"].data_ptr(), len(plan.nmat_regs), rf.data_ptr(),
         bank.data_ptr(), plan.K, rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
         build.u32_array(field.p_list), build.u32_array(field.r2_list),
-        field.n0inv, build.u32_array(field.half_list),
+        field.n0inv32, build.u32_array(field.half_list),
         build.u32_array(field.mask_list), build.u32_array(field.q_list),
         field.p.bit_length(),
         int(bool({"interp_k1c", "interp_k1d"} & set(plan.parts))), stream)
 
 
-def k1(libs, name, dev, reps, B=65536):
+def k1(libs, name, B, dev, reps):
+    """K1 on plan `name` at batch B, this checkout's and the other's,
+    every emitted row compared, then timed in turns."""
     plan, field, x_w, x_n = k1_case(name, dev, B)
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs, fns = {}, {}
-    for tag, make_args in (("other", other_k1_args), ("this", k1_args)):
+    for tag, make_args, rf_shape in (
+            ("other", other_k1_args, (plan.n_regs, plan.L, B)),
+            ("this", k1_args, k1_file_shape(plan, B))):
         o = outs[tag] = {
-            "rf": torch.empty((plan.n_regs, plan.L, B), dtype=torch.uint32,
-                              device=dev),
+            "rf": torch.empty(rf_shape, dtype=torch.uint32, device=dev),
             "bank": torch.empty((plan.n_bank_rows, plan.L, B),
                                 dtype=torch.uint32, device=dev),
             "rf_n": torch.empty((plan.n_nregs, B), dtype=torch.int32,
@@ -234,21 +286,24 @@ def k1(libs, name, dev, reps, B=65536):
     torch.cuda.synchronize()
     rows = torch.as_tensor(plan.emitted_rows(), device=dev)
     rows_n = torch.as_tensor(plan.emitted_rows(narrow=True), device=dev)
-    other = outs["other"]
-    for tag, got in outs.items():
-        if not (torch.equal(got["bank"].view(torch.int32)[rows],
-                            other["bank"].view(torch.int32)[rows])
-                and torch.equal(got["bank_n"][rows_n],
-                                other["bank_n"][rows_n])):
-            raise SystemExit(f"K1 {name}: {tag} differs from other")
+    got, other = outs["this"], outs["other"]
+    if not (torch.equal(got["bank"].view(torch.int32)[rows],
+                        other["bank"].view(torch.int32)[rows])
+            and torch.equal(got["bank_n"][rows_n], other["bank_n"][rows_n])):
+        raise SystemExit(f"K1 {name}: this differs from other")
     ms = in_turns(fns, reps)
     products = k1_products32(plan)
     for tag, v in ms.items():
-        print(f"  K1 {name} ({plan.n_steps} steps, parts "
+        print(f"  K1 {name} at {B} ({plan.n_steps} steps, parts "
               f"{', '.join(plan.parts)}) {tag}: {v[0]:.4f}, {v[1]:.4f} ms")
+    traffic = k1_file_bytes(plan, plan.L // 2)
     print(f"  K1 {name}: {len(rows)} wide and {len(rows_n)} narrow emitted "
-          f"rows bit-exact at batch {B}; {products} 32-bit products a lane")
+          f"rows bit-exact at batch {B}; {products} 32-bit products a lane; "
+          f"wide file {plan.n_regs} registers, {traffic} bytes of its "
+          f"traffic a lane ({traffic * B / 1e9:.2f} GB a launch; "
+          f"{k1_file_bytes(plan, plan.L) * B / 1e9:.2f} GB as 16-bit limbs)")
     return {"plan": name, "steps": plan.n_steps, "batch": B,
+            "n_regs": plan.n_regs, "file_bytes_per_lane": traffic,
             "emitted_rows": [len(rows), len(rows_n)],
             "products32_per_lane": products, "ms": ms}
 
@@ -380,8 +435,8 @@ def main(argv=None):
     libs = build_libraries(args.other, names)
     result = {"card": card.strip()}
     if "k1" in kernels:
-        for name in ("P", "M"):
-            result[f"k1_{name}"] = k1(libs, name, dev, args.reps)
+        for name, B in K1_CASES:
+            result[f"k1_{name}_{B}"] = k1(libs, name, B, dev, args.reps)
             torch.cuda.empty_cache()
     if "k2" in kernels:
         result["k2"] = k2(libs, dev, args.reps)

@@ -34,7 +34,7 @@ SRC_DIR = Path(__file__).resolve().parent / "cuda"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_ops", "interp", "gather")
 HEADERS = ("dot32.cuh", "field.cuh", "field32.cuh", "narrow.cuh",
-           "wide.cuh")
+           "wide.cuh", "wide32.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,7 +57,7 @@ SIGNATURES = {
     "interp": {
         "ctpu_interp_k1": (
             _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
-                 _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32,
+                 _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32,
                  _PU32, _U32, _PU32, _PU32, _PU32, _I, _I, _P]),
     },
     "gather": {

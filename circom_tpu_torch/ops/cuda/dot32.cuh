@@ -1,7 +1,9 @@
 // The interpreter kernel K1's wide arithmetic in 32-bit words: the lazy
 // dot of dot2_c / dot3_c, the Montgomery reduction it ends with (also the
-// trailing REDC of the flagged emission rows) and the modular add of add_c.
-// The product of mul, mul_r2, mul_c and mul_one is field32.cuh's CIOS.
+// trailing REDC of the flagged emission rows), the modular add of add and
+// add_c and the modular subtract of sub, sub_c and csub_c.  The product of
+// mul, mul_r2, mul_c and mul_one is field32.cuh's CIOS; K1's other wide
+// opcodes are in wide32.cuh.
 //
 // K1's planes hold one 16-bit limb a uint32 word; K1 packs pairs of limbs
 // into N = L/2 words (pack32) and computes on 32x32->64-bit products.  A
@@ -22,7 +24,8 @@
 //   subtract p once when it is >= p, a decision on that value alone, and
 //   keep its low L limbs.
 // The modular add is the same argument with V = a + b < 2R and no
-// reduction.
+// reduction, the modular subtract with V = a + p - b, whose top word may
+// be -1: neither version subtracts p then, and both keep V mod R.
 //
 // Plain C++ on 64-bit integers, no inline PTX: g++ compiles this header for
 // the host (tests/test_torch_k1_words.py, with the CUDA qualifiers defined
@@ -130,6 +133,33 @@ __device__ __forceinline__ void mod_add32(const uint32_t (&a)[N],
   }
   t[N] = (uint32_t)carry;
   cond_sub32<N>(t, p, out);
+}
+
+// (a - b) mod p as field.cuh's mod_sub: V = a + p - b with a signed top
+// word in {-1, 0, 1}, less p once when V >= p (else V mod 2^(32N)).
+template <int N>
+__device__ __forceinline__ void mod_sub32(const uint32_t (&a)[N],
+                                          const uint32_t (&b)[N],
+                                          const uint32_t (&p)[N],
+                                          uint32_t (&out)[N]) {
+  uint32_t t[N], d[N];
+  int64_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int64_t s = (int64_t)a[i] + p[i] - b[i] + carry;
+    t[i] = (uint32_t)s;
+    carry = s >> 32;  // arithmetic: -1, 0 or 1
+  }
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint64_t s = (uint64_t)t[i] - p[i] - borrow;
+    d[i] = (uint32_t)s;
+    borrow = (uint32_t)(s >> 63);
+  }
+  const bool take = carry - (int64_t)borrow >= 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = take ? d[i] : t[i];
 }
 
 }  // namespace ctpu

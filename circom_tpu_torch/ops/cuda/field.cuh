@@ -8,11 +8,10 @@
 // product is exact in 32 bits and column sums stay far below 2^32; the
 // results are therefore bit-identical to the JAX kernels by construction,
 // including the single conditional subtract that the lazy dot reduction
-// relies on.  K4 computes with these functions, and K1's K1c/K1d opcodes
-// with the add, subtract and conditional subtract; K1's products, dots and
-// REDC and the elementwise Montgomery product K5 work in 32-bit words
-// instead (field32.cuh, dot32.cuh), held bit for bit against mont_mul,
-// mac_cols and mont_reduce_cols by the tests.
+// relies on.  K4 computes with these functions; the interpreter kernel K1
+// and the elementwise Montgomery product K5 work in 32-bit words instead
+// (field32.cuh, dot32.cuh, wide32.cuh), held bit for bit against mont_mul,
+// mac_cols, mont_reduce_cols, mod_add, mod_sub and cond_sub by the tests.
 //
 // L is a template parameter (4: goldilocks, 16: bn128 and the other 256-bit
 // primes, 24: room for wider primes), so every loop unrolls and the limb

@@ -10,7 +10,7 @@
 // nmshl nmshru nrotr (the SHA256 class); K1c's goldilocks gmul, gmul_c and
 // add; and K1d, the other 46 opcodes of `wbranch` and `nbranch`: the
 // modular sub/csub/mul by a bank row, select, the signed comparisons and
-// booleans, the masked bit ops, the limb shifts, the widening of a narrow
+// booleans, the masked bit ops, the shifts, the widening of a narrow
 // value, the long division (wide), and nsub, nsel, nsel_w, nidiv, nband_w,
 // lnot_n, lnot_w and the *_nn / *_ww comparisons (narrow results).  It
 // executes the plan tables of backend/interp_plan.py exactly as that kernel
@@ -25,35 +25,47 @@
 // of Montgomery form in place.  One launch runs a plan that mixes them.
 //
 // Design: one thread per witness lane b, 128 threads a block.  The register
-// files and the emission banks live in device memory, batch-minor: wide as
-// (rows, L, B) uint32, narrow as (rows, B) int32, so a warp's reads and
-// writes of one row are one coalesced line.  Every thread of the grid walks
-// the same instruction stream, so each table read is a uniform broadcast
-// load, and the opcode switch is taken once per run, not per step.
+// files and the emission banks live in device memory, batch-minor: the
+// banks (rows, L, B) 16-bit limbs in uint32 and (rows, B) int32, which the
+// gathers K2 and K3 and the JAX package's witness layout read, the narrow
+// file (rows, B) int32, the wide file as below.  Every thread of the grid
+// walks the same instruction stream, so each table read is a uniform
+// broadcast load, and the opcode switch is taken once per run, not per
+// step.
 //
 // Bound on the card.  The emission banks must be written once and the
 // inputs read once; for Poseidon2/bn128 the byte and operation bounds are
 // within a factor of two of each other, for SHA256 the byte bound rules
 // (PERF.md).  What the design does about it:
-// - K1a's products, dots and trailing REDC, and mul_c and mul_one, compute
-//   in 32-bit words (field32.cuh, dot32.cuh): 16-bit limbs packed in pairs
-//   on load, 32x32->64-bit products, unpacked on store.  A mul takes 2
-//   (L/2)^2 wide products, a dot of n terms (n + 1) (L/2)^2, a REDC
-//   (L/2)^2, about a quarter of the integer instructions of the 16-bit
-//   steps of field.cuh, whose bits they equal (dot32.cuh).  On an H100
-//   80GB HBM3 at 700 W, Poseidon2/bn128's plan at 65,536 lanes (99,200
-//   wide products a lane) runs in ~2.5 ms where the 16-bit steps, bound by
-//   those instructions, took ~9.5 ms.  K1c and K1d keep the 16-bit steps
-//   (ops/cuda/field.cuh, wide.cuh, XLA's int32 semantics in narrow.cuh),
-//   so both banks are bit-identical to the JAX kernel's.  The opcodes
-//   whose operand index depends on the data or the count (select, the
-//   shifts, the long division) read their limbs in place from the file.
-// - The compact instantiation (K1a's and K1b's opcodes only) holds the
-//   wide register file as packed words, (rows, L/2, B): half the bytes of
-//   each register read and write (Poseidon2's 14 rows at 65,536 lanes: 29
-//   MB, inside the 50 MB L2; ~19 % faster than the 16-bit limb file).  The
-//   emission banks keep the 16-bit limbs, which the gathers and the JAX
-//   package's layout read.
+// - One wide register file for every opcode, in 32-bit words: N = L/2
+//   words a register a lane (WordFile).  The inputs and materialized
+//   constants are packed into it at the start; 16-bit limbs appear again
+//   only where a result is stored to the emission bank (unpack32).  Every
+//   wide opcode computes in words: the products, dots and trailing REDC
+//   (field32.cuh, dot32.cuh: 32x32->64-bit products, about a quarter of
+//   the integer instructions of field.cuh's 16-bit steps), the modular add
+//   and subtract (dot32.cuh), and K1c's and K1d's other opcodes
+//   (wide32.cuh), each bit for bit equal to its 16-bit version in
+//   field.cuh and wide.cuh, which the tests hold.  The constant bank is
+//   read in words too (cbank_w).  Half the bytes of a 16-bit limb file
+//   move per register, and no operand is packed or result unpacked on its
+//   way through the file.  A plan with many registers is bound by that
+//   traffic: the stdlib comparators' file (139 registers, 291 MB at 65,536
+//   lanes, far beyond the 50 MB L2) moves ~57 KB a lane, which HBM3 takes
+//   about as long to move as the whole launch lasts (PERF.md).
+// - Goldilocks (L = 4) is one 64-bit word: a register's two words lie side
+//   by side, so an operand is one 8-byte load, and gmul and gmul_c are one
+//   64x64->128-bit product folded with 2^64 = 2^32 - 1 and 2^96 = -1 mod p
+//   (gl_mul64), where the 16-bit fold took 16 narrow products, four
+//   signed carry chains and four 4-byte loads an operand.  A small plan
+//   like Poseidon2/goldilocks' (17 registers, 9 MB, inside L2) is bound by
+//   the latency of each lane's chain of dependent steps: its time hardly
+//   moves between 16,384 and 65,536 lanes.  Keeping its file in shared
+//   memory did not shorten that chain (within 2 %, PERF.md), so the file
+//   has one home.
+// - A run reads its next step's table row while the current step computes,
+//   so that read is off the chain (5-9 % on the comparators' and
+//   Poseidon2's plans).
 // - No step stores the dump row (K, KN) of its bank: nothing reads it.
 //   Most SHA256 steps emit nothing (9,697 of 11,675).
 // - The narrow constants are copied into every lane's file at the start,
@@ -67,15 +79,16 @@
 //   a group's loads are in flight together.  A group runs in 1, 2, 4 or
 //   NGROUP slots: one predicated NGROUP-slot loop for every group took 96
 //   registers, not 80, and was ~1.5x slower on SHA256's plan.
+// - The opcodes whose operand index depends on the data or the count
+//   (select, the shifts, the long division) read their words in place.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "dot32.cuh"
-#include "field.cuh"
 #include "field32.cuh"
 #include "narrow.cuh"
-#include "wide.cuh"
+#include "wide32.cuh"
 
 namespace ctpu {
 
@@ -152,28 +165,38 @@ enum Op {
 };
 
 struct InterpArgs {
-  const uint32_t* x_w;      // (n_win, L, B) wide inputs
+  const uint32_t* x_w;      // (n_win, L, B) wide inputs, 16-bit limbs
   const int32_t* x_n;       // (n_nin, B) narrow inputs
   const int32_t* table;     // (n_steps, 7): op ia ib ic dst em aux
   const int32_t* grp;       // (n_steps): length of a narrow step group
   const int32_t* r_op;      // per run: opcode
   const int32_t* r_s0;      // per run: first step (n_runs + 1 entries)
   const int32_t* rstarts;   // per chunk: first run (n_chunks + 1 entries)
-  const uint32_t* cbank;    // (n_bank, L) constant bank
-  const uint32_t* cbank_w;  // (n_bank, L/2) the same, in 32-bit words
+  const uint32_t* cbank_w;  // (n_bank, L/2) constant bank, 32-bit words
   const int32_t* mont_tab;  // (n_chunks * (K + 1)) trailing-REDC flags
   const int32_t* mat_regs;  // (n_mat) register of each materialized const
   const uint32_t* mat_limbs;  // (n_mat, L)
   const int32_t* nmat_vals;   // (n_nmat) narrow constants
   const int32_t* nmat_regs;   // (n_nmat) register of each narrow constant
   int n_nmat;
-  uint32_t* rf;             // wide register file (scratch): (n_regs, L, B),
-                            // or (n_regs, L/2, B) words when packed
+  uint32_t* rf;             // wide register file (scratch), WordFile's
   uint32_t* bank;           // (n_chunks * (K + 1), L, B) wide emission bank
   int32_t* rf_n;            // (n_nregs, B) narrow register file (scratch)
   int32_t* bank_n;          // (n_chunks * (KN + 1), B) narrow emission bank
   int n_win, n_nin, n_mat, n_chunks, K, KN;
   long long B;
+};
+
+// The field's constants in N = L/2 32-bit words, a kernel parameter.
+template <int N>
+struct K1Consts {
+  uint32_t p[N];
+  uint32_t r2[N];    // R^2 mod p, R = 2^(32N)
+  uint32_t half[N];  // p / 2, the pivot of the sign rule
+  uint32_t mask[N];  // 2^bits - 1, the complement and shift mask
+  uint32_t q[N];     // p - 2^32, the widening of a negative int32
+  uint32_t n0inv32;  // -p^-1 mod 2^32
+  int bits;          // p.bit_length(), the long division's steps
 };
 
 // The most narrow steps a group holds: convert.K1B_GROUP, which
@@ -183,85 +206,63 @@ struct InterpArgs {
 #endif
 constexpr int NGROUP = CTPU_K1B_GROUP;
 
+constexpr int THREADS = 128;
+
+// The wide register file of one lane: N = L/2 32-bit words a register.  V
+// words of a register lie side by side, one V * 4-byte load (goldilocks:
+// V = 2, its one 64-bit word), and the register's N / V groups of V words
+// B lanes apart: the file is (n_regs, N / V, B, V).
 template <int L>
-struct Lane {
-  long long b, B;
-  // limb 0 of register `row` of this lane; limb i is at [i * B]
-  __device__ __forceinline__ const uint32_t* ptr(const uint32_t* base,
-                                                 long long row) const {
-    return base + row * L * B + b;
+struct WordFile {
+  static constexpr int N = L / 2;
+  static constexpr int V = L == 4 ? 2 : 1;
+  uint32_t* base;     // word 0 of register 0 of this lane
+  long long stride;   // B * V
+
+  __device__ __forceinline__ uint32_t* word(int row, int w) const {
+    return base + ((long long)row * (N / V) + w / V) * stride + w % V;
   }
-  __device__ __forceinline__ uint32_t* at(uint32_t* base,
-                                          long long row) const {
-    return base + row * L * B + b;
-  }
-  __device__ __forceinline__ void load(const uint32_t* base, long long row,
-                                       uint32_t (&v)[L]) const {
-    const uint32_t* p = base + row * L * B + b;
+  __device__ __forceinline__ void load(int row, uint32_t (&x)[N]) const {
+    if constexpr (V == 2) {
 #pragma unroll
-    for (int i = 0; i < L; ++i) v[i] = p[i * B];
-  }
-  __device__ __forceinline__ void store(uint32_t* base, long long row,
-                                        const uint32_t (&v)[L]) const {
-    uint32_t* p = base + row * L * B + b;
+      for (int g = 0; g < N / 2; ++g) {
+        const uint64_t v =
+            *reinterpret_cast<const uint64_t*>(word(row, 2 * g));
+        x[2 * g] = (uint32_t)v;
+        x[2 * g + 1] = (uint32_t)(v >> 32);
+      }
+    } else {
 #pragma unroll
-    for (int i = 0; i < L; ++i) p[i * B] = v[i];
+      for (int i = 0; i < N; ++i) x[i] = *word(row, i);
+    }
+  }
+  __device__ __forceinline__ void store(int row,
+                                        const uint32_t (&x)[N]) const {
+    if constexpr (V == 2) {
+#pragma unroll
+      for (int g = 0; g < N / 2; ++g)
+        *reinterpret_cast<uint64_t*>(word(row, 2 * g)) =
+            x[2 * g] | ((uint64_t)x[2 * g + 1] << 32);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) *word(row, i) = x[i];
+    }
   }
 };
 
+// Bank row `row` of this lane's column: limb i at [i * B].
 template <int L>
-__device__ __forceinline__ void load_const(const uint32_t* cbank, int row,
-                                           uint32_t (&v)[L]) {
-#pragma unroll
-  for (int i = 0; i < L; ++i) v[i] = __ldg(cbank + (long long)row * L + i);
+__device__ __forceinline__ uint32_t* bank_at(uint32_t* bank, long long row,
+                                             long long b, long long B) {
+  return bank + row * L * B + b;
 }
 
-// Register `row` of the wide file as N = L/2 words: as held in a packed
-// file (WORDS), else packed from its 16-bit limbs.
-template <int L, bool WORDS>
-__device__ __forceinline__ void load32(const InterpArgs& a,
-                                       const Lane<L>& ln, int row,
-                                       uint32_t (&x)[L / 2]) {
-  if constexpr (WORDS) {
-    const uint32_t* p = a.rf + (long long)row * (L / 2) * ln.B + ln.b;
-#pragma unroll
-    for (int i = 0; i < L / 2; ++i) x[i] = p[i * ln.B];
-  } else {
-    pack32<L>(ln.ptr(a.rf, row), ln.B, x);
-  }
-}
-
-// A result in words to register dst and, unless em is the dump row K,
-// to emission row em of the chunk's bank (16-bit limbs).
-template <int L, bool WORDS>
-__device__ __forceinline__ void store32(const InterpArgs& a,
-                                        const Lane<L>& ln,
-                                        uint32_t* chunk_bank, int dst,
-                                        int em, const uint32_t (&w)[L / 2]) {
-  if constexpr (WORDS) {
-    uint32_t* p = a.rf + (long long)dst * (L / 2) * ln.B + ln.b;
-#pragma unroll
-    for (int i = 0; i < L / 2; ++i) p[i * ln.B] = w[i];
-    if (em != a.K) unpack32<L>(w, ln.at(chunk_bank, em), ln.B);
-  } else {
-    uint32_t r[L];
-#pragma unroll
-    for (int i = 0; i < L / 2; ++i) {
-      r[2 * i] = w[i] & MASK;
-      r[2 * i + 1] = w[i] >> LIMB_BITS;
-    }
-    ln.store(a.rf, dst, r);
-    if (em != a.K) ln.store(chunk_bank, em, r);
-  }
-}
-
-template <int L>
+template <int N>
 __device__ __forceinline__ void load_const32(const uint32_t* cbank_w,
-                                             int row,
-                                             uint32_t (&v)[L / 2]) {
+                                             int row, uint32_t (&v)[N]) {
 #pragma unroll
-  for (int i = 0; i < L / 2; ++i)
-    v[i] = __ldg(cbank_w + (long long)row * (L / 2) + i);
+  for (int i = 0; i < N; ++i)
+    v[i] = __ldg(cbank_w + (long long)row * N + i);
 }
 
 // Narrow register `reg` of lane b.
@@ -270,148 +271,143 @@ __device__ __forceinline__ int32_t nreg(const InterpArgs& a, int reg,
   return a.rf_n[reg * a.B + b];
 }
 
-// One run of steps s0..s1 of opcode OP, whose result is wide.  WORDS: the
-// wide file is packed (the compact instantiation, K1a's opcodes only).
-template <int L, int OP, bool WORDS>
+// Columns 1-6 of a step's table row.
+struct StepRow {
+  int ia, ib, ic, dst, em, aux;
+};
+
+__device__ __forceinline__ StepRow step_row(const int32_t* table, int t) {
+  const int32_t* row = table + (long long)t * 7;
+  return {__ldg(row + 1), __ldg(row + 2), __ldg(row + 3),
+          __ldg(row + 4), __ldg(row + 5), __ldg(row + 6)};
+}
+
+// One run of steps s0..s1 of opcode OP, whose result is wide, computed in
+// words: each result to register dst and, unless em is the dump row K, to
+// emission row em of the chunk's bank (unpacked to 16-bit limbs).
+template <int L, int OP>
 __device__ __forceinline__ void run_steps(const InterpArgs& a,
-                                          const Lane<L>& ln,
+                                          const WordFile<L>& rf, long long b,
                                           uint32_t* chunk_bank, int s0,
-                                          int s1, const FieldConsts& fc,
-                                          const WideConsts& wc,
+                                          int s1,
+                                          const K1Consts<L / 2>& kc,
                                           const uint32_t (&pw)[L / 2]) {
   constexpr int N = L / 2;
-  // opcodes computed in 32-bit words; the others (K1c, K1d) on the 16-bit
-  // limbs of the limb file
-  constexpr bool IN_WORDS =
-      OP == OP_COPYW || OP == OP_MUL || OP == OP_MUL_R2 || OP == OP_ADD_C ||
-      OP == OP_DOT2_C || OP == OP_DOT3_C || OP == OP_MUL_C ||
-      OP == OP_MUL_ONE;
-  static_assert(IN_WORDS || !WORDS, "a packed file runs K1a's opcodes only");
+  // the next step's row is read while this one computes: a step's table
+  // read is off the chain of dependent loads that bounds a lane
+  StepRow next = step_row(a.table, s0);
   for (int t = s0; t < s1; ++t) {
-    const int32_t* row = a.table + (long long)t * 7;
-    const int ia = __ldg(row + 1), ib = __ldg(row + 2), ic = __ldg(row + 3);
-    const int dst = __ldg(row + 4), em = __ldg(row + 5), aux = __ldg(row + 6);
-    if constexpr (IN_WORDS) {
-      uint32_t w[N];
-      if constexpr (OP == OP_COPYW) {
-        load32<L, WORDS>(a, ln, ia, w);
-      } else if constexpr (OP == OP_ADD_C) {
+    const StepRow cur = next;
+    if (t + 1 < s1) next = step_row(a.table, t + 1);
+    const int ia = cur.ia, ib = cur.ib, ic = cur.ic;
+    const int dst = cur.dst, em = cur.em, aux = cur.aux;
+    uint32_t w[N];
+    if constexpr (OP == OP_COPYW) {
+      rf.load(ia, w);
+    } else if constexpr (OP == OP_ADD || OP == OP_ADD_C || OP == OP_SUB ||
+                         OP == OP_SUB_C || OP == OP_CSUB_C) {
+      uint32_t x[N], y[N];
+      rf.load(ia, x);
+      if (OP == OP_ADD || OP == OP_SUB)
+        rf.load(ib, y);
+      else
+        load_const32<N>(a.cbank_w, ib, y);
+      if (OP == OP_ADD || OP == OP_ADD_C)
+        mod_add32<N>(x, y, pw, w);
+      else if (OP == OP_CSUB_C)
+        mod_sub32<N>(y, x, pw, w);  // bank row minus register
+      else
+        mod_sub32<N>(x, y, pw, w);
+    } else if constexpr (OP == OP_DOT2_C || OP == OP_DOT3_C) {
+      // bank rows aux..aux+n-1 hold the coefficients, row aux+n an
+      // additive constant; accumulate every product into one 2N + 1 word
+      // sum and reduce once (lazy reduction)
+      constexpr int NT = (OP == OP_DOT3_C) ? 3 : 2;
+      uint32_t acc[2 * N + 1];
+#pragma unroll
+      for (int k = 0; k < 2 * N + 1; ++k) acc[k] = 0;
+      const int regs[3] = {ia, ib, ic};
+#pragma unroll
+      for (int term = 0; term < NT; ++term) {
         uint32_t x[N], c[N];
-        load32<L, WORDS>(a, ln, ia, x);
-        load_const32<L>(a.cbank_w, ib, c);
-        mod_add32<N>(x, c, pw, w);
-      } else if constexpr (OP == OP_DOT2_C || OP == OP_DOT3_C) {
-        // dot2_c / dot3_c: bank rows aux..aux+n-1 hold the coefficients,
-        // row aux+n an additive constant; accumulate every product into
-        // one 2N + 1 word sum and reduce once (lazy reduction)
-        constexpr int NT = (OP == OP_DOT3_C) ? 3 : 2;
-        uint32_t acc[2 * N + 1];
-#pragma unroll
-        for (int k = 0; k < 2 * N + 1; ++k) acc[k] = 0;
-        const int regs[3] = {ia, ib, ic};
-#pragma unroll
-        for (int term = 0; term < NT; ++term) {
-          uint32_t x[N], c[N];
-          load32<L, WORDS>(a, ln, regs[term], x);
-          load_const32<L>(a.cbank_w, aux + term, c);
-          mac32<N>(acc, x, c);
-        }
-        uint32_t k[N];
-        load_const32<L>(a.cbank_w, aux + NT, k);
-        add_low32<N>(acc, k);
-        mont_reduce32<N>(acc, pw, fc.n0inv32, w);
-      } else {
-        // the Montgomery products: by a register, R^2, a bank row, 1
-        uint32_t x[N], y[N];
-        load32<L, WORDS>(a, ln, ia, x);
-        if constexpr (OP == OP_MUL) {
-          load32<L, WORDS>(a, ln, ib, y);
-        } else if constexpr (OP == OP_MUL_C) {
-          load_const32<L>(a.cbank_w, ib, y);
-        } else if constexpr (OP == OP_MUL_R2) {
-#pragma unroll
-          for (int i = 0; i < N; ++i)
-            y[i] = fc.r2[2 * i] | (fc.r2[2 * i + 1] << LIMB_BITS);
-        } else {
-#pragma unroll
-          for (int i = 0; i < N; ++i) y[i] = i == 0;
-        }
-        mont_mul32<N>(x, y, pw, fc.n0inv32, w);
+        rf.load(regs[term], x);
+        load_const32<N>(a.cbank_w, aux + term, c);
+        mac32<N>(acc, x, c);
       }
-      store32<L, WORDS>(a, ln, chunk_bank, dst, em, w);
+      uint32_t k[N];
+      load_const32<N>(a.cbank_w, aux + NT, k);
+      add_low32<N>(acc, k);
+      mont_reduce32<N>(acc, pw, kc.n0inv32, w);
+    } else if constexpr (OP == OP_MUL || OP == OP_MUL_R2 || OP == OP_MUL_C ||
+                         OP == OP_MUL_ONE) {
+      // the Montgomery products: by a register, R^2, a bank row, 1
+      uint32_t x[N], y[N];
+      rf.load(ia, x);
+      if constexpr (OP == OP_MUL) {
+        rf.load(ib, y);
+      } else if constexpr (OP == OP_MUL_C) {
+        load_const32<N>(a.cbank_w, ib, y);
+      } else if constexpr (OP == OP_MUL_R2) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) y[i] = kc.r2[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) y[i] = i == 0;
+      }
+      mont_mul32<N>(x, y, pw, kc.n0inv32, w);
+    } else if constexpr (OP == OP_GMUL || OP == OP_GMUL_C) {
+      if constexpr (L == 4) {
+        uint32_t x[2], y[2];
+        rf.load(ia, x);
+        if (OP == OP_GMUL)
+          rf.load(ib, y);
+        else
+          load_const32<2>(a.cbank_w, ib, y);
+        const uint64_t r = gl_mul64(x[0] | ((uint64_t)x[1] << 32),
+                                    y[0] | ((uint64_t)y[1] << 32));
+        w[0] = (uint32_t)r;
+        w[1] = (uint32_t)(r >> 32);
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) w[i] = 0;  // goldilocks only (wrapper)
+      }
+    } else if constexpr (OP == OP_SELECT) {
+      uint32_t x[N];
+      rf.load(ia, x);
+      rf.load(nonzero32<N>(x) ? ib : ic, w);
+    } else if constexpr ((OP >= OP_EQ && OP <= OP_LOR) || OP == OP_LNOT) {
+      uint32_t x[N], y[N];
+      rf.load(ia, x);
+#pragma unroll
+      for (int i = 1; i < N; ++i) w[i] = 0;
+      if constexpr (OP == OP_LNOT) {
+        w[0] = !nonzero32<N>(x);
+      } else {
+        rf.load(ib, y);
+        w[0] = cmp32<N, OP - OP_EQ>(x, y, kc.half);
+      }
+    } else if constexpr (OP == OP_BAND || OP == OP_BOR || OP == OP_BXOR) {
+      uint32_t x[N], y[N];
+      rf.load(ia, x);
+      rf.load(ib, y);
+      bitop32<N, OP - OP_BAND>(x, y, pw, w);
+    } else if constexpr (OP == OP_BNOT) {
+      uint32_t x[N];
+      rf.load(ia, x);
+      bnot32<N>(x, kc.mask, pw, w);
+    } else if constexpr (OP == OP_SHL_KW || OP == OP_SHR_KW) {
+      shift32<N, OP == OP_SHL_KW>([&](int i) { return *rf.word(ia, i); },
+                                  aux, pw, kc.mask, w);
+    } else if constexpr (OP == OP_WIDEN) {
+      widen32<N>(nreg(a, ia, b), kc.q, w);
     } else {
-      uint32_t r[L];
-      if constexpr (OP == OP_GMUL || OP == OP_GMUL_C) {
-        if constexpr (L == 4) {
-          uint32_t x[4], y[4];
-          ln.load(a.rf, ia, x);
-          if (OP == OP_GMUL)
-            ln.load(a.rf, ib, y);
-          else
-            load_const<4>(a.cbank, ib, y);
-          gl_mul(x, y, r, fc);
-        } else {
-#pragma unroll
-          for (int i = 0; i < L; ++i) r[i] = 0;  // goldilocks only (wrapper)
-        }
-      } else if constexpr (OP == OP_ADD || OP == OP_SUB || OP == OP_SUB_C ||
-                           OP == OP_CSUB_C) {
-        uint32_t x[L], y[L];
-        ln.load(a.rf, ia, x);
-        if (OP == OP_ADD || OP == OP_SUB)
-          ln.load(a.rf, ib, y);
-        else
-          load_const<L>(a.cbank, ib, y);
-        if (OP == OP_ADD)
-          mod_add<L>(x, y, r, fc);
-        else if (OP == OP_CSUB_C)
-          mod_sub<L>(y, x, r, fc);  // bank row minus register
-        else
-          mod_sub<L>(x, y, r, fc);
-      } else if constexpr (OP == OP_SELECT) {
-        uint32_t x[L];
-        ln.load(a.rf, ia, x);
-        ln.load(a.rf, nonzero<L>(x) ? ib : ic, r);
-      } else if constexpr (OP >= OP_EQ && OP <= OP_LOR) {
-        uint32_t x[L], y[L];
-        ln.load(a.rf, ia, x);
-        ln.load(a.rf, ib, y);
-#pragma unroll
-        for (int i = 1; i < L; ++i) r[i] = 0;
-        r[0] = cmp_wide<L, OP - OP_EQ>(x, y, wc);
-      } else if constexpr (OP == OP_LNOT) {
-        uint32_t x[L];
-        ln.load(a.rf, ia, x);
-#pragma unroll
-        for (int i = 1; i < L; ++i) r[i] = 0;
-        r[0] = !nonzero<L>(x);
-      } else if constexpr (OP == OP_BAND || OP == OP_BOR || OP == OP_BXOR) {
-        uint32_t y[L];
-        ln.load(a.rf, ia, r);
-        ln.load(a.rf, ib, y);
-#pragma unroll
-        for (int i = 0; i < L; ++i)
-          r[i] = OP == OP_BAND ? r[i] & y[i]
-                 : OP == OP_BOR ? r[i] | y[i] : r[i] ^ y[i];
-        if (OP != OP_BAND) cond_sub<L>(r, 0, fc);
-      } else if constexpr (OP == OP_BNOT) {
-        ln.load(a.rf, ia, r);
-#pragma unroll
-        for (int i = 0; i < L; ++i) r[i] ^= wc.mask[i];
-        cond_sub<L>(r, 0, fc);
-      } else if constexpr (OP == OP_SHL_KW || OP == OP_SHR_KW) {
-        shift_w<L, OP == OP_SHL_KW>(ln.ptr(a.rf, ia), ln.B, aux, r, fc, wc);
-      } else if constexpr (OP == OP_WIDEN) {
-        widen<L>(nreg(a, ia, ln.b), r, wc);
-      } else {
-        // OP_IDIV
-        uint32_t y[L];
-        ln.load(a.rf, ib, y);
-        idiv<L>(ln.ptr(a.rf, ia), ln.B, y, r, wc);
-      }
-      ln.store(a.rf, dst, r);
-      if (em != a.K) ln.store(chunk_bank, em, r);
+      static_assert(OP == OP_IDIV, "a wide opcode without a case");
+      uint32_t y[N];
+      rf.load(ib, y);
+      idiv32<N>([&](int i) { return *rf.word(ia, i); }, y, kc.bits, w);
     }
+    rf.store(dst, w);
+    if (em != a.K) unpack32<L>(w, bank_at<L>(chunk_bank, em, b, a.B), a.B);
   }
 }
 
@@ -450,14 +446,14 @@ __device__ __forceinline__ int32_t narrow_op(int32_t x, int32_t y,
 }
 
 // The value of step t, an opcode whose result is narrow: read the
-// operands of the opcode's files (rf_n, or rf for
-// nsel_w, nband_w, lnot_w and the *_ww comparisons) and compute.  The wide
-// operands are read from the 16-bit limb file: these opcodes are K1d's, so
-// only the FULL instantiation runs them.
+// operands of the opcode's files (rf_n, or the wide file's words for
+// nsel_w, nband_w, lnot_w and the *_ww comparisons) and compute.
 template <int L, int OP>
 __device__ __forceinline__ int32_t narrow_value(const InterpArgs& a,
-                                                const Lane<L>& ln, int t,
-                                                const WideConsts& wc) {
+                                                const WordFile<L>& rf,
+                                                long long b, int t,
+                                                const K1Consts<L / 2>& kc) {
+  constexpr int N = L / 2;
   // narrow_op's opcodes, and those of them with a second operand
   constexpr bool SCALAR = OP <= OP_NROTR || OP == OP_NSUB ||
                           OP == OP_NIDIV || OP == OP_LNOT_N ||
@@ -466,7 +462,6 @@ __device__ __forceinline__ int32_t narrow_value(const InterpArgs& a,
                        OP == OP_NBOR || OP == OP_NBXOR || OP == OP_NMSHL ||
                        OP == OP_NMSHRU || OP == OP_NSUB || OP == OP_NIDIV ||
                        (OP >= OP_EQ_NN && OP <= OP_LOR_NN);
-  const long long B = a.B, b = ln.b;
   const int32_t* row = a.table + (long long)t * 7;
   const int ia = __ldg(row + 1), aux = __ldg(row + 6);
   if constexpr (SCALAR) {
@@ -476,55 +471,51 @@ __device__ __forceinline__ int32_t narrow_value(const InterpArgs& a,
   } else if constexpr (OP == OP_NSEL) {
     const int j = nreg(a, ia, b) != 0 ? 1 : 2;
     return nreg(a, __ldg(row + 1 + j), b);
-  } else if constexpr (OP == OP_NSEL_W) {
-    uint32_t x[L];
-    ln.load(a.rf, ia, x);
-    const int j = nonzero<L>(x) ? 1 : 2;
+  } else if constexpr (OP == OP_NSEL_W || OP == OP_LNOT_W) {
+    uint32_t x[N];
+    rf.load(ia, x);
+    if constexpr (OP == OP_LNOT_W) return !nonzero32<N>(x);
+    const int j = nonzero32<N>(x) ? 1 : 2;
     return nreg(a, __ldg(row + 1 + j), b);
   } else if constexpr (OP == OP_NBAND_W) {
-    // limbs 0 and 1 ANDed with bank row aux, packed into an int32
-    const uint32_t* xr = ln.ptr(a.rf, ia);
-    const uint32_t* c = a.cbank + (long long)aux * L;
-    return (int32_t)((xr[0] & __ldg(c)) |
-                     ((xr[B] & __ldg(c + 1)) << LIMB_BITS));
-  } else if constexpr (OP == OP_LNOT_W) {
-    uint32_t x[L];
-    ln.load(a.rf, ia, x);
-    return !nonzero<L>(x);
+    // word 0 (limbs 0 and 1) ANDed with bank row aux's, as an int32
+    return (int32_t)(*rf.word(ia, 0) & __ldg(a.cbank_w + (long long)aux * N));
   } else {
-    // *_ww: the wide comparison, whose 0/1 result is limb 0
-    uint32_t x[L], y[L];
-    ln.load(a.rf, ia, x);
-    ln.load(a.rf, __ldg(row + 2), y);
-    return cmp_wide<L, OP - OP_EQ_WW>(x, y, wc);
+    // *_ww: the wide comparison, whose 0/1 result is word 0
+    uint32_t x[N], y[N];
+    rf.load(ia, x);
+    rf.load(__ldg(row + 2), y);
+    return cmp32<N, OP - OP_EQ_WW>(x, y, kc.half);
   }
 }
 
-// Steps t..t+g-1 (g <= N) of opcode OP, whose result is narrow, none of
+// Steps t..t+g-1 (g <= S) of opcode OP, whose result is narrow, none of
 // which reads a register an earlier one writes: every step reads its
 // operands before any stores, then each writes rf_n[dst] and, unless em is
-// the dump row KN, narrow bank row em of this chunk, in order.  Slots g..N-1
+// the dump row KN, narrow bank row em of this chunk, in order.  Slots g..S-1
 // compute step t again and store nothing.
-template <int L, int OP, int N>
+template <int L, int OP, int S>
 __device__ __forceinline__ void narrow_group(const InterpArgs& a,
-                                             const Lane<L>& ln,
+                                             const WordFile<L>& rf,
+                                             long long b,
                                              int32_t* chunk_bank_n, int t,
-                                             int g, const WideConsts& wc) {
-  int32_t r[N];
-  int dst[N], em[N];
+                                             int g,
+                                             const K1Consts<L / 2>& kc) {
+  int32_t r[S];
+  int dst[S], em[S];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int i = 0; i < S; ++i) {
     const int ti = t + (i < g ? i : 0);
     const int32_t* row = a.table + (long long)ti * 7;
     dst[i] = __ldg(row + 4);
     em[i] = __ldg(row + 5);
-    r[i] = narrow_value<L, OP>(a, ln, ti, wc);
+    r[i] = narrow_value<L, OP>(a, rf, b, ti, kc);
   }
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int i = 0; i < S; ++i) {
     if (i < g) {
-      a.rf_n[dst[i] * a.B + ln.b] = r[i];
-      if (em[i] != a.KN) chunk_bank_n[em[i] * a.B + ln.b] = r[i];
+      a.rf_n[dst[i] * a.B + b] = r[i];
+      if (em[i] != a.KN) chunk_bank_n[em[i] * a.B + b] = r[i];
     }
   }
 }
@@ -536,20 +527,21 @@ __device__ __forceinline__ void narrow_group(const InterpArgs& a,
 // runs in 1, 2, 4 or NGROUP slots.
 template <int L, int OP>
 __device__ __forceinline__ void run_narrow(const InterpArgs& a,
-                                           const Lane<L>& ln,
+                                           const WordFile<L>& rf, long long b,
                                            int32_t* chunk_bank_n, int s0,
-                                           int s1, const WideConsts& wc) {
+                                           int s1,
+                                           const K1Consts<L / 2>& kc) {
   int g;
   for (int t = s0; t < s1; t += g) {
     g = __ldg(a.grp + t);
     if (g == 1)
-      narrow_group<L, OP, 1>(a, ln, chunk_bank_n, t, g, wc);
+      narrow_group<L, OP, 1>(a, rf, b, chunk_bank_n, t, g, kc);
     else if (g == 2)
-      narrow_group<L, OP, 2>(a, ln, chunk_bank_n, t, g, wc);
+      narrow_group<L, OP, 2>(a, rf, b, chunk_bank_n, t, g, kc);
     else if (g <= 4)
-      narrow_group<L, OP, 4>(a, ln, chunk_bank_n, t, g, wc);
+      narrow_group<L, OP, 4>(a, rf, b, chunk_bank_n, t, g, kc);
     else
-      narrow_group<L, OP, NGROUP>(a, ln, chunk_bank_n, t, g, wc);
+      narrow_group<L, OP, NGROUP>(a, rf, b, chunk_bank_n, t, g, kc);
   }
 }
 
@@ -575,10 +567,11 @@ __device__ __forceinline__ void run_narrow(const InterpArgs& a,
   NARROW(OP_NMSHL) \
   NARROW(OP_NMSHRU) \
   NARROW(OP_NROTR)
-#define K1CD_CASES \
+#define K1C_CASES \
   WIDE(OP_GMUL) \
   WIDE(OP_GMUL_C) \
-  WIDE(OP_ADD) \
+  WIDE(OP_ADD)
+#define K1D_CASES \
   WIDE(OP_SUB) \
   WIDE(OP_SUB_C) \
   WIDE(OP_CSUB_C) \
@@ -628,44 +621,28 @@ __device__ __forceinline__ void run_narrow(const InterpArgs& a,
 
 // FULL = false instantiates the switch of K1a's and K1b's opcodes only: the
 // kernel for plans without K1c/K1d opcodes (Poseidon2/bn128, SHA256) keeps
-// the compact code of the earlier kernel, so their hot loops do not pay
-// for 49 more cases (K1a measured about 3 % slower with them), and holds
-// the wide register file as packed 32-bit words, which only K1a's opcodes
-// read.
+// the compact code, so their hot loops do not pay for 49 more cases (with
+// every case, even on the word file, K1a ran 3.9 % and K1b 1.3 % slower).
 template <int L, bool FULL>
-__global__ void __launch_bounds__(128) interp_k1_kernel(InterpArgs a,
-                                                        FieldConsts fc,
-                                                        WideConsts wc) {
-  constexpr int N = L / 2;
-  constexpr bool WORDS = !FULL;
+__global__ void __launch_bounds__(THREADS) interp_k1_kernel(
+    InterpArgs a, K1Consts<L / 2> kc) {
+  constexpr int N = L / 2, V = WordFile<L>::V;
   const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (b >= a.B) return;
-  const Lane<L> ln{b, a.B};
+  const WordFile<L> rf{a.rf + b * V, a.B * V};
   uint32_t pw[N];
-  p_words<L>(fc, pw);
+#pragma unroll
+  for (int i = 0; i < N; ++i) pw[i] = kc.p[i];
   // inputs and materialized wide constants into the wide register file
-  // (em = K: no bank row)
   for (int k = 0; k < a.n_win; ++k) {
-    if constexpr (WORDS) {
-      uint32_t v[N];
-      pack32<L>(ln.ptr(a.x_w, k), a.B, v);
-      store32<L, WORDS>(a, ln, nullptr, k, a.K, v);
-    } else {
-      uint32_t v[L];
-      ln.load(a.x_w, k, v);
-      ln.store(a.rf, k, v);
-    }
+    uint32_t v[N];
+    pack32<L>(a.x_w + (long long)k * L * a.B + b, a.B, v);
+    rf.store(k, v);
   }
   for (int m = 0; m < a.n_mat; ++m) {
-    if constexpr (WORDS) {
-      uint32_t v[N];
-      pack32<L>(a.mat_limbs + (long long)m * L, 1, v);
-      store32<L, WORDS>(a, ln, nullptr, __ldg(a.mat_regs + m), a.K, v);
-    } else {
-      uint32_t v[L];
-      load_const<L>(a.mat_limbs, m, v);
-      ln.store(a.rf, __ldg(a.mat_regs + m), v);
-    }
+    uint32_t v[N];
+    pack32<L>(a.mat_limbs + (long long)m * L, 1, v);
+    rf.store(__ldg(a.mat_regs + m), v);
   }
   // narrow inputs and constants into the narrow register file
   for (int k = 0; k < a.n_nin; ++k) a.rf_n[k * a.B + b] = a.x_n[k * a.B + b];
@@ -678,20 +655,21 @@ __global__ void __launch_bounds__(128) interp_k1_kernel(InterpArgs a,
     for (int rr = __ldg(a.rstarts + c); rr < r1; ++rr) {
       const int s0 = __ldg(a.r_s0 + rr), s1 = __ldg(a.r_s0 + rr + 1);
       const int op = __ldg(a.r_op + rr);
-#define WIDE(OPC)                                                     \
-  case OPC:                                                           \
-    run_steps<L, OPC, WORDS>(a, ln, chunk_bank, s0, s1, fc, wc, pw);  \
+#define WIDE(OPC)                                                  \
+  case OPC:                                                        \
+    run_steps<L, OPC>(a, rf, b, chunk_bank, s0, s1, kc, pw);       \
     break;
-#define NARROW(OPC)                                                   \
-  case OPC:                                                           \
-    run_narrow<L, OPC>(a, ln, chunk_bank_n, s0, s1, wc);              \
+#define NARROW(OPC)                                                \
+  case OPC:                                                        \
+    run_narrow<L, OPC>(a, rf, b, chunk_bank_n, s0, s1, kc);        \
     break;
       // the wrapper picks FULL from the plan's opcodes and refuses plans
       // with opcodes outside OPCODES, so `default` is never taken
       if constexpr (FULL) {
         switch (op) {
           K1AB_CASES
-          K1CD_CASES
+          K1C_CASES
+          K1D_CASES
           default:
             break;
         }
@@ -710,48 +688,66 @@ __global__ void __launch_bounds__(128) interp_k1_kernel(InterpArgs a,
     for (int r = 0; r < a.K; ++r) {
       if (__ldg(a.mont_tab + c * (a.K + 1) + r) == 0) continue;
       uint32_t v[N], t[2 * N + 1], out[N];
-      pack32<L>(ln.ptr(chunk_bank, r), a.B, v);
+      uint32_t* at = bank_at<L>(chunk_bank, r, b, a.B);
+      pack32<L>(at, a.B, v);
 #pragma unroll
       for (int k = 0; k < 2 * N + 1; ++k) t[k] = k < N ? v[k] : 0;
-      mont_reduce32<N>(t, pw, fc.n0inv32, out);
-      unpack32<L>(out, ln.at(chunk_bank, r), a.B);
+      mont_reduce32<N>(t, pw, kc.n0inv32, out);
+      unpack32<L>(out, at, a.B);
     }
   }
+}
+
+// L 16-bit limbs -> N = L/2 words.
+template <int N>
+void words_of(const uint32_t* limbs, uint32_t (&w)[N]) {
+  for (int i = 0; i < N; ++i) w[i] = limbs[2 * i] | (limbs[2 * i + 1] << 16);
+}
+
+// The field's constants packed into words, then the launch.
+template <int L, bool FULL>
+int launch(const InterpArgs& a, const uint32_t* p_limbs,
+           const uint32_t* r2_limbs, uint32_t n0inv32,
+           const uint32_t* half_limbs, const uint32_t* mask_limbs,
+           const uint32_t* q_limbs, int bits, cudaStream_t s) {
+  constexpr int N = L / 2;
+  K1Consts<N> kc = {};
+  words_of<N>(p_limbs, kc.p);
+  words_of<N>(r2_limbs, kc.r2);
+  words_of<N>(half_limbs, kc.half);
+  words_of<N>(mask_limbs, kc.mask);
+  words_of<N>(q_limbs, kc.q);
+  kc.n0inv32 = n0inv32;
+  kc.bits = bits;
+  const unsigned blocks = (unsigned)((a.B + THREADS - 1) / THREADS);
+  interp_k1_kernel<L, FULL><<<blocks, THREADS, 0, s>>>(a, kc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace ctpu
 
 // Launch K1 on `stream`.  Device pointers: x_w, x_n, table, grp, r_op,
-// r_s0, rstarts, cbank, cbank_w, mont_tab, mat_regs, mat_limbs, nmat_vals,
-// nmat_regs, rf, bank, rf_n, bank_n (each register file has at least its
-// trash row, rf L words a row a lane).  Host pointers: p_limbs, r2_limbs,
-// half_limbs, mask_limbs, q_limbs (L words each); n0inv32 = -p^-1 mod
-// 2^32.  L is 4 (goldilocks) or 16 (the 256-bit primes); full is nonzero
-// when the plan runs K1c or K1d opcodes.  Returns the launch's cudaError_t
-// (0 on success).
+// r_s0, rstarts, cbank_w, mont_tab, mat_regs, mat_limbs, nmat_vals,
+// nmat_regs, rf, bank, rf_n, bank_n.  rf holds the plan's wide registers
+// (the trash register included), L/2 words a register a lane: (n_regs,
+// L/2, B) for L = 16, (n_regs, B, 2) for L = 4.  Host pointers: p_limbs,
+// r2_limbs, half_limbs, mask_limbs, q_limbs (L 16-bit limbs each); n0inv32
+// = -p^-1 mod 2^32.  L is 4 (goldilocks) or 16 (the 256-bit primes); full
+// is nonzero when the plan runs K1c or K1d opcodes.  Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int ctpu_interp_k1(
     int L, long long B, const uint32_t* x_w, int n_win, const int32_t* x_n,
     int n_nin, const int32_t* table, const int32_t* grp, const int32_t* r_op,
     const int32_t* r_s0, const int32_t* rstarts, int n_chunks,
-    const uint32_t* cbank, const uint32_t* cbank_w, const int32_t* mont_tab,
+    const uint32_t* cbank_w, const int32_t* mont_tab,
     const int32_t* mat_regs, const uint32_t* mat_limbs, int n_mat,
     const int32_t* nmat_vals, const int32_t* nmat_regs, int n_nmat,
-    uint32_t* rf, uint32_t* bank, int K, int32_t* rf_n, int32_t* bank_n,
-    int KN, const uint32_t* p_limbs, const uint32_t* r2_limbs,
-    uint32_t n0inv32, const uint32_t* half_limbs, const uint32_t* mask_limbs,
-    const uint32_t* q_limbs, int bits, int full, void* stream) {
+    uint32_t* rf, uint32_t* bank, int K, int32_t* rf_n,
+    int32_t* bank_n, int KN, const uint32_t* p_limbs,
+    const uint32_t* r2_limbs, uint32_t n0inv32, const uint32_t* half_limbs,
+    const uint32_t* mask_limbs, const uint32_t* q_limbs, int bits, int full,
+    void* stream) {
   if (L != 4 && L != 16) return (int)cudaErrorInvalidValue;
-  ctpu::FieldConsts fc = {};
-  ctpu::WideConsts wc = {};
-  for (int i = 0; i < L; ++i) {
-    fc.p[i] = p_limbs[i];
-    fc.r2[i] = r2_limbs[i];
-    wc.half[i] = half_limbs[i];
-    wc.mask[i] = mask_limbs[i];
-    wc.q[i] = q_limbs[i];
-  }
-  fc.n0inv32 = n0inv32;
-  wc.bits = bits;
   ctpu::InterpArgs a = {};
   a.x_w = x_w;
   a.x_n = x_n;
@@ -760,7 +756,6 @@ extern "C" int ctpu_interp_k1(
   a.r_op = r_op;
   a.r_s0 = r_s0;
   a.rstarts = rstarts;
-  a.cbank = cbank;
   a.cbank_w = cbank_w;
   a.mont_tab = mont_tab;
   a.mat_regs = mat_regs;
@@ -779,14 +774,12 @@ extern "C" int ctpu_interp_k1(
   a.K = K;
   a.KN = KN;
   a.B = B;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K1_LAUNCH(LL, F)                                                  \
+  ctpu::launch<LL, F>(a, p_limbs, r2_limbs, n0inv32, half_limbs,         \
+                      mask_limbs, q_limbs, bits, s)
   if (L == 4)  // goldilocks: one instantiation (its code is small)
-    ctpu::interp_k1_kernel<4, true><<<blocks, threads, 0, s>>>(a, fc, wc);
-  else if (full)
-    ctpu::interp_k1_kernel<16, true><<<blocks, threads, 0, s>>>(a, fc, wc);
-  else
-    ctpu::interp_k1_kernel<16, false><<<blocks, threads, 0, s>>>(a, fc, wc);
-  return (int)cudaGetLastError();
+    return K1_LAUNCH(4, true);
+  return full ? K1_LAUNCH(16, true) : K1_LAUNCH(16, false);
+#undef K1_LAUNCH
 }

@@ -1,6 +1,12 @@
-// The wide lane's arithmetic beyond K1a: the goldilocks folded product
-// (K1c) and the other wide opcodes of K1d, over base-2^16 limbs held in
-// uint32, one field element per thread.
+// The wide ops beyond the Montgomery product over base-2^16 limbs held in
+// uint32, one field element per thread: the goldilocks folded product, the
+// signed comparisons, booleans, masked bit ops, shifts, the widening of a
+// narrow value and the long division.  The segment kernel K4
+// (ops/segment_gen.py) computes with them.  The interpreter kernel K1 uses
+// none of them any more (gl_mul, ult, is_neg, lt_signed, nonzero,
+// cmp_wide, shift_w, widen, idiv): it computes its K1c and K1d opcodes in
+// 32-bit words (wide32.cuh), which the tests hold bit for bit against
+// these.
 //
 // Ports, step for step, the JAX package's ops/limb_emit.py (gl_mul and the
 // emit ops: signed comparisons by the p/2 rule, booleans, masked bit ops

@@ -4,11 +4,13 @@ rules its design rests on, on the CPU.
 - interp.cu compiled by g++ with the CUDA qualifiers defined away and its
   launch replaced by a loop over the lanes, called through the port's own
   argument list (backend/interp.k1_args) on CPU tensors: every emitted row
-  of both banks equals the plain executor's (interp_ref.run_plan) on the
-  plans of Poseidon2 over bn128 (the packed wide file) and goldilocks,
-  SHA256, bigint-div, the stdlib comparators, the unit plans of every
-  K1b, K1c and K1d opcode, a plan whose constants are overwritten and a
-  run that K1 reads in groups of steps.
+  of both banks equals the plain executor's (interp_ref.run_plan), and
+  K1 writes nothing beyond its wide file of L/2 words a register a lane
+  (backend/interp.k1_file_shape), on the plans of Poseidon2 over bn128
+  and goldilocks (one 64-bit word a register), SHA256, bigint-div, the
+  stdlib comparators, the unit plans of every K1b, K1c and K1d opcode, a
+  plan whose constants are overwritten and a run that K1 reads in groups
+  of steps.
 - Dump rows are nobody's output: on each of those plans no witness
   gather (wd_src, nw_src) and no trailing-REDC flag (mont_tab) names a
   chunk's dump row, so K1 need not store it; `emitted_rows` is
@@ -32,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from circom_tpu_torch.backend.interp import k1_args
+from circom_tpu_torch.backend.interp import k1_args, k1_file_shape
 from circom_tpu_torch.backend.interp_plan import (_NARROW_RESULT,
                                                   _OPERAND_FILES)
 from circom_tpu_torch.backend.interp_ref import run_plan
@@ -88,10 +90,10 @@ def k1host(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build interp.cu for the host")
     src = (ROOT / "circom_tpu_torch/ops/cuda/interp.cu").read_text()
-    src, n = re.subn(r"(ctpu::interp_k1_kernel<\d+, \w+>)<<<blocks, "
-                     r"threads, 0, s>>>\(a, fc, wc\);",
-                     r"host_launch(\1, blocks, threads, a, fc, wc);", src)
-    assert n == 3
+    src, n = re.subn(r"(interp_k1_kernel<L, FULL>)<<<blocks, THREADS, 0, "
+                     r"s>>>\(a, kc\);",
+                     r"host_launch(\1, blocks, THREADS, a, kc);", src)
+    assert n == 1
     tmp = tmp_path_factory.mktemp("k1host")
     (tmp / "cuda_runtime.h").write_text(SHIM)
     (tmp / "interp_host.cpp").write_text(src)
@@ -248,7 +250,12 @@ PLANS = ["poseidon2-bn128", "poseidon2-goldilocks", "sha256", "bigdiv",
 def test_host_k1_matches_plain_on_emitted_rows(k1host, name):
     plan, field, x_w, x_n = case(name)
     L, Bx = plan.L, x_w.shape[-1]
-    rf = torch.zeros((plan.n_regs, L, Bx), dtype=torch.int32)
+    # the wide file, L/2 words a register a lane, then a guard that K1
+    # must not touch
+    n_file = plan.n_regs * (L // 2) * Bx
+    assert np.prod(k1_file_shape(plan, Bx)) == n_file
+    rf_guarded = torch.full((n_file + 64,), -1, dtype=torch.int32)
+    rf = rf_guarded[:n_file].view(k1_file_shape(plan, Bx))
     rf_n = torch.zeros((plan.n_nregs, Bx), dtype=torch.int32)
     # banks filled with a marker: rows K1 does not store keep it
     bank = torch.full((plan.n_bank_rows, L, Bx), -1, dtype=torch.int32)
@@ -258,6 +265,7 @@ def test_host_k1_matches_plain_on_emitted_rows(k1host, name):
         plan, field, x_w, x_n, rf.view(torch.uint32),
         bank.view(torch.uint32), rf_n, bank_n, None))
     assert rc == 0
+    assert bool((rf_guarded[n_file:] == -1).all())
     want_w, want_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
     rows = torch.as_tensor(plan.emitted_rows())
     rows_n = torch.as_tensor(plan.emitted_rows(narrow=True))
@@ -269,6 +277,18 @@ def test_host_k1_matches_plain_on_emitted_rows(k1host, name):
                         (plan.KN + 1, bank_n, plan.n_chunks)):
         dump = torch.arange(n) * per + per - 1
         assert bool((got[dump] == -1).all())
+
+
+def test_wide_file_is_words():
+    """K1's wide file holds L/2 32-bit words a register a lane: the
+    comparators' 139 registers at 65,536 lanes take 291 MB, not the 583 MB
+    of 16-bit limbs."""
+    plan = case("cmp")[0]
+    shape = k1_file_shape(plan, 65536)
+    assert shape == (139, 8, 65536)
+    assert 4 * np.prod(shape) == 291_504_128
+    assert k1_file_shape(case("poseidon2-goldilocks")[0], 65536) == \
+        (case("poseidon2-goldilocks")[0].n_regs, 65536, 2)
 
 
 def dump_rows(plan, narrow):
