@@ -24,7 +24,14 @@ mismatch exits non-zero.  The paths:
   segments) and R1CS check;
 - bigint-div + Num2Bits(254) of the quotient and 16 x Num2Bits(254) over
   bn128, batch 8,192, which both fused backends refuse: run on the per-op
-  path (K5, K6 and plain PyTorch) and R1CS check.
+  path (K5, K6 and plain PyTorch) and R1CS check;
+- MultiMiMC7(5) over bn128, batch 65,536, and MerkleInclusion(32) over
+  Poseidon2/bn128, batch 16,384 (K1a and K1b in one K1 launch, K3 for
+  the pathIndex bits): run and R1CS check, sampled lanes against the host
+  and the native calculator;
+- the compile CLI (python -m circom_tpu_torch.cli --witness-gpu) on both
+  circuits, and the native calculator's witnesses/s on this host beside
+  the card's (the CPU baseline).
 
 Unit plans hold every K1b, K1c and K1d opcode at the edge operands
 against its plain version, and K1 is held against the plain executor on
@@ -49,6 +56,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -74,6 +82,7 @@ try:
                                                    bigdiv_num2bits_source,
                                                    comparator_inputs,
                                                    comparators_source,
+                                                   merkle_source, mimc_source,
                                                    num2bits_source,
                                                    poseidon2_source,
                                                    segment_ops_source)
@@ -86,6 +95,8 @@ try:
                                           unit_shifts)
     from circom_tpu_torch.emit.binfmt import write_wtns
     from circom_tpu_torch.field.primes import field_spec
+    from circom_tpu_torch import native
+    from circom_tpu_torch.native import NativeCalculator
     from circom_tpu_torch.ops import build
     from circom_tpu_torch.ops import field_kernels as fk
     from circom_tpu_torch.ops.field import (TorchField, as_i64, as_u32,
@@ -93,6 +104,7 @@ try:
     from circom_tpu_torch.ops.limbs import (int_to_limbs, ints_to_limbs,
                                             limbs_to_int)
     from circom_tpu_torch.ops.narrow import NARROW_OPS
+    from circom_tpu_torch.utils.profiling import profile_breakdown, wall_ms
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e})",
           file=sys.stderr)
@@ -115,6 +127,13 @@ SHA_PLAIN_BATCH = 4096  # K1b and K3 against the plain versions, all rows
 CHECK_LANES = 8192      # R1CSChecker's cap on its batch slice
 SAMPLE_LANES = 64
 SHA_HOST_LANES = 4      # the host calculator takes ~4 s a SHA256 lane
+MM_BATCH = 65536
+MK_BATCH = 16384        # a Merkle(32) lane holds ~1.4 MB: bank and witness
+MK_HOST_LANES = 4       # the host calculator takes ~3 s a Merkle(32) lane
+K1_PLAIN_LANES = 4096   # K1 against the plain executor on MM's and MK's plans
+CLI_WITNESSES = 64
+BASELINE_WITNESSES = 4096
+BASELINE_REPS = 5       # the native calculator's runs; their median is kept
 EDGE_COUNTS = (0, 1, 31, 32, 33, -1)
 SEED = 7
 
@@ -158,15 +177,6 @@ def bare(dev, launch, wrapper):
     return launch if dev.type == "cuda" else wrapper
 
 
-def wall_ms(fn):
-    """ms of one fn() by the host clock, synchronised on both sides."""
-    sync()
-    t = time.perf_counter()
-    out = fn()
-    sync()
-    return out, (time.perf_counter() - t) * 1e3
-
-
 def bounds(nbytes, ops):
     """The least time of a kernel's work, ms: (its bytes over HBM3's rate,
     its 32-bit integer instructions over the card's peak rate)."""
@@ -189,15 +199,19 @@ def max_abs_err(x, y, rows=1024):
     return err
 
 
-def canonical_limbs(rng, spec, shape, device):
-    """Random canonical field elements as uint32 limbs (*shape[:-2], L, B):
-    random 16-bit limbs below a top limb under p's."""
+def canonical_np(rng, spec, shape):
+    """Random canonical field elements as uint32 limbs (*shape[:-2], L, B),
+    a numpy array: random 16-bit limbs below a top limb under p's."""
     L = spec.n_limbs
     top = spec.p >> (16 * (L - 1))
     x = rng.integers(0, 1 << 16, size=shape, dtype=np.uint32)
     x[..., L - 1, :] = rng.integers(0, top, size=x[..., L - 1, :].shape,
                                     dtype=np.uint32)
-    return to_device(x, device)
+    return x
+
+
+def canonical_limbs(rng, spec, shape, device):
+    return to_device(canonical_np(rng, spec, shape), device)
 
 
 def random_int32(rng, shape, device):
@@ -463,13 +477,15 @@ def phase_interp(rep, prog, x_w):
 
 
 def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
-                 never=(), n_lanes=SAMPLE_LANES, profile_check=False):
+                 never=(), n_lanes=SAMPLE_LANES, profile_check=False,
+                 native=None):
     """One witness path: WitnessProgram.run at the inputs' batch, then the
     R1CS check of every lane (launch counts read around exactly this;
     kernels in `never` must not launch), a warm timed repeat, and n_lanes
     sampled lanes against the host calculator (host_map: the lane's input
-    ints -> the input map); with profile_check, where the check's device
-    time goes (K5's share)."""
+    ints -> the input map) and, given the circuit's NativeCalculator
+    `native`, SAMPLE_LANES against it; with profile_check, where the
+    check's device time goes (K5's share)."""
     dev, spec = prog.device, prog.spec
     B = inputs.shape[-1]
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
@@ -494,20 +510,30 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
         f"lanes in {check_ms:.1f} ms")
     if profile_check and dev.type == "cuda":
         profile_check_breakdown(checker, wit, check_ms)
-    lanes = random.Random(SEED).sample(range(B), min(n_lanes, B))
+    native_lanes = SAMPLE_LANES if native else 0
+    lanes = random.Random(SEED).sample(range(B),
+                                       min(max(n_lanes, native_lanes), B))
     sel = torch.as_tensor(lanes, device=wit.device)
     w_np = wit.view(torch.int32).index_select(2, sel).cpu().numpy() \
         .view(np.uint32)
     x_np = inputs.view(torch.int32).index_select(2, sel).cpu().numpy() \
         .view(np.uint32)
-    for j, lane in enumerate(lanes):
-        ins = [limbs_to_int(x_np[i, :, j]) for i in range(prog.n_inputs)]
-        host = list(cc.witness_host(host_map(ins)))
-        got = [limbs_to_int(w_np[i, :, j]) for i in range(w_np.shape[0])]
-        if got != host:
+    ins = [[limbs_to_int(x_np[i, :, j]) for i in range(prog.n_inputs)]
+           for j in range(len(lanes))]
+    got = [[limbs_to_int(w_np[i, :, j]) for i in range(w_np.shape[0])]
+           for j in range(len(lanes))]
+    for j, lane in enumerate(lanes[:n_lanes]):
+        if got[j] != list(cc.witness_host(host_map(ins[j]))):
             raise SystemExit(f"FAIL {name} lane {lane}: witness differs from "
                              "the host calculator")
-    say(f"  {len(lanes)} sampled lanes equal the host calculator")
+    say(f"  {min(n_lanes, B)} sampled lanes equal the host calculator")
+    if native:
+        want = native.run(ins[:native_lanes])
+        for j, lane in enumerate(lanes[:native_lanes]):
+            if got[j] != want[j][:len(got[j])]:
+                raise SystemExit(f"FAIL {name} lane {lane}: witness differs "
+                                 "from the native calculator")
+        say(f"  {len(want)} sampled lanes equal the native calculator")
     return {"run_ms": run_ms, "check_ms": check_ms}
 
 
@@ -952,6 +978,229 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, rehearse):
     return out
 
 
+def input_map(layout):
+    """The input map of a lane's input ints, by the tape's input layout."""
+    def to_map(ins):
+        out = {}
+        for name, dims, off in layout:
+            n = int(np.prod(dims))
+            out[name] = list(ins[off:off + n]) if dims else ins[off]
+        return out
+    return to_map
+
+
+def hinted_inputs(spec, n_inputs, hints, B, seed, dev):
+    """Random canonical inputs (n_inputs, L, B); the rows of range-hinted
+    inputs (Merkle's pathIndex) hold random values inside their hints."""
+    rng = np.random.default_rng(seed)
+    x = canonical_np(rng, spec, (n_inputs, spec.n_limbs, B))
+    for i, (lo, hi) in hints.items():
+        x[i] = 0
+        x[i, 0] = rng.integers(lo, hi + 1, size=B, dtype=np.uint32)
+    return to_device(x, dev)
+
+
+def must_launch(prog):
+    """The kernels a run and R1CS check of an interpreter program launch,
+    read off its plan: K1's parts, K2, K3 when the plan emits narrow
+    witness rows, K5 and K6 sub (the check)."""
+    plan = prog.interp.plan
+    ks = [*plan.parts, "gather_w", "mont_mul", "sub"]
+    if (plan.nw_src < plan.n_bank_n_rows).any():
+        ks.append("gather_n")
+    return tuple(ks)
+
+
+def mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, rehearse):
+    """Phases MM and MK: MultiMiMC7(5)/bn128 at batch b_mm and
+    MerkleInclusion(32)/bn128 at b_mk (random pathIndex bits a lane),
+    each through witness_path (run, R1CS check of every lane, sampled
+    lanes against the host and the native calculator), then K1 against
+    the plain executor on the path's plan at b_k1 lanes, every emitted
+    row (MK's 14,055 steps take the plain executor about a minute on the
+    card; a CPU rehearsal holds MerkleInclusion(4)'s plan, MK's opcodes
+    at an eighth of its depth, instead).  Returns each path's compile,
+    tape, input layout and hints, its NativeCalculator, times and
+    batch."""
+    bn = field_spec("bn128")
+    out = {}
+    for name, phase, label, src, B, n_host in (
+            ("mimc", "MM", "MultiMiMC7(5)/bn128", mimc_source(5), b_mm,
+             SAMPLE_LANES),
+            ("merkle", "MK", "MerkleInclusion(32)/bn128", merkle_source(32),
+             b_mk, MK_HOST_LANES)):
+        t0 = time.perf_counter()
+        cc = compile_source(src)
+        tape, layout = cc.build_tape()
+        hints = cc.input_range_hints()
+        prog = WitnessProgram(tape, bn, device=dev, input_ranges=hints)
+        calc = NativeCalculator(tape, bn, input_ranges=hints)
+        plan = prog.interp.plan
+        x = hinted_inputs(bn, prog.n_inputs, hints, B, SEED + 16 + len(out),
+                          dev)
+        say(f"phase {phase}: the {label} path (batch {B}; compiled and "
+            f"planned in {time.perf_counter() - t0:.1f} s: {len(tape.ops)} "
+            f"tape ops, {plan.n_steps} steps, parts {', '.join(plan.parts)}, "
+            f"{prog.n_witness} witness rows ({len(plan.nw_src)} narrow), "
+            f"{len(cc.r1cs_rows())} constraints)")
+        t = witness_path(paths, name, cc, prog, x, must_launch(prog),
+                         input_map(layout), n_lanes=n_host, native=calc,
+                         profile_check=name == "merkle")
+        if not rehearse:
+            # traced one at a time, the kernels of MM's 3-launch run went
+            # unrecorded: ten runs a profiler step
+            profile_breakdown(lambda: prog.run(x), t["run_ms"], runs=10)
+        out[name] = dict(t, B=B, cc=cc, tape=tape, layout=layout,
+                         hints=hints, calc=calc, label=label)
+        if rehearse and name == "merkle":
+            label = "MerkleInclusion(4)/bn128"
+            cc4 = compile_source(merkle_source(4))
+            prog = WitnessProgram(cc4.build_tape()[0], bn, device=dev,
+                                  input_ranges=cc4.input_range_hints())
+            x = hinted_inputs(bn, prog.n_inputs, cc4.input_range_hints(),
+                              b_k1, SEED + 20, dev)
+        err = phase_k1_path(prog, x[..., :b_k1].contiguous(), label)[0]
+        if err:
+            raise SystemExit(f"FAIL K1 on the {label} plan: max abs err "
+                             f"{err}")
+        del prog, x
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def random_row(rng, p, hints, n_inputs):
+    """One lane's input ints: field elements, and values inside their
+    hints for the range-hinted inputs."""
+    return [rng.randint(*hints[i]) if i in hints else rng.randrange(p)
+            for i in range(n_inputs)]
+
+
+# the CLI's circuits: file name -> (includes, main component)
+CLI_CIRCUITS = {
+    "mimc5": ('include "mimc.circom";', "MultiMiMC7(5)"),
+    "merkle32": ('include "poseidon.circom";\ninclude "merkle.circom";',
+                 "MerkleInclusion(32)"),
+}
+
+
+def phase_cli(runs, device, n):
+    """Phase CL: `python -m circom_tpu_torch.cli` in a subprocess on the
+    circuits of MM and MK (files that include the port's circuits,
+    -l circom_tpu_torch/circuits) with --r1cs --sym --witness-gpu at n
+    witnesses: the .r1cs must equal the port's own compile's, every .wtns
+    write_wtns of the native calculator's witness, and the first .wtns
+    files (all of MiMC's, MK_HOST_LANES of Merkle's) that of the host
+    calculator; a Merkle batch with a pathIndex of 2 must exit 1 with
+    error[T3015]."""
+    lib = os.path.join(ROOT, "circom_tpu_torch", "circuits")
+    rng = random.Random(SEED + 18)
+    for (name, (includes, main)), run in zip(CLI_CIRCUITS.items(),
+                                             runs.values()):
+        cc, tape, hints = run["cc"], run["tape"], run["hints"]
+        to_map = input_map(run["layout"])
+        rows = [random_row(rng, cc.p, hints, tape.n_inputs)
+                for _ in range(n)]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            circ = os.path.join(tmp, f"{name}.circom")
+            with open(circ, "w") as fh:
+                fh.write(f"pragma circom 2.0.0;\n{includes}\n"
+                         f"component main = {main};\n")
+
+            def cli(batch, out):
+                inp = os.path.join(tmp, f"{out}.json")
+                with open(inp, "w") as fh:
+                    json.dump([to_map(r) for r in batch], fh)
+                return wall_ms(lambda: subprocess.run(
+                    [sys.executable, "-m", "circom_tpu_torch.cli", circ,
+                     "-l", lib, "--r1cs", "--sym", "-o",
+                     os.path.join(tmp, out), "--witness-gpu", inp,
+                     "--device", device],
+                    cwd=ROOT, capture_output=True, text=True, timeout=900))
+
+            r, ms = cli(rows, "out")
+            if r.returncode != 0:
+                raise SystemExit(f"FAIL CLI on {name} (exit {r.returncode}):"
+                                 f"\n{r.stdout}\n{r.stderr}")
+            ref = os.path.join(tmp, "ref.r1cs")
+            cc.write_r1cs(ref)
+            with open(ref, "rb") as a, \
+                    open(os.path.join(tmp, "out", f"{name}.r1cs"), "rb") as b:
+                if a.read() != b.read():
+                    raise SystemExit(f"FAIL CLI on {name}: .r1cs differs from "
+                                     "the port's own compile")
+            if not os.path.exists(os.path.join(tmp, "out", f"{name}.sym")):
+                raise SystemExit(f"FAIL CLI on {name}: no .sym written")
+            n_host = min(MK_HOST_LANES, n) if hints else n
+            nat = run["calc"].run(rows)
+            for bi, row in enumerate(rows):
+                w = nat[bi][:len(nat[bi]) - tape.n_guards]
+                if bi < n_host and w != list(cc.witness_host(to_map(row))):
+                    raise SystemExit(f"FAIL CLI on {name}: the native and "
+                                     f"the host witness {bi} differ")
+                write_wtns(ref, cc.p, w)
+                with open(ref, "rb") as a, open(os.path.join(
+                        tmp, "out", f"{name}.{bi}.wtns"), "rb") as b:
+                    if a.read() != b.read():
+                        raise SystemExit(f"FAIL CLI on {name}: witness {bi} "
+                                         ".wtns differs from the native "
+                                         "calculator's")
+            say(f"  CLI on {name}: exit 0 in {ms / 1e3:.1f} s; .r1cs equals "
+                f"the port's compile, {n} .wtns equal the native "
+                f"calculator's, {n_host} the host calculator's")
+            if not hints:
+                continue
+            bad = [list(rows[0]), list(rows[1])]
+            bad[1][min(hints)] = 2
+            r, _ = cli(bad, "bad")
+            if r.returncode != 1 or "error[T3015]" not in r.stderr \
+                    or os.path.exists(os.path.join(tmp, "bad",
+                                                   f"{name}.0.wtns")):
+                raise SystemExit(f"FAIL CLI on {name}: a pathIndex of 2 gave "
+                                 f"exit {r.returncode}, not T3015:\n"
+                                 f"{r.stderr}")
+            say(f"  CLI on {name}: a pathIndex of 2 exits 1 with "
+                "error[T3015], no .wtns written")
+
+
+def cpu_baseline(runs, n, reps=BASELINE_REPS):
+    """The CPU baseline: the native calculator (tapeval.cpp, OpenMP over
+    the batch) on n random witnesses of each of MM's and MK's circuits on
+    this host, its witnesses/s (the median of `reps` run_raw calls after
+    a warm-up of 64, their spread printed) beside the card's for the same
+    circuit (the run, and the run with its R1CS check)."""
+    bn = field_spec("bn128")
+    threads = len(os.sched_getaffinity(0))
+    omp = os.environ.get("OMP_NUM_THREADS")
+    host = f"{native.cpu_model()}, {threads} threads" + (
+        f" (OMP_NUM_THREADS={omp})" if omp else "")
+    out = {}
+    for name, t in runs.items():
+        calc = t["calc"]
+        rng = random.Random(SEED + 19)
+        x = calc.encode_rows([random_row(rng, bn.p, t["hints"], calc.n_inputs)
+                              for _ in range(n)])
+        calc.run_raw(x[:64])
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            calc.run_raw(x)
+            secs.append(time.perf_counter() - t0)
+        secs.sort()
+        s = secs[len(secs) // 2]
+        rate = n / s
+        gpu = t["B"] / t["run_ms"] * 1e3
+        checked = t["B"] / (t["run_ms"] + t["check_ms"]) * 1e3
+        out[name] = rate
+        say(f"CPU baseline, {t['label']}: NativeCalculator {rate:.0f} "
+            f"witnesses/s (median of {reps} runs of {n} witnesses, "
+            f"{s:.3f} s; runs {n / secs[-1]:.0f}-{n / secs[0]:.0f} "
+            f"witnesses/s; {host}); the card {gpu:.0f} witnesses/s run "
+            f"({gpu / rate:.1f}x), {checked:.0f} with the R1CS check "
+            f"({checked / rate:.2f}x), batch {t['B']}")
+    return out
+
+
 def sha256_messages(B, seed):
     rng = np.random.default_rng(seed)
     return [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
@@ -965,58 +1214,6 @@ def profile_check_breakdown(checker, wit, check_ms):
     profile_breakdown(lambda: checker.check_detailed(wit), check_ms, reps=1,
                       aten=False, show=("mont_mul_kernel",
                                         "elementwise_kernel<16, 2>"))
-
-
-def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
-                      runs=1):
-    """Where a warm run's time goes: device time by kernel from
-    torch.profiler, and the device's idle share of the run's wall time,
-    averaged over `reps` profiler steps of `runs` runs each.  A traced
-    step before them warms the tracer up: without it the kernels of a
-    short first run can go unrecorded (a run of thousands of launches
-    needs none).  A run of a few launches needs runs > 1: traced one at a
-    time, the kernels of Poseidon2/goldilocks' 3-launch run went
-    unrecorded altogether.  aten=False
-    leaves PyTorch's operator events out of the host times (a per-op run
-    records some 180,000, slow to summarise); the CUDA runtime's calls
-    stay.  Kernels whose names hold a string of `show` are printed beside
-    the eight longest."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    ms, traced = 0.0, []
-    with profile(activities=[ProfilerActivity.CUDA]
-                 + ([ProfilerActivity.CPU] if aten else []),
-                 schedule=schedule(wait=0, warmup=warmup, active=reps),
-                 on_trace_ready=lambda p: traced.append(p.key_averages())
-                 ) as prof:
-        for k in range(warmup + reps):
-            _, t = wall_ms(lambda: [fn() for _ in range(runs)])
-            ms += t if k >= warmup else 0.0
-            prof.step()
-    ms /= reps * runs
-    reps *= runs
-    # kernels and copies only: an aten op carries its kernels' device time
-    # as well, and the schedule's ProfilerStep annotation spans the run
-    events = [e for e in traced[0] if e.device_type == DeviceType.CUDA
-              and not e.key.startswith("ProfilerStep")]
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
-    n_kernels = sum(e.count for e in events) / reps
-    events.sort(key=lambda e: -e.self_device_time_total)
-    say(f"  profile of {reps} warm runs (a run {ms:.3f} ms under the "
-        f"profiler, {wall:.2f} ms without): device busy {busy:.3f} ms a "
-        f"run, idle share {max(0.0, 1 - busy / ms):.3f}, {n_kernels:g} "
-        "kernels and copies a run")
-    for e in events[:8] + [e for e in events[8:]
-                           if any(k in e.key for k in show)]:
-        say(f"    {e.self_device_time_total / 1e3 / reps:8.3f} ms "
-            f"x{e.count / reps:<5g} {e.key[:90]}")
-    host = sorted((e for e in traced[0] if e.device_type == DeviceType.CPU
-                   and not e.key.startswith("ProfilerStep")),
-                  key=lambda e: -e.self_cpu_time_total)
-    say("  host time a run by op: " + ", ".join(
-        f"{e.key} {e.self_cpu_time_total / 1e3 / reps:.3f} ms "
-        f"x{e.count / reps:g}" for e in host[:6]))
 
 
 def sha256_path(paths, cc, prog, dev, B):
@@ -1158,6 +1355,7 @@ def main():
     if args.rehearse:
         dev, B, lanes = torch.device("cpu"), 8, 8
         b_full, b_cmp, b_div = 4, 4, 8
+        b_mm, b_mk, b_k1, b_cli, b_base = 8, 4, 4, 3, 64
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1165,10 +1363,13 @@ def main():
         dev, B, lanes = torch.device("cuda", 0), BATCH, CHECK_LANES
         b_full, b_cmp = SHA_FULL_BATCH, SHA_PLAIN_BATCH
         b_div = BIGDIV_BATCH
+        b_mm, b_mk, b_k1 = MM_BATCH, MK_BATCH, K1_PLAIN_LANES
+        b_cli, b_base = CLI_WITNESSES, BASELINE_WITNESSES
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True)
-        say(smi.stdout.strip().splitlines()[0])
+        card = smi.stdout.strip().splitlines()[0]
+        say(card)
         say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
         global LANE_OPS_PER_S
         LANE_OPS_PER_S, sms, mhz = lane_ops_per_s(dev)
@@ -1177,10 +1378,15 @@ def main():
             f"x {sms} SMs x {mhz:.0f} MHz)")
     progs = k4_programs(dev)
     if not args.rehearse:
-        secs = build.build_all(generated=[
-            (prog.fused.source(), len(prog.fused.segments))
-            for _cc, prog in progs.values()])
-        say(f"kernels built in {secs:.1f} s, in parallel")
+        # the native calculator's g++ build beside the nvcc builds
+        with ThreadPoolExecutor(1) as pool:
+            gxx = pool.submit(native.build)
+            secs = build.build_all(generated=[
+                (prog.fused.source(), len(prog.fused.segments))
+                for _cc, prog in progs.values()])
+            gxx_s = gxx.result()
+        say(f"kernels built in {secs:.1f} s, in parallel; g++ of the native "
+            f"calculator {gxx_s:.1f} s beside them")
         names = {f"{build.generated_name(prog.fused.source())}-s{s}":
                  f"{name} segment {s}" for name, (_cc, prog) in progs.items()
                  for s in range(len(prog.fused.segments))}
@@ -1255,6 +1461,16 @@ def main():
     seg = segment_perop_paths(paths, rep, progs, dev, B, b_div,
                               args.rehearse)
     t_seg = time.perf_counter() - t_seg
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_mm = time.perf_counter()
+    mm = mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, args.rehearse)
+    say(f"phase CL: the compile CLI (--witness-gpu, {b_cli} witnesses a "
+        "circuit)")
+    phase_cli(mm, dev.type, b_cli)
+    say(f"the CPU baseline ({b_base} witnesses a circuit)")
+    cpu_baseline(mm, b_base)
+    t_mm = time.perf_counter() - t_mm
 
     for name, row in rep.rows.items():
         by_path = paths.of(name)
@@ -1287,13 +1503,19 @@ def main():
             f"{t['check_ms']:.1f} ms R1CS check (batch {b})"
             + (f"; K4 {seg['k4'][name]:.4f} ms" if name in seg["k4"]
                else ""))
+    for t in mm.values():
+        say(f"{t['label']} path: {t['run_ms']:.1f} ms witness run "
+            f"({t['B'] / t['run_ms'] * 1e3:.0f} witnesses/s), "
+            f"{t['check_ms']:.1f} ms R1CS check (batch {t['B']})")
     say(f"smoke total {time.perf_counter() - t_all:.1f} s, phases F-K "
-        f"{t_new:.1f} s, phases S-W {t_seg:.1f} s")
+        f"{t_new:.1f} s, phases S-W {t_seg:.1f} s, phases MM-CL and the "
+        f"baseline {t_mm:.1f} s")
     if args.rehearse:
         print(json.dumps({"kernels": list(rep.rows.values())}),
               file=sys.stderr)
         print("rehearsal on the CPU: no result", file=sys.stderr)
         return 3
+    say(card)     # again, so that the end of the output names the card
     print(json.dumps({"kernels": list(rep.rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

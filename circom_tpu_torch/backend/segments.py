@@ -217,7 +217,7 @@ class SegmentedProgram:
 
     def library(self):
         """The built K4 entry points (nvcc at first use, cached by the
-        source's hash in circom_tpu_torch/_build/)."""
+        source's hash in the build directory of utils/cache.py)."""
         if self._lib is None:
             self._lib = build_generated(self.source(), len(self.segments))
         return self._lib

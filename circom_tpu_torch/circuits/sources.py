@@ -15,6 +15,13 @@
   files exceed the JAX kernel's VMEM budget): one copy runs on the
   segments, four on two segments, sixteen on the per-op path.
 - lessthan_source(n): LessThan(n) of a and b.
+- mimc_source(n): circuits/mimc.circom with main MiMC7() (n = None) or
+  MultiMiMC7(n), the multi-message hash that circomlib's
+  EdDSAMiMCVerifier applies to its five inputs (BASELINE.json config 4).
+- merkle_source(depth): circuits/poseidon.circom and merkle.circom with
+  main MerkleInclusion(depth), a Poseidon2 hash a level and a Switcher on
+  each path bit (config 5 at depth 32); its pathIndex inputs are bits, so
+  input_range_hints puts them on the narrow lane.
 - bigdiv_num2bits_source(): a \\ b and a % b, then Num2Bits(254) of the
   quotient, the range check a circomlib bigint circuit puts on its hint
   (idiv: the per-op path).
@@ -84,6 +91,21 @@ def comparators_source(stdlib=None):
         stdlib = (Path(__file__).resolve().parent
                   / "stdlib.circom").read_text()
     return stdlib + COMPARATORS_MAIN
+
+
+def _circuit(name):
+    return (Path(__file__).resolve().parent / name).read_text()
+
+
+def mimc_source(n=None):
+    main = "MiMC7()" if n is None else f"MultiMiMC7({n})"
+    return _circuit("mimc.circom") + f"\ncomponent main = {main};\n"
+
+
+def merkle_source(depth):
+    return (_circuit("poseidon.circom")
+            + _circuit("merkle.circom").replace("pragma circom 2.0.0;", "")
+            + f"\ncomponent main = MerkleInclusion({depth});\n")
 
 
 def poseidon2_source(prime="bn128"):

@@ -87,9 +87,9 @@ OTHER_SIGNATURES = dict(build.SIGNATURES, interp={"ctpu_interp_k1": (
 
 def build_libraries(other, names=NAMES):
     """{(tag, name): ctypes library}: "this" and "other" for each of
-    `names`, one nvcc each, all at once, into circom_tpu_torch/_build/ab/.
-    Prints each build's ptxas usage and wall time."""
-    out_dir = build.BUILD_DIR / "ab"
+    `names`, one nvcc each, all at once, into ab/ of the build directory
+    (utils/cache.py).  Prints each build's ptxas usage and wall time."""
+    out_dir = build.build_dir() / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build.nvcc_path()
     todo = [(tag, root, name)

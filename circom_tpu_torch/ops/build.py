@@ -3,8 +3,9 @@
 Each source under ops/cuda/ compiles on first use into its own shared
 library with a plain C interface (`nvcc -shared`), loaded with ctypes; the
 wrappers launch on PyTorch's current stream with the tensors' data
-pointers.  Libraries are cached in circom_tpu_torch/_build/ under a hash of
-the sources and flags, so a later process reuses them.  All sources build
+pointers.  Libraries are cached under a hash of the sources and flags in
+the build directory of utils/cache.py (circom_tpu_torch/_build/ unless it
+cannot be written), so a later process reuses them.  All sources build
 in parallel, one nvcc each.  A failed build raises with nvcc's output.
 
 `build_generated` does the same for a source written at run time (kernel
@@ -30,8 +31,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
+from ..utils.cache import build_dir
+
 SRC_DIR = Path(__file__).resolve().parent / "cuda"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_ops", "interp", "gather")
 HEADERS = ("dot32.cuh", "field.cuh", "field32.cuh", "narrow.cuh",
            "wide.cuh", "wide32.cuh")
@@ -109,7 +111,7 @@ def source_flags(name):
 def _target(name):
     digest = _digest((SRC_DIR / f"{name}.cu").read_bytes()
                      + " ".join(source_flags(name)).encode())
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return build_dir() / f"{name}-{digest}.so"
 
 
 def generated_name(source):
@@ -148,7 +150,7 @@ def _compile(jobs):
 
 def segment_library(name, s):
     """The library of segment s of the generated source `name`."""
-    return BUILD_DIR / f"{name}-s{s}.so"
+    return build_dir() / f"{name}-s{s}.so"
 
 
 def _build(names, generated):
@@ -156,12 +158,11 @@ def _build(names, generated):
     the generated sources, (text, number of segments) pairs, a library a
     segment (-DK4_SEG=s), all in parallel; returns the seconds spent."""
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = [(n, SRC_DIR / f"{n}.cu", _target(n), source_flags(n))
             for n in names if not _target(n).exists()]
     for text, n_segments in generated:
         name = generated_name(text)
-        src = BUILD_DIR / f"{name}.cu"
+        src = build_dir() / f"{name}.cu"
         todo = [s for s in range(n_segments)
                 if not segment_library(name, s).exists()
                 and f"{name}-s{s}" not in [j[0] for j in jobs]]

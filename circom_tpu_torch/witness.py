@@ -73,6 +73,24 @@ def main(argv=None):
         print(f"error: {e}", file=sys.stderr)
         return 1
 
+    decoded = batch_witnesses(prog, cols, meta["rows"],
+                              meta["counts"]["n_wires"], args.sanity_check)
+    if decoded is None:
+        return 1
+    name = os.path.splitext(
+        os.path.basename(args.artifact))[0].removesuffix(".tpu")
+    write_batch(args.output, name, spec.p, decoded, len(batch_inputs))
+    print(f"{len(batch_inputs)} witnesses written to {args.output}")
+    return 0
+
+
+def batch_witnesses(prog, cols, rows, n_wires, sanity_check):
+    """The witnesses of one batch of input columns, decoded [output][batch]
+    into ints, or None after the errors were printed: T3013 when a guard of
+    an unrolled while loop is nonzero in some witness, and, at
+    sanity_check >= 1, T3012 for each witness (up to 10) that violates a
+    constraint of the R1CS (rows, n_wires), checked on the program's
+    device."""
     out = prog.run(prog.encode_inputs(cols))
     n_wit = prog.n_witness - prog.n_guards
     if prog.n_guards:
@@ -80,11 +98,10 @@ def main(argv=None):
             print("error[T3013]: data-dependent while loop exceeded "
                   "the unroll bound for some witness (recompile with "
                   "a larger --while_max_unroll)", file=sys.stderr)
-            return 1
+            return None
         out = out[:n_wit]
-    if args.sanity_check >= 1:
-        checker = R1CSChecker(meta["rows"], meta["counts"]["n_wires"], spec,
-                              device=prog.device)
+    if sanity_check >= 1:
+        checker = R1CSChecker(rows, n_wires, prog.spec, device=prog.device)
         ok, first_bad = checker.check_detailed(out)
         ok = ok.cpu().numpy()
         if not ok.all():
@@ -93,17 +110,17 @@ def main(argv=None):
                 print(f"error[T3012]: witness {bi} violates constraint "
                       f"{int(first_bad[bi])} (sanity check failed)",
                       file=sys.stderr)
-            return 1
-    os.makedirs(args.output, exist_ok=True)
-    name = os.path.splitext(
-        os.path.basename(args.artifact))[0].removesuffix(".tpu")
-    decoded = prog.decode_outputs(out)
-    for bi in range(len(batch_inputs)):
-        path = os.path.join(args.output, f"{name}.{bi}.wtns")
-        write_wtns(path, spec.p,
+            return None
+    return prog.decode_outputs(out)
+
+
+def write_batch(outdir, name, p, decoded, n):
+    """<outdir>/<name>.<i>.wtns for each of the n witnesses of `decoded`
+    ([output][batch] ints)."""
+    os.makedirs(outdir, exist_ok=True)
+    for bi in range(n):
+        write_wtns(os.path.join(outdir, f"{name}.{bi}.wtns"), p,
                    [decoded[i][bi] for i in range(len(decoded))])
-    print(f"{len(batch_inputs)} witnesses written to {args.output}")
-    return 0
 
 
 def _check_hinted_columns(cols, hints, p, layout):
@@ -133,7 +150,9 @@ def _check_hinted_columns(cols, hints, p, layout):
                     "constraints", "T3015")
 
 
-def _batch_columns(p, batch_inputs, layout, n_inputs):
+def _batch_columns(p, batch_inputs, layout, n_inputs, main_meta=None):
+    """Input columns [input][batch] of ints; T3011 for a missing input,
+    its span the main component's call when `main_meta` gives it."""
     cols = [[] for _ in range(n_inputs)]
     for raw in batch_inputs:
         inputs = load_inputs(raw, p)
@@ -141,7 +160,11 @@ def _batch_columns(p, batch_inputs, layout, n_inputs):
         for (name, dims, off) in layout:
             v = inputs.get(name)
             if v is None:
-                raise Report.error(f"missing input '{name}'", "T3011")
+                r = Report.error(f"missing input '{name}'", "T3011")
+                if main_meta is not None:
+                    r.add_primary(main_meta.file_id, main_meta.start,
+                                  main_meta.end)
+                raise r
             if isinstance(v, list):
                 def walk(x):
                     for item in x:

@@ -47,6 +47,9 @@ COPIES = [
     "backend/artifacts.py",
     "circuits/__init__.py", "circuits/gen_poseidon.py",
     "circuits/sha256.circom", "circuits/stdlib.circom",
+    "circuits/mimc.circom", "circuits/merkle.circom",
+    "circuits/poseidon.circom", "circuits/gen_mimc.py",
+    "native/tapeval.cpp",
 ]
 
 # the keys of InterpreterPlan.plan_arrays(), read off the JAX

@@ -40,6 +40,10 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "import circom_tpu_torch\n"
             "import circom_tpu_torch.witness\n"
+            "import circom_tpu_torch.cli\n"
+            "import circom_tpu_torch.native\n"
+            "import circom_tpu_torch.utils.cache\n"
+            "import circom_tpu_torch.utils.profiling\n"
             "import circom_tpu_torch.backend.torch_backend\n"
             "import circom_tpu_torch.backend.checker\n"
             "import circom_tpu_torch.ops.build\n"
