@@ -31,7 +31,16 @@ mismatch exits non-zero.  The paths:
   and the native calculator;
 - the compile CLI (python -m circom_tpu_torch.cli --witness-gpu) on both
   circuits, and the native calculator's witnesses/s on this host beside
-  the card's (the CPU baseline).
+  the card's (the CPU baseline);
+- MerkleInclusion(32) over Poseidon2/bn128 at 65,536 witnesses split
+  over four shards of 16,384 (parallel/mesh.py: cuda:0..3 where there
+  are four cards, else four shards on cuda:0): every shard's witness,
+  the R1CS check of every lane, sampled lanes of every shard against the
+  native and the host calculator (phase MS);
+- two coordinated processes (python -m circom_tpu_torch.parallel.multihost
+  --spawn 2 --device cuda), exact parity and an all-reduced verdict
+  (phase MH), and the entry points entry() and dryrun_multichip()
+  (circom_tpu_torch/entry.py, phase GE).
 
 Unit plans hold every K1b, K1c and K1d opcode at the edge operands
 against its plain version, and K1 is held against the plain executor on
@@ -94,6 +103,7 @@ try:
                                           unit_arrays, unit_inputs,
                                           unit_shifts)
     from circom_tpu_torch.emit.binfmt import write_wtns
+    from circom_tpu_torch.entry import dryrun_multichip, entry
     from circom_tpu_torch.field.primes import field_spec
     from circom_tpu_torch import native
     from circom_tpu_torch.native import NativeCalculator
@@ -104,7 +114,10 @@ try:
     from circom_tpu_torch.ops.limbs import (int_to_limbs, ints_to_limbs,
                                             limbs_to_int)
     from circom_tpu_torch.ops.narrow import NARROW_OPS
-    from circom_tpu_torch.utils.profiling import profile_breakdown, wall_ms
+    from circom_tpu_torch.parallel.mesh import (make_mesh, shard_checker,
+                                                shard_program)
+    from circom_tpu_torch.utils.profiling import (profile_breakdown,
+                                                  sync_all, wall_ms)
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e})",
           file=sys.stderr)
@@ -134,6 +147,9 @@ K1_PLAIN_LANES = 4096   # K1 against the plain executor on MM's and MK's plans
 CLI_WITNESSES = 64
 BASELINE_WITNESSES = 4096
 BASELINE_REPS = 5       # the native calculator's runs; their median is kept
+MS_SHARDS = 4           # phase MS: MerkleInclusion(32) at 4 x 16,384 lanes
+MS_LANES = 16384
+MH_TIMEOUT = 240        # seconds for phase MH's two processes
 EDGE_COUNTS = (0, 1, 31, 32, 33, -1)
 SEED = 7
 
@@ -146,11 +162,6 @@ def say(*a):
     if a and str(a[0]).startswith("phase"):
         a = a + (f"[{time.perf_counter() - T0:.1f} s]",)
     print(*a, flush=True)
-
-
-def sync():
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
 
 
 def time_ms(fn, reps=5):
@@ -251,10 +262,10 @@ class Paths:
         self.counts = {}
 
     def run(self, name, fn, must_launch, never=()):
-        sync()
+        sync_all()
         build.reset_launches()
         out = fn()
-        sync()
+        sync_all()
         self.counts[name] = dict(build.LAUNCHES)
         say(f"  launches on the {name} path: {self.counts[name]}")
         for k in must_launch:
@@ -325,7 +336,7 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
                "sub": fk.sub(f, x, y)}
         want = {"mont_mul": f.mont_mul(a, c), "add": f.add(x, y),
                 "sub": f.sub(x, y)}
-        sync()
+        sync_all()
         err = {name: max_abs_err(got[name], want[name]) for name in got}
         ea, eb, ecols = edge_operands(spec, dev)
         err["mont_mul"] = max([err["mont_mul"], max_abs_err(
@@ -1020,8 +1031,8 @@ def mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, rehearse):
     row (MK's 14,055 steps take the plain executor about a minute on the
     card; a CPU rehearsal holds MerkleInclusion(4)'s plan, MK's opcodes
     at an eighth of its depth, instead).  Returns each path's compile,
-    tape, input layout and hints, its NativeCalculator, times and
-    batch."""
+    tape, input layout and hints, its WitnessProgram and
+    NativeCalculator, times and batch."""
     bn = field_spec("bn128")
     out = {}
     for name, phase, label, src, B, n_host in (
@@ -1051,7 +1062,7 @@ def mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, rehearse):
             # unrecorded: ten runs a profiler step
             profile_breakdown(lambda: prog.run(x), t["run_ms"], runs=10)
         out[name] = dict(t, B=B, cc=cc, tape=tape, layout=layout,
-                         hints=hints, calc=calc, label=label)
+                         hints=hints, calc=calc, label=label, prog=prog)
         if rehearse and name == "merkle":
             label = "MerkleInclusion(4)/bn128"
             cc4 = compile_source(merkle_source(4))
@@ -1199,6 +1210,176 @@ def cpu_baseline(runs, n, reps=BASELINE_REPS):
             f"({gpu / rate:.1f}x), {checked:.0f} with the R1CS check "
             f"({checked / rate:.2f}x), batch {t['B']}")
     return out
+
+
+def phase_mesh(paths, mk, lanes, rehearse):
+    """Phase MS: MerkleInclusion(32)/bn128 at MS_SHARDS x `lanes`
+    witnesses split over a mesh of MS_SHARDS shards (cuda:0..3 where the
+    machine has four cards, else four shards one after another on cuda:0;
+    [cpu] * 4 in a rehearsal), with MK's compile, program (copied to each
+    card, not planned again) and NativeCalculator: shard_program, then
+    shard_checker over every lane, each of which must pass (launch counts
+    read around exactly this); in every shard SAMPLE_LANES sampled lanes
+    against the native calculator and one against the host calculator;
+    a warm step's witnesses/s and a warm check's time (and the host's
+    time issuing it), each card's peak memory, and on several cards one
+    shard's check alone on the first and the last card and a profile of
+    the step (the shards overlap where the cards' busy time exceeds the
+    wall time)."""
+    prog, cc, calc = mk["prog"], mk["cc"], mk["calc"]
+    if rehearse:
+        devices = [torch.device("cpu")] * MS_SHARDS
+    elif torch.cuda.device_count() >= MS_SHARDS:
+        devices = [f"cuda:{k}" for k in range(MS_SHARDS)]
+    else:
+        devices = ["cuda:0"] * MS_SHARDS
+    mesh = make_mesh(devices=devices)
+    cards = sorted(set(mesh.devices), key=str)
+    B = MS_SHARDS * lanes
+    say(f"phase MS: the mesh, MerkleInclusion(32)/bn128 at batch {B} in "
+        f"{MS_SHARDS} shards of {lanes} on "
+        f"{', '.join(map(str, mesh.devices))} ({len(cards)} distinct "
+        "device(s))")
+    step = shard_program(prog, mesh)
+    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"],
+                          prog.spec, device=mesh.devices[0],
+                          lanes=CHECK_LANES)
+    check = shard_checker(checker, mesh)
+    x = hinted_inputs(prog.spec, prog.n_inputs, mk["hints"], B, SEED + 30,
+                      mesh.devices[0])
+    if not rehearse:
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+
+    def run_and_check():
+        shards, run_ms = wall_ms(lambda: step(x))
+        ok, check_ms = wall_ms(lambda: check(shards))
+        n_bad = int((~ok).sum())
+        if n_bad:
+            raise SystemExit(f"FAIL MS R1CS check: {n_bad} of {B} lanes "
+                             "violate a constraint")
+        return shards, run_ms, check_ms
+
+    shards, run_ms, check_ms = paths.run("mesh", run_and_check,
+                                         must_launch(prog))
+    peaks = {} if rehearse else {
+        str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30 for d in cards}
+    say(f"  step {run_ms:.1f} ms ({B / run_ms * 1e3:.0f} witnesses/s, "
+        f"first run); R1CS check of all {B} lanes {check_ms:.1f} ms, every "
+        "lane passes; peak device memory "
+        + (", ".join(f"{d} {g:.1f} GiB" for d, g in peaks.items())
+           or "not measured (CPU)"))
+    to_map = input_map(mk["layout"])
+    rng = random.Random(SEED + 31)
+    for k, shard in enumerate(shards):
+        lanes_k = rng.sample(range(lanes), min(SAMPLE_LANES, lanes))
+        w = shard.view(torch.int32).index_select(2, torch.as_tensor(
+            lanes_k, device=shard.device)).cpu().numpy().view(np.uint32)
+        xs = x.view(torch.int32).index_select(2, torch.as_tensor(
+            [k * lanes + j for j in lanes_k], device=x.device)).cpu() \
+            .numpy().view(np.uint32)
+        ins = [[limbs_to_int(xs[i, :, j]) for i in range(prog.n_inputs)]
+               for j in range(len(lanes_k))]
+        got = [[limbs_to_int(w[i, :, j]) for i in range(w.shape[0])]
+               for j in range(len(lanes_k))]
+        want = calc.run(ins)
+        for j, lane in enumerate(lanes_k):
+            if got[j] != want[j][:len(got[j])]:
+                raise SystemExit(f"FAIL MS shard {k} lane {lane}: witness "
+                                 "differs from the native calculator")
+        if got[0] != list(cc.witness_host(to_map(ins[0]))):
+            raise SystemExit(f"FAIL MS shard {k} lane {lanes_k[0]}: witness "
+                             "differs from the host calculator")
+    say(f"  in each of the {MS_SHARDS} shards {len(lanes_k)} sampled lanes "
+        "equal the native calculator, one the host calculator")
+    del shards
+    warm_ms = warm_check_ms = None
+    if not rehearse:
+        shards, warm_ms = wall_ms(lambda: step(x))
+        # the host's issue time beside the check's: equal where the host,
+        # not the cards, bounds the check
+        sync_all()
+        t = time.perf_counter()
+        ok = check(shards)
+        issue_ms = (time.perf_counter() - t) * 1e3
+        sync_all()
+        warm_check_ms = (time.perf_counter() - t) * 1e3
+        if not bool(ok.all()):
+            raise SystemExit("FAIL MS: the warm R1CS check failed a lane")
+        say(f"  warm step {warm_ms:.1f} ms ({B / warm_ms * 1e3:.0f} "
+            f"witnesses/s), warm R1CS check {warm_check_ms:.1f} ms, "
+            f"{issue_ms:.1f} ms of it issuing from the host")
+        if len(cards) > 1:
+            for k in (0, MS_SHARDS - 1):
+                one = shard_checker(checker, make_mesh(
+                    devices=[mesh.devices[k]]))
+                _, ms = wall_ms(lambda: one(shards[k:k + 1]))
+                say(f"  one shard's check alone on {mesh.devices[k]}: "
+                    f"{ms:.1f} ms")
+        del shards
+        if len(cards) > 1:
+            busy, ms = profile_breakdown(lambda: step(x), warm_ms, reps=1,
+                                         aten=False)
+            say(f"  {len(cards)} cards busy {busy:.1f} ms in a {ms:.1f} ms "
+                f"step: the shards overlap {busy / ms:.2f}-fold")
+    return {"B": B, "run_ms": run_ms, "warm_ms": warm_ms,
+            "check_ms": check_ms, "warm_check_ms": warm_check_ms,
+            "peaks": peaks,
+            "devices": [str(d) for d in mesh.devices]}
+
+
+def phase_multihost(device):
+    """Phase MH: python -m circom_tpu_torch.parallel.multihost --spawn 2
+    in a subprocess: two coordinated processes, each splitting its slice
+    over 4 shards, every lane against the host calculator, the verdict
+    all-reduced; its artifact must say ok, checker_all_ok and exact
+    parity."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out = os.path.join(tmp, "mp.json")
+        r, ms = wall_ms(lambda: subprocess.run(
+            [sys.executable, "-m", "circom_tpu_torch.parallel.multihost",
+             "--spawn", "2", "--device", device, "--out", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=MH_TIMEOUT))
+        if r.returncode != 0:
+            raise SystemExit(f"FAIL MH (exit {r.returncode}):\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        with open(out) as fh:
+            art = json.load(fh)
+    if not (art["ok"] and art["checker_all_ok"] and art["parity"] == "exact"
+            and art["n_processes"] == 2
+            and art["elements_checked_per_process"] * 2 == art["batch"]):
+        raise SystemExit(f"FAIL MH: {art}")
+    say(f"  2 processes, {art['global_devices']} shards, batch "
+        f"{art['batch']}, platform {art['platform']}: every lane equals the "
+        f"host calculator, the all-ok verdict reduced; step "
+        f"{art['step_seconds_first_call']} s (first call), command "
+        f"{ms / 1e3:.1f} s; {art['mechanism']}")
+    return ms
+
+
+def phase_graft_entry(paths, device):
+    """Phase GE: entry()'s function on its arguments (Poseidon2/bn128,
+    batch 64; every lane against the host calculator), then
+    dryrun_multichip(max(2, cards)); launch counts read around each."""
+    fn, (x,) = entry(device)
+    out = paths.run("entry", lambda: fn(x), ("interp_k1a", "gather_w"))
+    cc = compile_source(poseidon2_source())
+    w = out.view(torch.int32).cpu().numpy().view(np.uint32)
+    xs = x.view(torch.int32).cpu().numpy().view(np.uint32)
+    for j in range(w.shape[2]):
+        ins = [limbs_to_int(xs[i, :, j]) for i in range(xs.shape[0])]
+        if [limbs_to_int(w[i, :, j]) for i in range(w.shape[0])] != \
+                list(cc.witness_host({"inputs": ins})):
+            raise SystemExit(f"FAIL GE entry() lane {j}: witness differs "
+                             "from the host calculator")
+    say(f"  entry(): {tuple(out.shape)}, all {w.shape[2]} lanes equal the "
+        "host calculator")
+    n = max(2, torch.cuda.device_count())
+    _, ms = wall_ms(lambda: paths.run(
+        "dryrun", lambda: dryrun_multichip(n, device),
+        ("interp_k1a", "interp_k1d", "gather_w", "gather_n", "mont_mul",
+         "sub")))
+    say(f"  dryrun_multichip({n}) passed its three phases in {ms:.0f} ms")
 
 
 def sha256_messages(B, seed):
@@ -1355,7 +1536,7 @@ def main():
     if args.rehearse:
         dev, B, lanes = torch.device("cpu"), 8, 8
         b_full, b_cmp, b_div = 4, 4, 8
-        b_mm, b_mk, b_k1, b_cli, b_base = 8, 4, 4, 3, 64
+        b_mm, b_mk, b_k1, b_cli, b_base, b_ms = 8, 4, 4, 3, 64, 1
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1364,7 +1545,7 @@ def main():
         b_full, b_cmp = SHA_FULL_BATCH, SHA_PLAIN_BATCH
         b_div = BIGDIV_BATCH
         b_mm, b_mk, b_k1 = MM_BATCH, MK_BATCH, K1_PLAIN_LANES
-        b_cli, b_base = CLI_WITNESSES, BASELINE_WITNESSES
+        b_cli, b_base, b_ms = CLI_WITNESSES, BASELINE_WITNESSES, MS_LANES
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True)
@@ -1471,6 +1652,18 @@ def main():
     say(f"the CPU baseline ({b_base} witnesses a circuit)")
     cpu_baseline(mm, b_base)
     t_mm = time.perf_counter() - t_mm
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_ms = time.perf_counter()
+    mesh_t = phase_mesh(paths, mm["merkle"], b_ms, args.rehearse)
+    del mm["merkle"]["prog"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say("phase MH: two coordinated processes (parallel/multihost.py)")
+    mh_ms = phase_multihost(dev.type)
+    say("phase GE: the entry points (circom_tpu_torch/entry.py)")
+    phase_graft_entry(paths, dev.type)
+    t_ms = time.perf_counter() - t_ms
 
     for name, row in rep.rows.items():
         by_path = paths.of(name)
@@ -1507,9 +1700,20 @@ def main():
         say(f"{t['label']} path: {t['run_ms']:.1f} ms witness run "
             f"({t['B'] / t['run_ms'] * 1e3:.0f} witnesses/s), "
             f"{t['check_ms']:.1f} ms R1CS check (batch {t['B']})")
+    m = mesh_t
+    say(f"mesh path, MerkleInclusion(32)/bn128 in {MS_SHARDS} shards on "
+        f"{', '.join(m['devices'])}: {m['run_ms']:.1f} ms step, first run "
+        + (f"({m['B'] / m['warm_ms'] * 1e3:.0f} witnesses/s warm, "
+           f"{m['warm_ms']:.1f} ms), " if m["warm_ms"] else "")
+        + f"{m['check_ms']:.1f} ms R1CS check"
+        + (f" ({m['warm_check_ms']:.1f} warm)" if m["warm_check_ms"]
+           else "") + f" (batch {m['B']}); peak "
+        + (", ".join(f"{d} {g:.1f} GiB" for d, g in m["peaks"].items())
+           or "not measured")
+        + f"; two processes (MH) {mh_ms / 1e3:.1f} s")
     say(f"smoke total {time.perf_counter() - t_all:.1f} s, phases F-K "
         f"{t_new:.1f} s, phases S-W {t_seg:.1f} s, phases MM-CL and the "
-        f"baseline {t_mm:.1f} s")
+        f"baseline {t_mm:.1f} s, phases MS-GE {t_ms:.1f} s")
     if args.rehearse:
         print(json.dumps({"kernels": list(rep.rows.values())}),
               file=sys.stderr)

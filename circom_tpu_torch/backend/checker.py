@@ -15,10 +15,12 @@ capped by `lanes=`: 8,192 lanes for Poseidon2 (2,345 nonzeros), about 260
 for SHA256 (80,458).
 """
 
+import copy
+
 import numpy as np
 import torch
 
-from ..convert import to_device
+from ..convert import move, to_device
 from ..field.primes import LIMB_BITS, FieldSpec
 from ..ops import field_kernels as fk
 from ..ops.field import TorchField, as_i64, as_u32
@@ -61,6 +63,22 @@ class R1CSChecker:
         max_nnz = max(len(rws) for rws, _, _ in self.coo)
         self.lanes = max(1, min(lanes, SLICE_BUDGET_BYTES
                                 // (max(max_nnz, 1) * L * 16)))
+        # this checker on each device it was asked for, itself included
+        self._copies = {self.device: self}
+
+    def for_device(self, device):
+        """This checker on `device`: the same COO, carried there.  One
+        copy a device, kept."""
+        device = resolve_device(device)
+        twin = self._copies.get(device)
+        if twin is None:
+            twin = copy.copy(self)
+            twin.device = device
+            twin.field = TorchField(self.spec, device)
+            twin.coo = [tuple(move(t, device) for t in m) for m in self.coo]
+            twin.R2 = as_u32(twin.field.R2_limbs)
+            self._copies[device] = twin
+        return twin
 
     def _reduce_wide(self, sums):
         """int64 (..., L, B) row sums of MONT values (V < 2^16·p per row)
@@ -109,18 +127,26 @@ class R1CSChecker:
     def check_detailed(self, z):
         """Like check(), but also returns the first violated constraint
         index per witness (0 where satisfied)."""
-        B = z.shape[-1]
+        oks, firsts = zip(*self.verdicts(z))
+        return torch.cat(oks), torch.cat(firsts)
+
+    def verdicts(self, z):
+        """check_detailed's (ok, first) pairs, one a batch slice in batch
+        order, each slice launched only when the previous pair is taken:
+        the mesh takes the slices of several devices in turn."""
         if self.n_rows == 0:
             # fully-simplified systems (every constraint eliminated)
             # are vacuously satisfied
-            return (torch.ones((B,), dtype=torch.bool, device=self.device),
-                    torch.zeros((B,), dtype=torch.int64, device=self.device))
-        oks, firsts = [], []
+            B = z.shape[-1]
+            yield (torch.ones((B,), dtype=torch.bool, device=self.device),
+                   torch.zeros((B,), dtype=torch.int64, device=self.device))
+            return
         for zs in self._slices(z):
             bad = ~self.field.is_zero(self._residual(zs))  # (n_rows, b)
-            oks.append(~bad.any(dim=0))
-            firsts.append(bad.to(torch.uint8).argmax(dim=0))
-        return torch.cat(oks), torch.cat(firsts)
+            del zs
+            ok, first = ~bad.any(dim=0), bad.to(torch.uint8).argmax(dim=0)
+            del bad
+            yield ok, first
 
     def check_witness_list(self, witnesses):
         """witnesses: list of lists of canonical ints -> bool per witness."""

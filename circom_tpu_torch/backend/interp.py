@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..convert import GOLDILOCKS_OPS, DevicePlan, u32_on
-from ..ops.build import LAUNCHES, check_launch, library, stream_ptr, u32_array
+from ..ops.build import launch, library, stream_ptr, u32_array
 from ..ops.field import GOLDILOCKS_P, TorchField, as_i64, as_u32
 from ..ops.narrow import to_i32, widen_narrow
 from .interp_ref import gather_n_rows, gather_rows, run_plan
@@ -57,8 +57,13 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
         raise ValueError(f"K1 takes int32 ({len(plan.nin_order)}, {B}) "
                          f"narrow inputs, got {x_n.dtype} "
                          f"{tuple(x_n.shape)}")
-    x_w, x_n = x_w.contiguous(), x_n.contiguous()
-    dev = x_w.device
+    return launch_k1(plan, field, x_w.contiguous(), x_n.contiguous())
+
+
+def launch_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
+    """Launch K1 without checks on contiguous inputs on the plan's card,
+    of the shapes interp_k1 takes: returns its (bank, bank_n)."""
+    L, B, dev = plan.L, x_w.shape[-1], x_w.device
     # the register files (each at least its trash row) and the banks
     rf = torch.empty(k1_file_shape(plan, B), dtype=torch.uint32, device=dev)
     rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev)
@@ -66,14 +71,11 @@ def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
                        device=dev)
     bank_n = torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
                          device=dev)
-    rc = library("interp").ctpu_interp_k1(
-        *k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n,
-                 stream_ptr(dev)))
     # one launch runs every part; it counts for each part its plan runs
     # (interp_k1a .. interp_k1d, convert.PARTS)
-    for part in plan.parts or ("interp_k1a",):
-        LAUNCHES[part] += 1
-    check_launch(rc, "interp_k1")
+    launch("interp_k1", library("interp").ctpu_interp_k1, dev,
+           *k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n,
+                    stream_ptr(dev)), parts=plan.parts or ("interp_k1a",))
     return bank, bank_n
 
 
@@ -143,11 +145,9 @@ def gather_w(bank, idx):
 def launch_gather_w(bank, idx, out):
     """Launch K2 without checks: contiguous uint32 bank (R, ...) and out
     (W, ...) on the card, int32 idx (W,) inside [0, R), W > 0."""
-    rc = library("gather").ctpu_gather_rows(
-        bank.data_ptr(), idx.data_ptr(), out.data_ptr(), bank[0].numel(),
-        idx.shape[0], stream_ptr(bank.device))
-    LAUNCHES["gather_w"] += 1
-    check_launch(rc, "gather_w")
+    launch("gather_w", library("gather").ctpu_gather_rows, bank.device,
+           bank.data_ptr(), idx.data_ptr(), out.data_ptr(), bank[0].numel(),
+           idx.shape[0], stream_ptr(bank.device))
 
 
 def gather_n(bank_n, x_n, src, shift):
@@ -178,11 +178,9 @@ def launch_gather_n(bank_n, x_n, src, shift, out):
     (n_nin, B), src and shift (W,) and out (W, B) on the card, src inside
     [0, R_n + n_nin), W and B > 0."""
     W, B = out.shape
-    rc = library("gather").ctpu_gather_n(
-        bank_n.data_ptr(), bank_n.shape[0], x_n.data_ptr(), src.data_ptr(),
-        shift.data_ptr(), out.data_ptr(), W, B, stream_ptr(out.device))
-    LAUNCHES["gather_n"] += 1
-    check_launch(rc, "gather_n")
+    launch("gather_n", library("gather").ctpu_gather_n, out.device,
+           bank_n.data_ptr(), bank_n.shape[0], x_n.data_ptr(), src.data_ptr(),
+           shift.data_ptr(), out.data_ptr(), W, B, stream_ptr(out.device))
 
 
 def _check_index(idx, n, what):
@@ -201,6 +199,25 @@ class TorchInterpreter:
         self.field = field
         self.device = plan.device
         self.n_witness = plan.n_witness
+        # the full-limb witness in parts, by where its rows come from: the
+        # wide rows, the narrow emission rows (K3, then the widening) and
+        # the narrow input rows (the input's own limbs).  Their index
+        # tensors live on the device from here on, so that a run copies
+        # nothing from the host after its launches (a copy from the host
+        # would wait for them).
+        emitted = plan.nw_src < plan.n_bank_n_rows
+        narrow = self._as_index(np.flatnonzero(emitted))
+        pos = (plan.wd_idx, plan.nw_idx[emitted], plan.nw_idx[~emitted])
+        self._part_pos = [self._as_index(idx) for idx in pos]
+        self._part_len = [len(idx) for idx in pos]
+        self._nw_src = plan.dev["nw_src"][narrow]
+        self._nw_shift = plan.dev["nw_shift"][narrow]
+        self._nin_rows = plan.dev["nin_order"][self._as_index(
+            plan.nw_src[~emitted] - plan.n_bank_n_rows)]
+        # the part that is the witness: the only one, in witness order
+        present = [k for k, idx in enumerate(pos) if len(idx)]
+        self._whole = present[0] if len(present) == 1 and np.array_equal(
+            pos[present[0]], np.arange(plan.n_witness)) else None
 
     # The plan's gathers.  Their indices were held inside the rows when
     # the plan was built (convert.plan_from_arrays), so on the card they
@@ -256,10 +273,11 @@ class TorchInterpreter:
     def _as_index(self, a):
         return torch.as_tensor(a, dtype=torch.int64, device=self.device)
 
-    def _put(self, out, pos, rows):
-        """out[pos] = rows (through int32 views: PyTorch's uint32 has no
-        index_put)."""
-        out.view(torch.int32)[self._as_index(pos)] = rows.view(torch.int32)
+    @staticmethod
+    def _put(out, pos, rows):
+        """out[pos] = rows, pos an index tensor (through int32 views:
+        PyTorch's uint32 has no index_put)."""
+        out.view(torch.int32)[pos] = rows.view(torch.int32)
 
     def _wide_rows(self, bank, x_w, B):
         """The wide rows of the mixed witness, uint32 (n_wd, L, B): rows of
@@ -300,26 +318,18 @@ class TorchInterpreter:
                              f"rows ({plan.L} limbs), got {inputs.shape[1]}")
         B = inputs.shape[-1]
         bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
-        # the witness in parts: (witness indices, their rows uint32
-        # (k, L, B)); narrow emission rows go through K3 and the widening,
-        # narrow input rows are the input's own limbs
-        emitted = plan.nw_src < plan.n_bank_n_rows
-        narrow_rows = self._as_index(np.flatnonzero(emitted))
-        parts = [
-            (plan.wd_idx, lambda: self._wide_rows(bank, x_w, B)),
-            (plan.nw_idx[emitted], lambda: widen_narrow(self._gather_n(
-                bank_n, x_n, plan.dev["nw_src"][narrow_rows],
-                plan.dev["nw_shift"][narrow_rows]), self.field.p, plan.L)),
-            (plan.nw_idx[~emitted], lambda: gather_rows(inputs, plan.dev[
-                "nin_order"][self._as_index(
-                    plan.nw_src[~emitted] - plan.n_bank_n_rows)])),
-        ]
-        parts = [(idx, rows) for idx, rows in parts if len(idx)]
-        if len(parts) == 1 and np.array_equal(parts[0][0],
-                                              np.arange(plan.n_witness)):
-            return parts[0][1]()   # one part, already in witness order
+        parts = (
+            lambda: self._wide_rows(bank, x_w, B),
+            lambda: widen_narrow(self._gather_n(
+                bank_n, x_n, self._nw_src, self._nw_shift), self.field.p,
+                plan.L),
+            lambda: gather_rows(inputs, self._nin_rows),
+        )
+        if self._whole is not None:
+            return parts[self._whole]()
         out = torch.empty((plan.n_witness, plan.L, B), dtype=torch.uint32,
                           device=self.device)
-        for idx, rows in parts:
-            self._put(out, idx, rows())
+        for pos, n, rows in zip(self._part_pos, self._part_len, parts):
+            if n:
+                self._put(out, pos, rows())
         return out

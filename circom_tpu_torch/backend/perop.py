@@ -15,10 +15,12 @@ The same executor serves the tapes the JAX package sends to its scan
 PyTorch compiles nothing.  Its (level, opcode) packing is not ported.
 """
 
+import copy
+
 import numpy as np
 import torch
 
-from ..convert import u32_on
+from ..convert import move, u32_on
 from ..field.primes import LIMB_BITS
 from ..ops import field_kernels as fk
 from ..ops.field import TorchField
@@ -62,6 +64,15 @@ class PerOpProgram:
                 self.consts[i] = torch.as_tensor(
                     int_to_limbs(v, self.L).astype(np.int32),
                     device=field.device)[:, None].view(torch.uint32)
+
+    def for_field(self, field: TorchField):
+        """This program on `field`'s device: the same order and last uses,
+        the constants copied there."""
+        twin = copy.copy(self)
+        twin.field = field
+        twin.consts = {i: move(c, field.device)
+                       for i, c in self.consts.items()}
+        return twin
 
     def n_live(self):
         return len(self.order)

@@ -22,12 +22,14 @@ plain version `segment_ref` (ops/wide.py, TorchField: the plain functions
 K1 is held against) on a CPU tensor.
 """
 
+import copy
+
 import numpy as np
 import torch
 
 from ..convert import u32_on
 from ..field.primes import FieldSpec
-from ..ops.build import LAUNCHES, build_generated, check_launch, stream_ptr
+from ..ops.build import build_generated, launch, stream_ptr
 from ..ops.field import GOLDILOCKS_P, TorchField, as_i64, as_u32
 from ..ops.limbs import int_to_limbs
 from ..ops.wide import emit, gl_mul64, shift_w
@@ -107,6 +109,15 @@ class SegmentedProgram:
                 f"({self.total_cost} > {MAX_COST} cost units)")
         self.n_witness = len(self.xt.out_ids)
         self._lib = None     # the generated kernels, built at first launch
+
+    def for_field(self, field: TorchField):
+        """This program on `field`'s device: the same segments and the same
+        generated kernels (each card loads its own copy of a library's
+        module, with its constants, at its first launch there)."""
+        twin = copy.copy(self)
+        twin.field = field
+        twin.device = field.device
+        return twin
 
     # ------------------------------------------------------------------
     # planning: split into budgeted segments, assign rows/slots
@@ -291,13 +302,17 @@ def segment_k4(prog: SegmentedProgram, s, xin):
     B = xin.shape[-1]
     out = torch.empty((len(seg.out_nodes), L, B), dtype=torch.uint32,
                       device=xin.device)
-    if out.numel() == 0:
-        return out   # nothing to launch
-    fn = getattr(prog.library(), f"ctpu_k4_seg{s}")
-    rc = fn(xin.data_ptr(), out.data_ptr(), B, stream_ptr(xin.device))
-    LAUNCHES["k4"] += 1
-    check_launch(rc, f"k4 segment {s}")
+    if out.numel():
+        launch_k4(prog, s, xin, out)
     return out
+
+
+def launch_k4(prog: SegmentedProgram, s, xin, out):
+    """Launch segment s's K4 without checks: contiguous uint32 xin
+    (n_in, L, B) and out (n_out, L, B) on the card, n_out and B > 0."""
+    launch("k4", getattr(prog.library(), f"ctpu_k4_seg{s}"), xin.device,
+           xin.data_ptr(), out.data_ptr(), xin.shape[-1],
+           stream_ptr(xin.device))
 
 
 def segment_ref(field: TorchField, seg, xin):

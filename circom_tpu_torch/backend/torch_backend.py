@@ -22,6 +22,8 @@ tape to the same backend.  On the CPU each backend runs its kernels'
 plain versions; nothing falls back to another executor on the card.
 """
 
+import copy
+
 import numpy as np
 import torch
 
@@ -116,6 +118,30 @@ class WitnessProgram:
         # trailing guard outputs from predicated while unrolling: the
         # caller must check these rows are zero (see pipeline.build_tape)
         self.n_guards = getattr(tape, "n_guards", 0)
+        # this program on each device it was asked for, itself included
+        # (shared by every copy)
+        self._copies = {self.device: self}
+
+    def for_device(self, device):
+        """This program on `device`: the same DomainTape and plan, whose
+        host tables (the interpreter's plan arrays, the segments, the
+        per-op constants) are carried there; nothing is planned again.
+        One copy a device, kept: shards on one device share it."""
+        device = resolve_device(device)
+        twin = self._copies.get(device)
+        if twin is None:
+            twin = copy.copy(self)
+            twin.device = device
+            twin.field = TorchField(self.spec, device)
+            if self.interp is not None:
+                twin.fused = twin.interp = TorchInterpreter(
+                    self.interp.plan.to(device), twin.field)
+            elif self.fused is not None:
+                twin.fused = self.fused.for_field(twin.field)
+            else:
+                twin.perop = self.perop.for_field(twin.field)
+            self._copies[device] = twin
+        return twin
 
     def run(self, inputs):
         """uint32 (n_inputs, L, B) array or tensor -> witness uint32

@@ -9,6 +9,7 @@ packages' plans through it is how the tests show that both execute one
 identical plan.
 """
 
+import copy
 from dataclasses import dataclass, field
 from functools import cached_property
 
@@ -90,6 +91,17 @@ class DevicePlan:
     consts: np.ndarray     # (n_const, L) uint32
     device: torch.device
     dev: dict = field(default_factory=dict)  # the tables as device tensors
+
+    def to(self, device):
+        """This plan on another device: the same host tables, their device
+        tensors copied there (nothing is converted again)."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        twin = copy.copy(self)
+        twin.device = device
+        twin.dev = {k: move(v, device) for k, v in self.dev.items()}
+        return twin
 
     @property
     def n_bank_rows(self):
@@ -409,11 +421,17 @@ def to_device(arr, device):
     return torch.from_numpy(arr).to(device)
 
 
+def move(t, device):
+    """A tensor on `device` (the same tensor when it is there already);
+    uint32 travels as an int32 view."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).to(device).view(torch.uint32)
+    return t.to(device)
+
+
 def u32_on(x, device):
     """uint32 limbs, an array or a tensor on any device -> a uint32
     tensor on `device` (the same tensor when it is there already)."""
     if not isinstance(x, torch.Tensor):
         return to_device(np.asarray(x, np.uint32), device)
-    if x.device != device:
-        return x.view(torch.int32).to(device).view(torch.uint32)
-    return x
+    return move(x, device)

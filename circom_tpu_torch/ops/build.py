@@ -15,8 +15,12 @@ with the same flags against the headers of ops/cuda/, a library a segment
 headers and the flags; `build_all(generated=...)` builds such texts in
 parallel with the fixed sources.
 
-`LAUNCHES` counts kernel launches by name; each wrapper adds one where it
-launches its kernel, and nowhere else.
+`launch` makes every launch: it calls a C entry point with the tensors'
+device as the current device (a `<<<..., stream>>>` launch runs on the
+calling thread's current device, whatever device the stream belongs
+to), then counts it.  `LAUNCHES` counts kernel launches by name; each
+wrapper adds one, through `launch`, where it launches its kernel, and
+nowhere else.
 """
 
 import ctypes
@@ -225,6 +229,20 @@ def build_generated(source, n_segments):
 def check_launch(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {rc})")
+
+
+def launch(name, fn, device, *args, parts=None):
+    """fn(*args), a C entry point that launches kernel `name` on a stream
+    of `device`, called with `device` as the current device; adds one to
+    LAUNCHES[name], or to each of `parts` (the parts of one kernel that
+    the launch runs), and raises RuntimeError if the launch failed."""
+    import torch
+
+    with torch.cuda.device(device):
+        rc = fn(*args)
+    for part in parts or (name,):
+        LAUNCHES[part] += 1
+    check_launch(rc, name)
 
 
 def stream_ptr(device):

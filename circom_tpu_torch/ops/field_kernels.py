@@ -12,8 +12,8 @@ version in TorchField, which the kernels are held against bit for bit.
 
 import torch
 
-from .build import (LAUNCHES, check_launch, library, ll_array, stream_ptr,
-                    u32_array)
+from . import build
+from .build import library, ll_array, stream_ptr, u32_array
 from .field import TorchField, as_u32
 
 _OPS = {"mont_mul": 0, "add": 1, "sub": 2}
@@ -48,14 +48,11 @@ def launch(name, field: TorchField, a, b, out):
     uint32 (N, L, B) views on the card (strides 0 where they broadcast),
     out a contiguous uint32 (N, L, B) with N, B > 0."""
     N, L, B = out.shape
-    lib = library("field_ops")
-    rc = lib.ctpu_field_elementwise(
-        _OPS[name], L, a.data_ptr(), ll_array(a.stride()), b.data_ptr(),
-        ll_array(b.stride()), out.data_ptr(), N, B,
-        u32_array(field.p_list), field.n0inv, field.n0inv32,
-        stream_ptr(out.device))
-    LAUNCHES[name] += 1
-    check_launch(rc, name)
+    build.launch(name, library("field_ops").ctpu_field_elementwise,
+                 out.device, _OPS[name], L, a.data_ptr(),
+                 ll_array(a.stride()), b.data_ptr(), ll_array(b.stride()),
+                 out.data_ptr(), N, B, u32_array(field.p_list), field.n0inv,
+                 field.n0inv32, stream_ptr(out.device))
 
 
 def mont_mul(field: TorchField, a, b):

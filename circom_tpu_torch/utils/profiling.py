@@ -99,17 +99,23 @@ def _say(*a):
     print(*a, flush=True)
 
 
-def wall_ms(fn):
-    """ms of one fn() by the host clock, synchronised with the card on
-    both sides."""
+def sync_all():
+    """Wait for every card's work (torch.cuda.synchronize waits for the
+    current card's only)."""
     import torch
 
     if torch.cuda.is_available():
-        torch.cuda.synchronize()
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+
+def wall_ms(fn):
+    """ms of one fn() by the host clock, synchronised with every card on
+    both sides."""
+    sync_all()
     t = time.perf_counter()
     out = fn()
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    sync_all()
     return out, (time.perf_counter() - t) * 1e3
 
 
@@ -126,7 +132,10 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
     unrecorded altogether.  aten=False leaves PyTorch's operator events
     out of the host times (a per-op run records some 180,000, slow to
     summarise); the CUDA runtime's calls stay.  Kernels whose names hold
-    a string of `show` are printed beside the eight longest."""
+    a string of `show` are printed beside the eight longest.  Returns
+    (device busy ms, wall ms) a run; the busy time sums every card's
+    kernels, so on several cards it exceeds the wall time where their
+    work overlaps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -169,3 +178,4 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
     _say("  host time a run by op: " + ", ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3 / reps:.3f} ms "
         f"x{e.count / reps:g}" for e in host[:6]))
+    return busy, ms

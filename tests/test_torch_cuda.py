@@ -139,6 +139,23 @@ def test_k2_tail_shapes_match_plain(card, n_rows, L, B, offset):
         gather_w(bank, to_device(np.asarray([0, n_rows], np.int32), card))
 
 
+def test_launch_on_a_second_card(card):
+    """K2 on a tensor of cuda:1, launched while cuda:0 is the current
+    device, gathers the right rows: every launch makes its tensors' card
+    current (ops/build.launch).  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    rng = np.random.default_rng(26)
+    other = torch.device("cuda", 1)
+    bank = to_device(rng.integers(0, 1 << 16, size=(8, 16, 4096),
+                                  dtype=np.uint32), other)
+    idx = to_device(np.arange(7, -1, -1, dtype=np.int32), other)
+    with torch.cuda.device(0):
+        got = gather_w(bank, idx)
+    torch.cuda.synchronize(other)
+    assert torch.equal(as_i64(got), as_i64(gather_rows(bank, idx)))
+
+
 def test_main_path_gathers_make_no_index_sync(card, monkeypatch):
     """WitnessProgram's run and run_mixed launch K2 and K3 without the
     public wrappers' index check (a device-to-host sync), and still give

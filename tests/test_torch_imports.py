@@ -48,6 +48,9 @@ def test_import_leaves_jax_unloaded():
             "import circom_tpu_torch.backend.checker\n"
             "import circom_tpu_torch.ops.build\n"
             "import circom_tpu_torch.circuits.sha256_io\n"
+            "import circom_tpu_torch.entry\n"
+            "import circom_tpu_torch.parallel.mesh\n"
+            "import circom_tpu_torch.parallel.multihost\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'circom_tpu', 'bench'))\n"
             "assert not bad, bad\n")
