@@ -22,16 +22,21 @@ mismatch exits non-zero.  The paths:
 - Num2Bits(254) and 4 x Num2Bits(254) over bn128, batch 65,536, which
   the interpreter refuses: run on the segments (K4, one and four
   segments) and R1CS check;
-- bigint-div + Num2Bits(254) of the quotient and 16 x Num2Bits(254) over
-  bn128, batch 8,192, which both fused backends refuse: run on the per-op
-  path (K5, K6 and plain PyTorch) and R1CS check;
+- bigint-div + Num2Bits(254) of the quotient over bn128, batch 8,192,
+  which both fused backends refuse: run straight-line (K5, K6 and plain
+  PyTorch) and R1CS check;
+- 16 x Num2Bits(254) over bn128 (9,415 ops, above the unroll threshold):
+  on the scan executor (K2 gathers, K5, K6) at batch 8,192, bit for bit
+  against the straight-line run of the same tape, both timed; and at
+  65,536 with 8 and 64 slots a step, every lane checked (phase QS);
 - MultiMiMC7(5) over bn128, batch 65,536, and MerkleInclusion(32) over
   Poseidon2/bn128, batch 16,384 (K1a and K1b in one K1 launch, K3 for
   the pathIndex bits): run and R1CS check, sampled lanes against the host
   and the native calculator;
 - the compile CLI (python -m circom_tpu_torch.cli --witness-gpu) on both
-  circuits, and the native calculator's witnesses/s on this host beside
-  the card's (the CPU baseline);
+  circuits and on bigint-div + Num2Bits(254) (the scan), and the native
+  calculator's witnesses/s on this host beside the card's (the CPU
+  baseline);
 - MerkleInclusion(32) over Poseidon2/bn128 at 65,536 witnesses split
   over four shards of 16,384 (parallel/mesh.py: cuda:0..3 where there
   are four cards, else four shards on cuda:0): every shard's witness,
@@ -236,7 +241,7 @@ class Report:
         self.rows = {}
 
     def add(self, name, source, replaces, err, ms, plain_ms, nbytes, ops,
-            library_ms=None, on_path=True, **extra):
+            library_ms=None, **extra):
         if err != 0:
             raise SystemExit(f"FAIL {name}: kernel differs from its plain "
                              f"version (max abs err {err})")
@@ -246,7 +251,7 @@ class Report:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms, "on_path": on_path,
+            "bound_by": b_by, "library_ms": library_ms,
             "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops, **extra}
         say(f"  {name}: bit-exact; {ms:.4f} ms (plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms by {b_by}; bytes {t_bytes:.4f}, "
@@ -383,12 +388,11 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
                 "circom_tpu/ops/pallas_field.py:94", err["mont_mul"], ms,
                 time_ms(lambda: f.mont_mul(a, c), reps=2), nbytes, ops)
         for name in ("add", "sub"):
-            # the checker subtracts and never adds: add is on no main path
             rep.add(name, "circom_tpu_torch/ops/cuda/field_ops.cu",
                     "circom_tpu/ops/pallas_field.py:140", err[name],
                     time_ms(lambda: getattr(fk, name)(f, x, y)),
                     time_ms(lambda: getattr(f, name)(x, y), reps=2),
-                    4 * 3 * e_xy * L, 0, on_path=name == "sub")
+                    4 * 3 * e_xy * L, 0)
 
 
 def phase_gather(rep, plan, B, dev):
@@ -524,20 +528,8 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
     native_lanes = SAMPLE_LANES if native else 0
     lanes = random.Random(SEED).sample(range(B),
                                        min(max(n_lanes, native_lanes), B))
-    sel = torch.as_tensor(lanes, device=wit.device)
-    w_np = wit.view(torch.int32).index_select(2, sel).cpu().numpy() \
-        .view(np.uint32)
-    x_np = inputs.view(torch.int32).index_select(2, sel).cpu().numpy() \
-        .view(np.uint32)
-    ins = [[limbs_to_int(x_np[i, :, j]) for i in range(prog.n_inputs)]
-           for j in range(len(lanes))]
-    got = [[limbs_to_int(w_np[i, :, j]) for i in range(w_np.shape[0])]
-           for j in range(len(lanes))]
-    for j, lane in enumerate(lanes[:n_lanes]):
-        if got[j] != list(cc.witness_host(host_map(ins[j]))):
-            raise SystemExit(f"FAIL {name} lane {lane}: witness differs from "
-                             "the host calculator")
-    say(f"  {min(n_lanes, B)} sampled lanes equal the host calculator")
+    ins, got = lane_values(wit, inputs, lanes)
+    check_host_lanes(cc, ins[:n_lanes], got, lanes, host_map, name)
     if native:
         want = native.run(ins[:native_lanes])
         for j, lane in enumerate(lanes[:native_lanes]):
@@ -902,13 +894,13 @@ def phase_k4_units(progs, dev, B):
     return err
 
 
-def segment_perop_paths(paths, rep, progs, dev, B, b_div, rehearse):
-    """Phases S, S4, U, O, Q and W: Num2Bits(254) and 4 x Num2Bits(254)
-    over bn128 at batch B through the segments (K4), K4 against its plain
-    version on their segments and on the op circuits, bigint-div +
-    Num2Bits(254) and 16 x Num2Bits(254) over bn128 at batch b_div
-    through the per-op path (K5, K6), and the entry point on a
-    Num2Bits(254) artifact."""
+def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
+    """Phases S, S4, U, O, Q, QS and W: Num2Bits(254) and 4 x
+    Num2Bits(254) over bn128 at batch B through the segments (K4), K4
+    against its plain version on their segments and on the op circuits,
+    bigint-div + Num2Bits(254) over bn128 at batch b_div straight-line
+    (K5, K6), 16 x Num2Bits(254) on the scan (scan_paths: K2, K5, K6), and
+    the entry point on a Num2Bits(254) artifact."""
     out = {}
     bn = field_spec("bn128")
     interp = ("interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d")
@@ -947,39 +939,27 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, rehearse):
             s4_ops_bound_ms=bounds(s4[3], s4[4])[1], nvcc_s=nvcc)
     out["k4"] = {"n2b254": ms, "n2b254x4": s4[1]}
 
-    for name, label, src in (
-            ("bigdiv_bits", "bigint-div + Num2Bits(254)/bn128",
-             bigdiv_num2bits_source()),
-            ("n2b254x16", "16 x Num2Bits(254)/bn128",
-             num2bits_source(254, 16))):
-        cc = compile_source(src)
-        prog = WitnessProgram(cc.build_tape()[0], bn, device=dev)
-        if prog.fused is not None:
-            raise SystemExit(f"FAIL {label}: not on the per-op path")
-        if name == "bigdiv_bits":
-            rng = random.Random(5)        # bench.py's bigint-div inputs
-            x = to_device(prog.encode_inputs(
-                [[rng.randrange(bn.p) for _ in range(b_div)],
-                 [rng.randrange(1, bn.p) for _ in range(b_div)]]), dev)
-            host_map = (lambda ins: {"a": ins[0], "b": ins[1]})
-        else:
-            x = edge_inputs(bn, prog.n_inputs, b_div, SEED + 15, dev)
-            host_map = (lambda ins: {"a": ins})
-        say(f"phase {'O' if name == 'bigdiv_bits' else 'Q'}: the {label} "
-            f"path (batch {b_div}, per-op: {prog.perop.n_live()} live of "
-            f"{len(prog.dt.ops)} nodes, unroll {prog.unroll})")
-        # the host calculator takes 0.44 s a lane of 16 x Num2Bits(254)
-        out[name] = witness_path(paths, name, cc, prog, x,
-                                 ("mont_mul", "sub"), host_map,
-                                 never=interp + ("k4",),
-                                 n_lanes=8 if name == "n2b254x16"
-                                 else SAMPLE_LANES)
-        if not rehearse:
-            # one traced run: the trace of a run holds up to ~30,000
-            # launches
-            profile_breakdown(lambda: prog.run(x), out[name]["run_ms"],
-                              reps=1, warmup=0, aten=False)
-        del prog, x
+    cc = compile_source(bigdiv_num2bits_source())
+    prog = WitnessProgram(cc.build_tape()[0], bn, device=dev)
+    if prog.perop is None:
+        raise SystemExit("FAIL bigint-div + Num2Bits(254)/bn128: not on the "
+                         "straight-line path")
+    rng = random.Random(5)        # bench.py's bigint-div inputs
+    x = to_device(prog.encode_inputs(
+        [[rng.randrange(bn.p) for _ in range(b_div)],
+         [rng.randrange(1, bn.p) for _ in range(b_div)]]), dev)
+    say(f"phase O: the bigint-div + Num2Bits(254)/bn128 path (batch "
+        f"{b_div}, straight-line: {prog.perop.n_live()} live of "
+        f"{len(prog.dt.ops)} nodes, unroll {prog.unroll})")
+    out["bigdiv_bits"] = witness_path(
+        paths, "bigdiv_bits", cc, prog, x, ("mont_mul", "sub"),
+        lambda ins: {"a": ins[0], "b": ins[1]}, never=interp + ("k4",))
+    if not rehearse:
+        # one traced run: the trace of a run holds up to ~30,000 launches
+        profile_breakdown(lambda: prog.run(x), out["bigdiv_bits"]["run_ms"],
+                          reps=1, warmup=0, aten=False)
+    del prog, x
+    out.update(scan_paths(paths, rep, dev, b_div, b_qs, rehearse))
 
     say("phase W: the witness entry point (Num2Bits(254)/bn128)")
     p = bn.p
@@ -987,6 +967,225 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, rehearse):
                       [{"a": [v]} for v in (0, 1, p - 1, 1 << 253,
                                             ((1 << 254) - 1) % p)])
     return out
+
+
+def run_launches(prog, x):
+    """(the witness, the launches of this one run by kernel, counts zeroed
+    just before)."""
+    sync_all()
+    build.reset_launches()
+    wit = prog.run(x)
+    sync_all()
+    return wit, dict(build.LAUNCHES)
+
+
+def same_witness(a, b):
+    """Two uint32 witnesses equal bit for bit (compared a row slice at a
+    time through int32 views)."""
+    if a.shape != b.shape:
+        return False
+    return all(torch.equal(a[s:s + 256].view(torch.int32),
+                           b[s:s + 256].view(torch.int32))
+               for s in range(0, a.shape[0], 256))
+
+
+def idle_share(prog, x, run_ms):
+    """The device's idle share of one traced run (profile_breakdown)."""
+    busy, ms = profile_breakdown(lambda: prog.run(x), run_ms, reps=1,
+                                 warmup=0, aten=False)
+    return max(0.0, 1 - busy / ms)
+
+
+def phase_scan_kernels(rep, prog, B, key):
+    """K2, K5 and K6 at the shapes a scan step of `prog` gives them, bit
+    for bit against their plain versions on the same card tensors: K2
+    gathers the S rows of the first add step's operands from a random
+    register file (n_regs, L, B), made on the device, K6 adds and
+    subtracts them, K5 multiplies them and scales them by R^2 (mul_norm's
+    constant).  K2 is timed around its bare launch, as a step launches
+    it, K5 and K6 around their wrappers; the kernel rows gain the step's
+    shape, ms and bound under `key`."""
+    dev, f, sched = prog.device, prog.field, prog.scan.sched
+    L, S = f.L, sched.slots
+    opc, a_i, b_i = sched.tables[:3]
+    step = list(opc).index(sched.branch_ops.index("add"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    bank = torch.randint(0, 1 << 16, (sched.n_regs, L, B), generator=gen,
+                         dtype=torch.int32, device=dev)
+    bank[:, L - 1] = torch.randint(0, f.p >> (16 * (L - 1)),
+                                   (sched.n_regs, B), generator=gen,
+                                   dtype=torch.int32, device=dev)
+    bank = bank.view(torch.uint32)
+    ia, ib = (to_device(t[step], dev) for t in (a_i, b_i))
+    a, b = gather_w(bank, ia), gather_w(bank, ib)
+    err = max(max_abs_err(a, gather_rows(bank, ia)),
+              max_abs_err(b, gather_rows(bank, ib)))
+    r2 = as_u32(f.R2_limbs)
+    out = torch.empty_like(a)
+    cases = {"gather_w": (bare(dev, lambda: launch_gather_w(bank, ia, out),
+                               lambda: gather_w(bank, ia)), None),
+             "add": (lambda: fk.add(f, a, b), lambda: f.add(a, b)),
+             "sub": (lambda: fk.sub(f, a, b), lambda: f.sub(a, b)),
+             "mont_mul": (lambda: fk.mont_mul(f, a, b),
+                          lambda: f.mont_mul(a, b))}
+    err_r2 = max_abs_err(fk.mont_mul(f, a, r2), f.mont_mul(a, r2))
+    # K2 reads each distinct row once (padding slots all read register
+    # 0) and writes S; K5 and K6 read two (S, L, B) operands, write one
+    row = 4 * L * B
+    k2_bytes = row * (len(np.unique(a_i[step])) + S)
+    for name, (kern, plain) in cases.items():
+        e = err if plain is None else max_abs_err(kern(), plain())
+        e = max(e, err_r2) if name == "mont_mul" else e
+        if e:
+            raise SystemExit(f"FAIL {name} at the scan step's shape: max "
+                             f"abs err {e}")
+        ms = time_ms(kern, reps=20)
+        nbytes = k2_bytes if name == "gather_w" else 3 * S * row
+        ops = k5_ops(L) * S * B if name == "mont_mul" else 0
+        b_ms, b_by = bound(nbytes, ops)
+        rep.rows[name].update({f"{key}_shape": [S, L, B],
+                               f"{key}_ms": ms, f"{key}_bound_ms": b_ms,
+                               f"{key}_bound_by": b_by})
+        say(f"  {name} at the scan step's shape ({S}, {L}, {B}): bit-exact;"
+            f" {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by})")
+    del bank, a, b, out
+
+
+def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
+    """Phases Q and QS: 16 x Num2Bits(254)/bn128, 9,415 ops, above both
+    fused backends' limits and the default unroll threshold, so on the
+    scan executor (K2 gathers, K5 and K6; never K1 or K4), as in the JAX
+    package.  Q: at batch b_q, every lane through the R1CS check and 8
+    against the host calculator; its witness bit for bit against the
+    straight-line run of the same tape and inputs (unroll_threshold
+    2^30), both timed, with their launches and idle shares.  QS: at
+    batch b_qs with 8 and 64 slots a step, every lane checked, the two
+    witnesses equal bit for bit, 4 lanes against the host; run ms,
+    witnesses/s, launches, idle share and peak memory."""
+    bn = field_spec("bn128")
+    never = ("interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d", "k4")
+    must = ("gather_w", "mont_mul", "add", "sub")
+    host_map = (lambda ins: {"a": ins})
+    cc = compile_source(num2bits_source(254, 16))
+    tape = cc.build_tape()[0]
+    prog = WitnessProgram(tape, bn, device=dev)
+    if prog.scan is None:
+        raise SystemExit("FAIL 16 x Num2Bits(254)/bn128: not on the scan")
+    sched = prog.scan.sched
+    x = edge_inputs(bn, prog.n_inputs, b_q, SEED + 15, dev)
+    say(f"phase Q: the 16 x Num2Bits(254)/bn128 path (batch {b_q}, scan: "
+        f"{len(prog.dt.ops)} nodes in {sched.n_steps} steps of "
+        f"{sched.slots} slots, {sched.n_regs} registers, "
+        f"{sched.n_witness} witness rows; unroll {prog.unroll})")
+    out = {"n2b254x16": witness_path(paths, "n2b254x16", cc, prog, x, must,
+                                     host_map, never=never, n_lanes=8)}
+    phase_scan_kernels(rep, prog, b_q, "q_step")
+    line = WitnessProgram(tape, bn, device=dev, unroll_threshold=1 << 30)
+    if line.perop is None:
+        raise SystemExit("FAIL 16 x Num2Bits(254)/bn128: no straight-line "
+                         "program at unroll_threshold 2^30")
+    wit, n_scan = run_launches(prog, x)
+    wit_line, n_line = run_launches(line, x)
+    if not same_witness(wit, wit_line):
+        raise SystemExit("FAIL 16 x Num2Bits(254)/bn128: the scan's witness "
+                         "differs from the straight-line run's")
+    del wit, wit_line
+    q = {}
+    for label, p, n in (("scan", prog, n_scan), ("straight-line", line,
+                                                 n_line)):
+        ms = wall_ms(lambda: p.run(x))[1]     # the witness not kept
+        idle = None if rehearse else idle_share(p, x, ms)
+        q[label] = {"run_ms": ms, "launches": n, "idle": idle}
+        say(f"  Q {label}: run {ms:.1f} ms ({b_q / ms * 1e3:.0f} "
+            f"witnesses/s), launches {n}, idle share "
+            + ("not measured" if idle is None else f"{idle:.3f}"))
+    say(f"  Q: the scan's witness equals the straight-line run's bit for "
+        f"bit; scan {q['straight-line']['run_ms'] / q['scan']['run_ms']:.2f}"
+        "x as fast")
+    out["q_compare"] = q
+    del prog, line, x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    x = edge_inputs(bn, tape.n_inputs, b_qs, SEED + 21, dev)
+    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], bn,
+                          device=dev, lanes=CHECK_LANES)
+    first = None
+    for slots in (8, 64):
+        name = f"n2b254x16_s{slots}"
+        prog = WitnessProgram(tape, bn, device=dev, slots=slots)
+        sched = prog.scan.sched
+        say(f"phase QS: the 16 x Num2Bits(254)/bn128 scan at batch {b_qs}, "
+            f"{slots} slots ({sched.n_steps} steps, {sched.n_regs} "
+            f"registers: a {sched.n_regs * 64 * b_qs / 1e9:.1f} GB register "
+            f"file beside a {(sched.n_witness + 1) * 64 * b_qs / 1e9:.1f} GB "
+            "witness buffer)")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        def run_and_check():
+            wit, ms = wall_ms(lambda: prog.run(x))
+            ok, check_ms = wall_ms(lambda: checker.check(wit))
+            n_bad = int((~ok).sum())
+            if n_bad:
+                raise SystemExit(f"FAIL QS at {slots} slots: {n_bad} of "
+                                 f"{b_qs} lanes violate a constraint")
+            return wit, ms, check_ms
+
+        wit, ms, check_ms = paths.run(name, run_and_check, must, never)
+        peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else None)
+        if first is None:
+            first = wit
+            lanes = random.Random(SEED).sample(range(b_qs), min(4, b_qs))
+            check_host_lanes(cc, *lane_values(wit, x, lanes), lanes,
+                             host_map, "QS")
+        elif not same_witness(first, wit):
+            raise SystemExit("FAIL QS: the witness at 64 slots differs from "
+                             "the one at 8")
+        del wit
+        warm = wall_ms(lambda: prog.run(x))[1]    # the witness not kept
+        idle = None if rehearse else idle_share(prog, x, warm)
+        out[name] = {"run_ms": warm, "first_ms": ms, "check_ms": check_ms,
+                     "idle": idle, "peak_gib": peak,
+                     "launches": paths.counts[name]}
+        say(f"  QS {slots} slots: run {warm:.1f} ms warm "
+            f"({b_qs / warm * 1e3:.0f} witnesses/s), {ms:.1f} ms first; "
+            f"R1CS check of all {b_qs} "
+            f"lanes {check_ms:.1f} ms; idle share "
+            + ("not measured" if idle is None else f"{idle:.3f}")
+            + "; peak device memory "
+            + ("not measured" if peak is None else f"{peak:.1f} GiB")
+            + ("; the witness equals the one at 8 slots bit for bit"
+               if slots != 8 else ""))
+    del first, x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_scan_kernels(rep, prog, b_qs, "qs_step")
+    del prog
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def lane_values(wit, x, lanes):
+    """(each lane's input ints, each lane's witness ints) of `lanes`."""
+    sel = torch.as_tensor(lanes, device=wit.device)
+    w_np, x_np = (t.view(torch.int32).index_select(2, sel).cpu().numpy()
+                  .view(np.uint32) for t in (wit, x))
+    return ([[limbs_to_int(a[i, :, j]) for i in range(a.shape[0])]
+             for j in range(len(lanes))] for a in (x_np, w_np))
+
+
+def check_host_lanes(cc, ins, got, lanes, host_map, label):
+    """The first len(ins) lanes' witness ints `got` equal the host
+    calculator's on their inputs `ins`."""
+    for j, lane in enumerate(lanes[:len(ins)]):
+        if got[j] != list(cc.witness_host(host_map(ins[j]))):
+            raise SystemExit(f"FAIL {label} lane {lane}: witness differs "
+                             "from the host calculator")
+    say(f"  {len(ins)} sampled lanes equal the host calculator")
 
 
 def input_map(layout):
@@ -1087,27 +1286,53 @@ def random_row(rng, p, hints, n_inputs):
             for i in range(n_inputs)]
 
 
-# the CLI's circuits: file name -> (includes, main component)
+# the CLI's circuits: path name -> (file name, its source); MiMC and
+# Merkle include the port's circuits, bigint-div + Num2Bits(254) holds the
+# stdlib
 CLI_CIRCUITS = {
-    "mimc5": ('include "mimc.circom";', "MultiMiMC7(5)"),
-    "merkle32": ('include "poseidon.circom";\ninclude "merkle.circom";',
-                 "MerkleInclusion(32)"),
+    "mimc": ("mimc5", lambda: 'pragma circom 2.0.0;\ninclude "mimc.circom";'
+             '\ncomponent main = MultiMiMC7(5);\n'),
+    "merkle": ("merkle32", lambda: 'pragma circom 2.0.0;\ninclude '
+               '"poseidon.circom";\ninclude "merkle.circom";\n'
+               'component main = MerkleInclusion(32);\n'),
+    "bigdiv_bits": ("bigdiv_bits", bigdiv_num2bits_source),
 }
+
+
+def cli_runs(mm):
+    """phase_cli's circuits: MM's and MK's compiles, tapes and native
+    calculators, and bigint-div + Num2Bits(254)/bn128's, whose tape the
+    CLI's program (unroll_threshold=0) runs on the scan."""
+    bn = field_spec("bn128")
+    cc = compile_source(bigdiv_num2bits_source())
+    tape, layout = cc.build_tape()
+    hints = cc.input_range_hints()
+    prog = WitnessProgram(tape, bn, device="cpu", unroll_threshold=0,
+                          input_ranges=hints)
+    if prog.scan is None:
+        raise SystemExit("FAIL CLI: bigint-div + Num2Bits(254) is not on the "
+                         "scan at unroll_threshold=0")
+    say(f"  bigint-div + Num2Bits(254)/bn128 through the CLI: the scan, "
+        f"{prog.scan.sched.n_steps} steps of {prog.scan.sched.slots} slots")
+    return {**mm, "bigdiv_bits": dict(
+        cc=cc, tape=tape, layout=layout, hints=hints,
+        calc=NativeCalculator(tape, bn, input_ranges=hints))}
 
 
 def phase_cli(runs, device, n):
     """Phase CL: `python -m circom_tpu_torch.cli` in a subprocess on the
-    circuits of MM and MK (files that include the port's circuits,
-    -l circom_tpu_torch/circuits) with --r1cs --sym --witness-gpu at n
-    witnesses: the .r1cs must equal the port's own compile's, every .wtns
-    write_wtns of the native calculator's witness, and the first .wtns
-    files (all of MiMC's, MK_HOST_LANES of Merkle's) that of the host
-    calculator; a Merkle batch with a pathIndex of 2 must exit 1 with
-    error[T3015]."""
+    circuits of CLI_CIRCUITS (MM's and MK's, which include the port's
+    circuits, -l circom_tpu_torch/circuits, and bigint-div +
+    Num2Bits(254), which the CLI runs on the scan) with --r1cs --sym
+    --witness-gpu at n witnesses: the .r1cs must equal the port's own
+    compile's, every .wtns write_wtns of the native calculator's witness,
+    and the first .wtns files (all of those without range-hinted inputs,
+    MK_HOST_LANES of Merkle's) that of the host calculator; a Merkle batch
+    with a pathIndex of 2 must exit 1 with error[T3015]."""
     lib = os.path.join(ROOT, "circom_tpu_torch", "circuits")
     rng = random.Random(SEED + 18)
-    for (name, (includes, main)), run in zip(CLI_CIRCUITS.items(),
-                                             runs.values()):
+    for path, run in runs.items():
+        name, source = CLI_CIRCUITS[path]
         cc, tape, hints = run["cc"], run["tape"], run["hints"]
         to_map = input_map(run["layout"])
         rows = [random_row(rng, cc.p, hints, tape.n_inputs)
@@ -1115,8 +1340,7 @@ def phase_cli(runs, device, n):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             circ = os.path.join(tmp, f"{name}.circom")
             with open(circ, "w") as fh:
-                fh.write(f"pragma circom 2.0.0;\n{includes}\n"
-                         f"component main = {main};\n")
+                fh.write(source())
 
             def cli(batch, out):
                 inp = os.path.join(tmp, f"{out}.json")
@@ -1535,7 +1759,7 @@ def main():
     args = ap.parse_args()
     if args.rehearse:
         dev, B, lanes = torch.device("cpu"), 8, 8
-        b_full, b_cmp, b_div = 4, 4, 8
+        b_full, b_cmp, b_div, b_qs = 4, 4, 8, 8
         b_mm, b_mk, b_k1, b_cli, b_base, b_ms = 8, 4, 4, 3, 64, 1
     else:
         if not torch.cuda.is_available():
@@ -1543,7 +1767,7 @@ def main():
             return 1
         dev, B, lanes = torch.device("cuda", 0), BATCH, CHECK_LANES
         b_full, b_cmp = SHA_FULL_BATCH, SHA_PLAIN_BATCH
-        b_div = BIGDIV_BATCH
+        b_div, b_qs = BIGDIV_BATCH, BATCH
         b_mm, b_mk, b_k1 = MM_BATCH, MK_BATCH, K1_PLAIN_LANES
         b_cli, b_base, b_ms = CLI_WITNESSES, BASELINE_WITNESSES, MS_LANES
         smi = subprocess.run(
@@ -1639,7 +1863,7 @@ def main():
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_seg = time.perf_counter()
-    seg = segment_perop_paths(paths, rep, progs, dev, B, b_div,
+    seg = segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs,
                               args.rehearse)
     t_seg = time.perf_counter() - t_seg
     if dev.type == "cuda":
@@ -1648,7 +1872,7 @@ def main():
     mm = mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, args.rehearse)
     say(f"phase CL: the compile CLI (--witness-gpu, {b_cli} witnesses a "
         "circuit)")
-    phase_cli(mm, dev.type, b_cli)
+    phase_cli(cli_runs(mm), dev.type, b_cli)
     say(f"the CPU baseline ({b_base} witnesses a circuit)")
     cpu_baseline(mm, b_base)
     t_mm = time.perf_counter() - t_mm
@@ -1687,15 +1911,26 @@ def main():
     for name, label, b in (
             ("n2b254", "Num2Bits(254)/bn128 (segments)", B),
             ("n2b254x4", "4 x Num2Bits(254)/bn128 (segments)", B),
-            ("bigdiv_bits", "bigint-div + Num2Bits(254)/bn128 (per-op)",
-             b_div),
-            ("n2b254x16", "16 x Num2Bits(254)/bn128 (per-op)", b_div)):
+            ("bigdiv_bits", "bigint-div + Num2Bits(254)/bn128 "
+             "(straight-line)", b_div),
+            ("n2b254x16", "16 x Num2Bits(254)/bn128 (scan)", b_div)):
         t = seg[name]
         say(f"{label} path: {t['run_ms']:.1f} ms witness run "
             f"({b / t['run_ms'] * 1e3:.0f} witnesses/s), "
             f"{t['check_ms']:.1f} ms R1CS check (batch {b})"
             + (f"; K4 {seg['k4'][name]:.4f} ms" if name in seg["k4"]
                else ""))
+    q = seg["q_compare"]
+    say("16 x Num2Bits(254)/bn128 at batch %d: scan %.1f ms (idle %s), "
+        "straight-line %.1f ms (idle %s)" % (
+            b_div, q["scan"]["run_ms"], q["scan"]["idle"],
+            q["straight-line"]["run_ms"], q["straight-line"]["idle"]))
+    for slots in (8, 64):
+        t = seg[f"n2b254x16_s{slots}"]
+        say(f"16 x Num2Bits(254)/bn128 scan, {slots} slots: "
+            f"{t['run_ms']:.1f} ms witness run ({b_qs / t['run_ms'] * 1e3:.0f}"
+            f" witnesses/s), {t['check_ms']:.1f} ms R1CS check (batch "
+            f"{b_qs}), idle {t['idle']}, peak {t['peak_gib']} GiB")
     for t in mm.values():
         say(f"{t['label']} path: {t['run_ms']:.1f} ms witness run "
             f"({t['B'] / t['run_ms'] * 1e3:.0f} witnesses/s), "

@@ -10,9 +10,9 @@ JAX package: only the nodes that reach a witness output run, each value
 is freed after its last use, and an output row is written into the
 witness as soon as it is computed.
 
-The same executor serves the tapes the JAX package sends to its scan
-(`_run`, long tapes): the scan bounds XLA's compile time, and eager
-PyTorch compiles nothing.  Its (level, opcode) packing is not ported.
+Longer tapes (above WitnessProgram's `unroll_threshold`) go to the scan
+executor (backend/scan.py), as the JAX package sends them to its scan;
+both executors compute a node with `node_value`.
 """
 
 import copy
@@ -77,37 +77,6 @@ class PerOpProgram:
     def n_live(self):
         return len(self.order)
 
-    def _node(self, i, a):
-        """The value of compute node i from its operands' values."""
-        f = self.field
-        op, imm = self.dt.ops[i], self.dt.imms[i]
-        if op == "mul":
-            return fk.mont_mul(f, a[0], a[1])
-        if op == "add":
-            return fk.add(f, a[0], a[1])
-        if op == "sub":
-            return fk.sub(f, a[0], a[1])
-        if op == "to_mont":
-            return fk.to_mont(f, a[0])
-        if op == "from_mont":
-            return fk.from_mont(f, a[0])
-        if op == "mulp":
-            return f.mul_norm(a[0], a[1])
-        if op == "div":
-            return f.div_mont(a[0], a[1])
-        if op == "pow_k":
-            return f.pow_mont(a[0], imm)
-        if op == "mod":
-            return f.imod(a[0], a[1])
-        if op == "shl_k":
-            return f.shift_l_const(a[0], imm)
-        if op == "shr_k":
-            return f.shift_r_const(a[0], imm)
-        method = _METHODS.get(op)
-        if method is None:
-            raise NotImplementedError(op)
-        return getattr(f, method)(*a)
-
     def _run(self, inputs):
         """uint32 (n_inputs, L, B), an array or a tensor -> witness uint32
         (n_witness, L, B) on the field's device."""
@@ -124,7 +93,8 @@ class PerOpProgram:
             elif op == "input":
                 v = x[dt.imms[i]].view(torch.uint32)
             else:
-                v = self._node(i, [vals[a] for a in dt.args[i]])
+                v = node_value(self.field, op,
+                               [vals[a] for a in dt.args[i]], dt.imms[i])
             for w in self.out_pos.get(i, ()):
                 out[w] = v.view(torch.int32)
             if self.last_use[i] > i:
@@ -133,6 +103,38 @@ class PerOpProgram:
                 if self.last_use[a] == i:
                     del vals[a]
         return out.view(torch.uint32)
+
+
+def node_value(f: TorchField, op, a, imm):
+    """The value of a compute node of opcode `op` from its operands'
+    values `a` (uint32 limb tensors) and its immediate: one call of the
+    per-op library."""
+    if op == "mul":
+        return fk.mont_mul(f, a[0], a[1])
+    if op == "add":
+        return fk.add(f, a[0], a[1])
+    if op == "sub":
+        return fk.sub(f, a[0], a[1])
+    if op == "to_mont":
+        return fk.to_mont(f, a[0])
+    if op == "from_mont":
+        return fk.from_mont(f, a[0])
+    if op == "mulp":
+        return f.mul_norm(a[0], a[1])
+    if op == "div":
+        return f.div_mont(a[0], a[1])
+    if op == "pow_k":
+        return f.pow_mont(a[0], imm)
+    if op == "mod":
+        return f.imod(a[0], a[1])
+    if op == "shl_k":
+        return f.shift_l_const(a[0], imm)
+    if op == "shr_k":
+        return f.shift_r_const(a[0], imm)
+    method = _METHODS.get(op)
+    if method is None:
+        raise NotImplementedError(op)
+    return getattr(f, method)(*a)
 
 
 # ops whose per-op method takes the operands alone

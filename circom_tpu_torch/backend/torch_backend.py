@@ -12,14 +12,20 @@ backends runs it, chosen as the JAX package chooses (`jax_backend.py`
 2. the segments (SegmentedProgram: kernel K4, generated per program),
    unless the tape holds a live `idiv` or its unrolled cost is above
    segments.MAX_COST;
-3. the per-op path (PerOpProgram: a field-library call per node, the
-   products, adds and subtracts on kernels K5 and K6).
+3. the per-op executors, whose products, adds and subtracts are kernels
+   K5 and K6: a tape of up to `unroll_threshold` ops runs straight-line
+   (PerOpProgram: a field-library call per live node, JAX's `_run_ssa`),
+   a longer one on the scan (ScanProgram: steps of same-(level, opcode)
+   nodes over a register file, the gathers on kernel K2, JAX's
+   `lax.scan` path).  The JAX entry points pass `unroll_threshold=0`, and
+   so do the port's.
 
-The choice depends on the tape alone: it is made at construction from
-the planners' refusals (NotImplementedError / UnsupportedTapeOp), never
-from whether a kernel builds or launches, so both packages send every
-tape to the same backend.  On the CPU each backend runs its kernels'
-plain versions; nothing falls back to another executor on the card.
+The choice depends on the tape and the threshold alone: it is made at
+construction from the planners' refusals (NotImplementedError /
+UnsupportedTapeOp), never from whether a kernel builds or launches, so
+both packages send every tape to the same executor.  On the CPU each
+executor runs its kernels' plain versions; nothing falls back to another
+executor on the card.
 """
 
 import copy
@@ -39,13 +45,10 @@ from .interp_plan import InterpreterPlan
 from .perop import PerOpProgram
 from .plan import UnsupportedTapeOp
 from .ranges import narrow_nodes
+from .scan import ScanProgram, schedule
 from .segments import SegmentedProgram
 
 MODES = ("auto", "interp", "segments", "scan")
-# the JAX package runs per-op tapes of up to this many ops straight-line
-# (`_run_ssa`) and longer ones in its scan; the port runs both
-# straight-line and keeps the JAX default only for `unroll`
-UNROLL_THRESHOLD = 4096
 
 
 def domain_tape(tape, spec: FieldSpec, input_ranges=None):
@@ -77,14 +80,16 @@ class WitnessProgram:
     """Executable form of a tape for one field on one device.
 
     mode: "auto" tries the interpreter, then the segments, then the
-    per-op path; "interp" and "segments" raise UnsupportedTapeOp when
-    their backend refuses the tape; "scan" takes the per-op path.
-    `fused` is the TorchInterpreter, the SegmentedProgram or None (the
-    per-op path), and `unroll` mirrors the JAX attribute (see
-    UNROLL_THRESHOLD)."""
+    per-op executors; "interp" and "segments" raise UnsupportedTapeOp
+    when their backend refuses the tape; "scan" takes the per-op
+    executors.  `fused` is the TorchInterpreter, the SegmentedProgram or
+    None; without it, `unroll` (len(dt.ops) <= unroll_threshold, as in
+    JAX) picks `perop`, the straight-line path, else `scan`, planned
+    here with `slots` slots a step."""
 
     def __init__(self, tape, spec: FieldSpec, device="cuda",
-                 input_ranges=None, mode="auto"):
+                 input_ranges=None, mode="auto", unroll_threshold=4096,
+                 slots=8):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} is not one of {MODES}")
         self.device = resolve_device(device)
@@ -94,7 +99,8 @@ class WitnessProgram:
         self.input_ranges = input_ranges or {}
         self.dt = domain_tape(tape, spec, self.input_ranges)
         self.n_inputs = tape.n_inputs
-        self.fused = self.plan = self.interp = self.perop = None
+        self.slots = max(1, slots)
+        self.fused = self.plan = self.interp = self.perop = self.scan = None
         if mode in ("auto", "interp"):
             try:
                 self.plan = interp_plan(self.dt, spec, self.input_ranges)
@@ -111,9 +117,12 @@ class WitnessProgram:
             except NotImplementedError:
                 if mode == "segments":
                     raise
-        if self.fused is None:
+        self.unroll = len(self.dt.ops) <= unroll_threshold
+        if self.fused is None and self.unroll:
             self.perop = PerOpProgram(self.dt, self.field)
-        self.unroll = len(self.dt.ops) <= UNROLL_THRESHOLD
+        elif self.fused is None:
+            self.scan = ScanProgram(schedule(self.dt, self.slots),
+                                    self.field)
         self.n_witness = len(self.dt.outputs)
         # trailing guard outputs from predicated while unrolling: the
         # caller must check these rows are zero (see pipeline.build_tape)
@@ -125,8 +134,9 @@ class WitnessProgram:
     def for_device(self, device):
         """This program on `device`: the same DomainTape and plan, whose
         host tables (the interpreter's plan arrays, the segments, the
-        per-op constants) are carried there; nothing is planned again.
-        One copy a device, kept: shards on one device share it."""
+        straight-line path's constants, the scan's schedule) are carried
+        there; nothing is planned again.  One copy a device, kept: shards
+        on one device share it."""
         device = resolve_device(device)
         twin = self._copies.get(device)
         if twin is None:
@@ -138,6 +148,8 @@ class WitnessProgram:
                     self.interp.plan.to(device), twin.field)
             elif self.fused is not None:
                 twin.fused = self.fused.for_field(twin.field)
+            elif self.scan is not None:
+                twin.scan = self.scan.for_field(twin.field)
             else:
                 twin.perop = self.perop.for_field(twin.field)
             self._copies[device] = twin
@@ -148,6 +160,8 @@ class WitnessProgram:
         tensor (n_witness, L, B) on the program's device."""
         if self.fused is not None:
             return self.fused._run(inputs)
+        if self.scan is not None:
+            return self.scan._run(inputs)
         return self.perop._run(inputs)
 
     def run_mixed(self, inputs):

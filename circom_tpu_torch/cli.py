@@ -278,7 +278,7 @@ def main(argv=None):
             _print_reports(r, cc.archive.file_library)
             return 1
         prog = WitnessProgram(tape, field_spec(args.prime), device=device,
-                              input_ranges=hints)
+                              unroll_threshold=0, input_ranges=hints)
         # guards of unrolled while loops (T3013) and, at --sanity_check
         # >= 1, the batched Az∘Bz−Cz check of every witness (T3012): the
         # equivalent of the reference's asserts injected into generated

@@ -89,7 +89,8 @@ def _flagship(device):
     spec = field_spec("bn128")
     cc = compile_source(poseidon2_source())
     tape, _ = cc.build_tape()
-    return cc, WitnessProgram(tape, spec, device=device), spec
+    return cc, WitnessProgram(tape, spec, device=device,
+                              unroll_threshold=0), spec
 
 
 def _example_inputs(prog, batch):
@@ -159,7 +160,8 @@ def _dryrun_fused_mixed(mesh, n_devices):
     if len(ranges) != tape.n_inputs:
         raise AssertionError("Bits: not every input is range-hinted")
     prog = WitnessProgram(tape, spec, device=mesh.devices[0],
-                          mode="interp", input_ranges=ranges)
+                          unroll_threshold=0, mode="interp",
+                          input_ranges=ranges)
     batch = max(n_devices, 2) * 2
     rng = random.Random(11)
     cols = [[rng.randrange(2) for _ in range(batch)] for _ in range(8)]
@@ -193,7 +195,7 @@ def _dryrun_dynops_extern(mesh, n_devices):
             raise AssertionError("the extern call or the idiv is not on "
                                  "the tape")
         prog = WitnessProgram(tape, spec, device=mesh.devices[0],
-                              mode="interp")
+                              unroll_threshold=0, mode="interp")
         batch = max(n_devices, 2) * 2
         rng = random.Random(5)
         p = spec.p

@@ -94,6 +94,8 @@ class TorchField:
         self.sign_w = torch.as_tensor([1 << i for i in range(self.L)],
                                       dtype=torch.int64,
                                       device=self.device)[:, None]
+        self.one_mont_list = [int(x) for x in c["one_mont_limbs"]]
+        self._consts = {}
 
     # -- int64 core ----------------------------------------------------
     def borrows(self, d):
@@ -203,8 +205,15 @@ class TorchField:
     # on int64 limbs, each over whole limb tensors: a few launches a call
     # on the card, none a limb.
     def _const_u32(self, limbs, like):
-        return torch.as_tensor(limbs, dtype=torch.int32,
-                               device=like.device)[:, None].view(torch.uint32)
+        """A constant (L, 1) on like's device, copied there once: a copy
+        from pageable host memory waits for the device's stream."""
+        key = (tuple(int(v) for v in limbs), like.device)
+        c = self._consts.get(key)
+        if c is None:
+            c = self._consts[key] = torch.as_tensor(
+                key[0], dtype=torch.int32,
+                device=like.device)[:, None].view(torch.uint32)
+        return c
 
     def _emit(self, op, *xs):
         """wide.emit's op on uint32 operands."""
@@ -225,13 +234,26 @@ class TorchField:
         (left to right, a square a bit and a product a set bit)."""
         fk = _kernels()
         if e == 0:
-            one = spec_constants(self.spec)["one_mont_limbs"]
-            return self._const_u32(one.astype("int64"), a).expand(a.shape)
+            return self._const_u32(self.one_mont_list, a).expand(a.shape)
         acc = a
         for bit in bin(e)[3:]:
             acc = fk.mont_mul(self, acc, acc)
             if bit == "1":
                 acc = fk.mont_mul(self, acc, a)
+        return acc
+
+    def pow_dyn(self, a, e):
+        """a^e[s] in Montgomery form for each slot s of a (S, L, B), e
+        int64 (S,) in [0, 2^31): the scan's per-slot power
+        (backend/jax_backend.py `_branch` pow_dyn), 32 rounds from one of
+        a square and a product kept where bit 31 - i of e is set."""
+        fk = _kernels()
+        acc = self._const_u32(self.one_mont_list, a).expand(a.shape)
+        for i in range(32):
+            acc = fk.mont_mul(self, acc, acc)
+            bit = ((e >> (31 - i)) & 1).bool()[:, None, None]
+            acc = torch.where(bit, fk.mont_mul(self, acc, a).view(torch.int32),
+                              acc.view(torch.int32)).view(torch.uint32)
         return acc
 
     def inv_mont(self, a):
@@ -288,6 +310,15 @@ class TorchField:
     def shift_l_const(self, a, k: int):
         """(a << k) masked to the field's bits, mod p; static k >= 0."""
         return as_u32(_wide().shift_w(self, as_i64(a), k, True))
+
+    def shift_r_dyn(self, a, k):
+        """a >> k[s] for each slot s of a (S, L, B), k int64 (S,) >= 0."""
+        return as_u32(_wide().shift_dyn(self, as_i64(a), k, False))
+
+    def shift_l_dyn(self, a, k):
+        """(a << k[s]) masked to the field's bits, mod p, for each slot s
+        of a (S, L, B), k int64 (S,) >= 0."""
+        return as_u32(_wide().shift_dyn(self, as_i64(a), k, True))
 
     def idiv(self, a, b):
         """a // b of canonical representatives, idiv(a, 0) = 0 (jfield.idiv,

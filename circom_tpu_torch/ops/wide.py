@@ -166,6 +166,30 @@ def shift_w(field: TorchField, x, count, left):
     return field.cond_sub64(out, _zero(out))
 
 
+def shift_dyn(field: TorchField, x, k, left):
+    """x << k[s] (masked to the field's bits, then one conditional
+    subtract) or x >> k[s] for each slot s of x (S, L, B), k int64 (S,)
+    >= 0: the scan's per-slot shifts (backend/jax_backend.py `_branch`
+    shl_dyn / shr_dyn).  Limb j takes limb j -+ q and its neighbour
+    j -+ (q + 1), zero beyond the limbs, q = k // 16, r = k % 16."""
+    L = field.L
+    q = (k // LIMB_BITS)[:, None, None]
+    r = (k % LIMB_BITS)[:, None, None]
+    j = torch.arange(L, device=x.device)[None, :, None]
+    step = -1 if left else 1
+    idx = j + step * q
+
+    def take(i):
+        g = torch.gather(x, -2, i.clamp(0, L - 1).expand(x.shape))
+        return torch.where((i >= 0) & (i < L), g, 0)
+
+    g, g2 = take(idx), take(idx + step)
+    if not left:
+        return (g >> r) | ((g2 << (LIMB_BITS - r)) & MASK)
+    out = (((g << r) & MASK) | (g2 >> (LIMB_BITS - r))) & field.mask_limbs
+    return field.cond_sub64(out, _zero(out))
+
+
 def widen64(field: TorchField, v):
     """Signed 32-bit values (..., B) -> canonical limbs int64 (..., L, B):
     v, or p + v for v < 0 (backend/interp.py `widen_rows`)."""

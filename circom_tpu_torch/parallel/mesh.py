@@ -16,7 +16,9 @@ virtual devices.  Shards on distinct cards are launched one after
 another with no host sync between them, so they overlap.  The JAX
 module's `use_fused` and `_without_pl_gather` answer Mosaic under
 `shard_map` and have no counterpart: a program runs on the backend chosen
-at its construction (`mode="scan"` for JAX's `use_fused=False`).
+at its construction (`mode="scan"` for JAX's `use_fused=False`: the scan
+executor at `unroll_threshold=0`, whose tables `for_device` carries to
+each device like the fused backends' plans).
 """
 
 from dataclasses import dataclass

@@ -88,7 +88,8 @@ def _worker(coordinator, nproc, pid, local_devices, out_path, prime,
         spec = field_spec(prime)
         cc = compile_source(SRC, prime=prime)
         tape, _ = cc.build_tape()
-        prog = WitnessProgram(tape, spec, device=dev, mode="scan")
+        prog = WitnessProgram(tape, spec, device=dev, unroll_threshold=0,
+                              mode="scan")
         checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
                               device=dev)
 

@@ -65,11 +65,11 @@ def main(argv=None):
         return 1
     try:
         prog = WitnessProgram(tape, spec, device=args.device,
-                              input_ranges=hints)
+                              unroll_threshold=0, input_ranges=hints)
     except (RuntimeError, UnsupportedTapeOp) as e:
         # no card for --device cuda; every tape has a backend (interpreter,
-        # segments or per-op), so UnsupportedTapeOp comes only from a
-        # forced mode, which this entry point does not take
+        # segments, straight-line or scan), so UnsupportedTapeOp comes
+        # only from a forced mode, which this entry point does not take
         print(f"error: {e}", file=sys.stderr)
         return 1
 

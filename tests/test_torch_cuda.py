@@ -484,6 +484,54 @@ def test_perop_bigdiv_num2bits_matches_host_and_r1cs(card):
             == host
 
 
+POW_DIV_SRC = """
+pragma circom 2.0.0;
+template PowDiv() {
+    signal input a;
+    signal input b;
+    signal output o[5];
+    o[0] <-- a ** 5;
+    o[1] <-- a / b;
+    o[2] <-- a % b;
+    o[3] <-- (a * b) ** 65537;
+    o[4] <-- a ** 2147483647;
+}
+component main = PowDiv();
+"""
+
+
+@pytest.mark.parametrize("slots", (8, 64))
+@pytest.mark.parametrize("circuit", ("bigdiv_num2bits", "pow_div"))
+def test_scan_steps_match_plain(card, circuit, slots):
+    """The scan executor on the card (K2 gathers, K5 and K6) against its
+    plain version on the CPU, step for step, over bn128: bigint-div +
+    Num2Bits(254) (idiv, mod, products, shifts, ands, adds) and powers
+    and a division (pow_k with per-slot exponents, div), lanes dividing
+    by 0 included; no interpreter and no K4."""
+    cc = compile_source(bigdiv_num2bits_source() if circuit ==
+                        "bigdiv_num2bits" else POW_DIV_SRC)
+    spec = field_spec("bn128")
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=card,
+                          mode="scan", unroll_threshold=0, slots=slots)
+    assert prog.scan is not None
+    plain = prog.for_device("cpu")
+    rng = random.Random(6)
+    B = 300
+    cols = [[rng.randrange(spec.p) for _ in range(B)],
+            [rng.randrange(spec.p) for _ in range(B)]]
+    cols[1][1] = 0
+    x = prog.encode_inputs(cols)
+    build.reset_launches()
+    wit = prog.run(x)
+    torch.cuda.synchronize()
+    assert all(build.LAUNCHES[k] for k in ("gather_w", "mont_mul", "sub"))
+    assert not any(k.startswith("interp") or k == "k4"
+                   for k in build.LAUNCHES)
+    np.testing.assert_array_equal(
+        wit.view(torch.int32).cpu().numpy(),
+        plain.run(x).view(torch.int32).numpy())
+
+
 def test_build_generated_is_cached(card, monkeypatch):
     """A second build of the same generated text loads the library nvcc
     wrote the first time, without calling nvcc."""

@@ -4,11 +4,13 @@
   comparisons, booleans, bit ops, constant shifts, idiv, imod, select)
   against JaxField on seeded operands with the edges 0, 1, p - 1, p // 2
   and p // 2 + 1, full and broadcast (a constant (L, 1) operand).
-- The per-op executor (WitnessProgram mode "scan") against the JAX
-  WitnessProgram's scan path (unroll_threshold=0) and its straight-line
-  `_run_ssa` (the default) on small circuits, and against the host
-  calculator on bigint-div + Num2Bits(254) and 16 x Num2Bits(254) over
-  bn128, the two full-width tapes both fused backends refuse.
+- The straight-line executor (WitnessProgram mode "scan" at the default
+  threshold) against the JAX WitnessProgram's scan path
+  (unroll_threshold=0) and its straight-line `_run_ssa` (the default) on
+  small circuits, and the per-op executors against the host calculator
+  on bigint-div + Num2Bits(254) (straight-line) and 16 x Num2Bits(254)
+  (the scan) over bn128, the two full-width tapes both fused backends
+  refuse.  tests/test_torch_scan.py holds the scan against JAX's.
 - Backend choice: the port sends each tape to the backend the JAX package
   sends it to (type of `fused`, and `unroll`).
 - The entry point writes a Num2Bits(254) witness whose .wtns bytes equal
@@ -179,13 +181,15 @@ def test_perop_bigdiv_num2bits_matches_host():
 
 
 def test_perop_16_num2bits_matches_host():
-    """16 x Num2Bits(254) over bn128: above the segments' max_cost, the
-    JAX package's scan class."""
+    """16 x Num2Bits(254) over bn128: above the segments' max_cost and,
+    at 9,415 ops, above the default unroll threshold, so on the scan, as
+    in the JAX package; every node scheduled, the dead sums included."""
     cc = compile_source(num2bits_source(254, 16))
     wp = WitnessProgram(cc.build_tape()[0], field_spec("bn128"),
                         device="cpu")
-    assert wp.fused is None and not wp.unroll
-    assert wp.perop.n_live() < len(wp.dt.ops)      # the dead sums dropped
+    assert wp.fused is None and not wp.unroll and wp.perop is None
+    assert len(wp.dt.ops) == 9415
+    assert (wp.scan.sched.n_steps, wp.scan.sched.n_regs) == (1366, 4344)
     p = field_spec("bn128").p
     cols = [[p - 1 - k, (1 << 253) + k] for k in range(16)]
     host_check(cc, wp, cols, lambda v: {"a": v})
