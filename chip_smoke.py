@@ -12,6 +12,10 @@ mismatch exits non-zero.  The paths:
   witness (K1b, K3), every lane's digest against hashlib;
 - SHA256 over bn128, batch 8,192: the full-limb run and the R1CS check of
   every lane (K1b, K3, K5, K6);
+- bench_gpu.py's workloads in-process (phase BG): Poseidon2/bn128 at
+  65,536, SHA256/bn128 run_mixed at 32,768, Poseidon2/goldilocks at 65,536
+  and bigint-div/bn128 at 8,192 (K1a-K1d, K2, K3), each gated as the
+  bench gates it, the CPU baseline, and the bench's record checked;
 - Poseidon2 over goldilocks, batch 65,536: run and R1CS check (K1c with
   K1a, K2, K5 and K6 at L = 4);
 - bigint-div over bn128, batch 8,192: run and R1CS check (K1d's long
@@ -87,8 +91,6 @@ try:
                                                      gather_rows, run_plan)
     from circom_tpu_torch.backend.torch_backend import WitnessProgram
     from circom_tpu_torch.circuits import sha256_io
-    from circom_tpu_torch.backend.interp_plan import (
-        _NARROW_RESULT as NARROW_RESULT)
     from circom_tpu_torch.backend.segments import (SegmentedProgram,
                                                    segment_k4, segment_ref)
     from circom_tpu_torch.circuits.gen_poseidon import generate
@@ -102,8 +104,7 @@ try:
                                                    segment_ops_source)
     from circom_tpu_torch.compiler.pipeline import compile_source
     from circom_tpu_torch.convert import (K1B_OPCODES, K1C_OPCODES,
-                                          K1D_OPCODES, OPCODES,
-                                          narrow_unit_arrays,
+                                          K1D_OPCODES, narrow_unit_arrays,
                                           plan_from_arrays, to_device,
                                           unit_arrays, unit_inputs,
                                           unit_shifts)
@@ -123,19 +124,19 @@ try:
                                                 shard_program)
     from circom_tpu_torch.utils.profiling import (profile_breakdown,
                                                   sync_all, wall_ms)
+    from circom_tpu_torch.utils.roofline import (HBM_BYTES_PER_S,
+                                                 INT_OPS_PER_SM_CLOCK,
+                                                 k1_ops, lane_ops_per_s)
+
+    import bench_gpu
 except ImportError as e:
     print(f"chip_smoke: the port is not importable here ({e})",
           file=sys.stderr)
     sys.exit(2)
 
-# H100 SXM peak HBM3 bandwidth (NVIDIA data sheet), and the peak rate of
-# 32-bit integer instructions, which main() reads off the card: 64 integer
-# adds or multiply-adds a clock on each SM (the CUDA C++ Programming
-# Guide's throughput table, compute capability 9.0) x the SMs x the
-# card's maximum SM clock.  Until then (and in a CPU rehearsal, which
-# keeps no number), an H100 SXM's 132 SMs at 1,980 MHz.
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_SM_CLOCK = 64
+# The peak rate of 32-bit integer instructions, which main() reads off the
+# card (utils/roofline.lane_ops_per_s).  Until then (and in a CPU
+# rehearsal, which keeps no number), an H100 SXM's 132 SMs at 1,980 MHz.
 LANE_OPS_PER_S = INT_OPS_PER_SM_CLOCK * 132 * 1980e6
 
 BATCH = 65536
@@ -202,6 +203,14 @@ def bounds(nbytes, ops):
 def bound(nbytes, ops):
     t_bytes, t_ops = bounds(nbytes, ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def segments(dev):
+    """The device memory segments PyTorch's caching allocator has
+    allocated with cudaMalloc so far; 0 on the CPU."""
+    if dev.type != "cuda":
+        return 0
+    return torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
 
 
 def max_abs_err(x, y, rows=1024):
@@ -293,18 +302,6 @@ def k5_ops(L):
     each (the low and the high word); the carries' adds are not
     counted."""
     return 2 * 2 * (L // 2) ** 2
-
-
-def lane_ops_per_s(dev):
-    """The card's peak rate of 32-bit integer instructions:
-    INT_OPS_PER_SM_CLOCK x its SMs x its maximum SM clock (nvidia-smi
-    clocks.max.sm, MHz)."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True)
-    mhz = float(smi.stdout.split()[0])
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return INT_OPS_PER_SM_CLOCK * sms * mhz * 1e6, sms, mhz
 
 
 def edge_operands(spec, dev):
@@ -442,33 +439,6 @@ def phase_gather(rep, plan, B, dev):
             library_ms=lib_ms, copy_ms=copy_ms)
 
 
-# 32x32->64-bit products of K1's product opcodes a lane, in units of N^2
-# (N = L/2 words): a Montgomery product 2, a dot of n terms n + 1, a
-# goldilocks product (one 64x64->128-bit product in N = 2 words) 1
-_PRODUCTS_N2 = {"mul": 2, "mul_r2": 2, "mul_c": 2, "mul_one": 2,
-                "dot2_c": 3, "dot3_c": 4, "gmul": 1, "gmul_c": 1}
-
-
-def k1_ops(plan, bits):
-    """32-bit integer instructions K1 executes a lane, counted low: two a
-    32x32->64-bit product (the low and the high word) of the products,
-    dots, goldilocks products and trailing REDCs (N^2 products each) in
-    N = L/2 words; 4N a bit of p for the long division (shift, subtract,
-    select, quotient); N for another wide step and 1 for a narrow one."""
-    N = plan.L // 2
-    products = int(plan.mont_tab.sum()) * N * N
-    ops = 0
-    for k in plan.table[:plan.n_steps, 0].tolist():
-        op = OPCODES[k]
-        if op in _PRODUCTS_N2:
-            products += _PRODUCTS_N2[op] * N * N
-        elif op == "idiv":
-            ops += 4 * N * bits
-        else:
-            ops += 1 if op in NARROW_RESULT else N
-    return 2 * products + ops
-
-
 def phase_interp(rep, prog, x_w):
     """K1a against the plain executor on the Poseidon2 plan, emitted bank
     rows compared bit for bit after the trailing REDC."""
@@ -507,7 +477,9 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
                           device=dev, lanes=CHECK_LANES)
 
     def run_and_check():
+        seg = segments(dev)
         wit, run_ms = wall_ms(lambda: prog.run(inputs))
+        seg = segments(dev) - seg
         (ok, first_bad), check_ms = wall_ms(
             lambda: checker.check_detailed(wit))
         n_bad = int((~ok).sum())
@@ -515,14 +487,19 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
             raise SystemExit(f"FAIL {name} R1CS check: {n_bad} of {B} lanes "
                              f"violate a constraint (first: "
                              f"{first_bad[~ok][:5].tolist()})")
-        return wit, run_ms, check_ms
+        return wit, run_ms, check_ms, seg
 
-    # the first run is the one counted; the second, warm, is timed
+    # the first run is the one counted; the second, warm, is timed, then
+    # five more a run at a time without a check between them (each output
+    # dropped at once), as bench_gpu.py times its runs
     paths.run(name, run_and_check, must_launch, never)
-    wit, run_ms, check_ms = run_and_check()
+    wit, run_ms, check_ms, seg = run_and_check()
+    again = sorted(wall_ms(lambda: prog.run(inputs))[1] for _ in range(5))
     say(f"  witnesses: {tuple(wit.shape)} in {run_ms:.1f} ms "
-        f"({B / run_ms * 1e3:.0f} witnesses/s); R1CS check of all {B} "
-        f"lanes in {check_ms:.1f} ms")
+        f"({B / run_ms * 1e3:.0f} witnesses/s, one run after a check; "
+        f"{seg} device memory segments allocated in it); R1CS check of all "
+        f"{B} lanes in {check_ms:.1f} ms; then a run at a time "
+        f"{again[2]:.3f} ms (median of 5, {again[0]:.3f}-{again[-1]:.3f})")
     if profile_check and dev.type == "cuda":
         profile_check_breakdown(checker, wit, check_ms)
     native_lanes = SAMPLE_LANES if native else 0
@@ -991,8 +968,8 @@ def same_witness(a, b):
 
 def idle_share(prog, x, run_ms):
     """The device's idle share of one traced run (profile_breakdown)."""
-    busy, ms = profile_breakdown(lambda: prog.run(x), run_ms, reps=1,
-                                 warmup=0, aten=False)
+    busy, ms, _ = profile_breakdown(lambda: prog.run(x), run_ms, reps=1,
+                                    warmup=0, aten=False)
     return max(0.0, 1 - busy / ms)
 
 
@@ -1542,8 +1519,8 @@ def phase_mesh(paths, mk, lanes, rehearse):
                     f"{ms:.1f} ms")
         del shards
         if len(cards) > 1:
-            busy, ms = profile_breakdown(lambda: step(x), warm_ms, reps=1,
-                                         aten=False)
+            busy, ms, _ = profile_breakdown(lambda: step(x), warm_ms,
+                                            reps=1, aten=False)
             say(f"  {len(cards)} cards busy {busy:.1f} ms in a {ms:.1f} ms "
                 f"step: the shards overlap {busy / ms:.2f}-fold")
     return {"B": B, "run_ms": run_ms, "warm_ms": warm_ms,
@@ -1713,6 +1690,52 @@ def phase_sha_kernels(rep, prog, x, dev, B_cmp):
     return k1_ms, k3_ms
 
 
+# bench_gpu.py's workloads and the kernels each must launch: K1's parts,
+# K2 for a wide witness, K3 for SHA256's mixed one
+BG_KERNELS = {"poseidon2": ("interp_k1a", "gather_w"),
+              "sha256": ("interp_k1b", "gather_n"),
+              "poseidon2_gl": ("interp_k1c", "interp_k1a", "gather_w"),
+              "bigint_div": ("interp_k1d", "interp_k1a", "gather_w")}
+BG_POSITIVE = ("value", "poseidon2_gpu_wit_s", "sha256_gpu_wit_s",
+               "poseidon2_gl_gpu_wit_s", "bigint_div_gpu_wit_s",
+               "vs_baseline", "vs_baseline_allcore", "sha256_vs_baseline",
+               "poseidon2_gl_vs_baseline")
+
+
+def phase_bench(paths, dev, sha, rehearse):
+    """Phase BG: bench_gpu.py's workloads in-process, in its order
+    (bench_gpu.run), each under Paths.run with its kernels in BG_KERNELS,
+    the CPU baseline after Poseidon2 unless cached; SHA256 reuses phase
+    B's compile and program (`sha`).  Its final record is printed and
+    checked: every key and no other, not partial, every gate held; on the
+    card, the card's name and every key of BG_POSITIVE above 0."""
+    bench = bench_gpu.Bench(dev, bench_gpu.REHEARSE if rehearse
+                            else bench_gpu.FULL, compiled={"sha256": sha})
+    rc = bench_gpu.run(bench, under=lambda name, fn: paths.run(
+        f"bg_{name}", fn, BG_KERNELS[name]))
+    rec = bench.record(partial=False)
+    say(f"  bench_gpu record: {json.dumps(rec)}")
+    if rc:
+        raise SystemExit("FAIL BG: a bench workload failed (its traceback "
+                         "above)")
+    odd = set(rec) ^ set(bench_gpu.RECORD_KEYS)
+    if odd:
+        raise SystemExit(f"FAIL BG: the record's keys differ from "
+                         f"RECORD_KEYS: {odd}")
+    if set(bench.gates) != set(BG_KERNELS):
+        raise SystemExit(f"FAIL BG: gates held {sorted(bench.gates)}")
+    for name, gate in bench.gates.items():
+        say(f"  {name}: {gate}")
+    if rehearse:
+        return rec
+    if rec["device"] != torch.cuda.get_device_name(0):
+        raise SystemExit(f"FAIL BG: the record's device is {rec['device']}")
+    bad = [k for k in BG_POSITIVE if not (rec[k] and rec[k] > 0)]
+    if bad:
+        raise SystemExit(f"FAIL BG: not above 0: {bad}")
+    return rec
+
+
 def sha256_full_path(paths, cc, prog, spec, dev, B):
     """Phase D: the full-limb SHA256 witness at batch B and the R1CS check
     of every lane, the checker's slice sized by its byte budget."""
@@ -1848,12 +1871,19 @@ def main():
         f"{b_full})")
     full_ms, full_check_ms = sha256_full_path(paths, sha, sha_prog, spec, dev,
                                               b_full)
-    del sha_prog
     say("phase E: the witness entry point (SHA256)")
     msgs = sha256_messages(2, SEED + 7)
     bits = sha256_io.msgs_to_bits_batch(msgs)
     phase_entry_point(sha, dev.type, "sha",
                       [{"in": [int(v) for v in bits[:, j]]} for j in range(2)])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say("phase BG: bench_gpu.py's workloads (Poseidon2, SHA256 mixed, "
+        "Poseidon2/goldilocks, bigint-div) and its record")
+    t_bg = time.perf_counter()
+    bg = phase_bench(paths, dev, (sha, sha_prog), args.rehearse)
+    t_bg = time.perf_counter() - t_bg
+    del sha_prog
 
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1900,6 +1930,14 @@ def main():
         f"{k1b_ms:.3f} ms, K3 {k3_ms:.3f} ms")
     say(f"SHA256 full path: {full_ms:.1f} ms full-limb run, "
         f"{full_check_ms:.1f} ms R1CS check (batch {b_full})")
+    say("bench_gpu.py's workloads (phase BG): "
+        + ", ".join(f"{k} {bg[k]}" for k in (
+            "poseidon2_gpu_wit_s", "poseidon2_wall_wit_s",
+            "poseidon2_device_ms_measured", "sha256_gpu_wit_s",
+            "sha256_wall_wit_s", "sha256_device_ms_measured",
+            "poseidon2_gl_gpu_wit_s", "bigint_div_gpu_wit_s", "vs_baseline",
+            "vs_baseline_allcore", "sha256_vs_baseline",
+            "poseidon2_gl_vs_baseline")))
     for name, label, b in (("poseidon2_gl", "Poseidon2/goldilocks", B),
                            ("bigdiv", "bigint-div/bn128", b_div),
                            ("comparators", "comparators/bn128", B)):
@@ -1946,7 +1984,8 @@ def main():
         + (", ".join(f"{d} {g:.1f} GiB" for d, g in m["peaks"].items())
            or "not measured")
         + f"; two processes (MH) {mh_ms / 1e3:.1f} s")
-    say(f"smoke total {time.perf_counter() - t_all:.1f} s, phases F-K "
+    say(f"smoke total {time.perf_counter() - t_all:.1f} s, phase BG "
+        f"{t_bg:.1f} s, phases F-K "
         f"{t_new:.1f} s, phases S-W {t_seg:.1f} s, phases MM-CL and the "
         f"baseline {t_mm:.1f} s, phases MS-GE {t_ms:.1f} s")
     if args.rehearse:

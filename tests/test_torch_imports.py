@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, nothing of circom_tpu and not the JAX
 package's benchmark (bench.py), anywhere in it.
 
-An AST walk over every module of circom_tpu_torch/ and chip_smoke.py finds
-no import of `jax`, of `circom_tpu` or of `bench`; a fresh interpreter that
-imports the port's modules has none of them in sys.modules.
+An AST walk over every module of circom_tpu_torch/, chip_smoke.py and
+bench_gpu.py finds no import of `jax`, of `circom_tpu` or of `bench`; a
+fresh interpreter that imports the port's modules has none of them in
+sys.modules.
 """
 
 import ast
@@ -15,7 +16,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "circom_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "bench_gpu.py"]
 FORBIDDEN = ("jax", "jaxlib", "circom_tpu", "bench")
 
 
@@ -51,6 +52,8 @@ def test_import_leaves_jax_unloaded():
             "import circom_tpu_torch.entry\n"
             "import circom_tpu_torch.parallel.mesh\n"
             "import circom_tpu_torch.parallel.multihost\n"
+            "import circom_tpu_torch.utils.roofline\n"
+            "import bench_gpu\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'circom_tpu', 'bench'))\n"
             "assert not bad, bad\n")
