@@ -7,17 +7,17 @@ just after, and runs the witness entry point on saved artifacts.  Any
 mismatch exits non-zero.  The paths:
 
 - Poseidon2 over bn128, batch 65,536: WitnessProgram.run, then the R1CS
-  check of every lane (kernels K1a, K2, K5, K6);
+  check of every lane (kernels K1a, K2, KC);
 - SHA256 over bn128, batch 65,536: WitnessProgram.run_mixed, the mixed
   witness (K1b, K3), every lane's digest against hashlib;
 - SHA256 over bn128, batch 8,192: the full-limb run and the R1CS check of
-  every lane (K1b, K3, K5, K6);
+  every lane (K1b, K3, KC);
 - bench_gpu.py's workloads in-process (phase BG): Poseidon2/bn128 at
   65,536, SHA256/bn128 run_mixed at 32,768, Poseidon2/goldilocks at 65,536
   and bigint-div/bn128 at 8,192 (K1a-K1d, K2, K3), each gated as the
   bench gates it, the CPU baseline, and the bench's record checked;
 - Poseidon2 over goldilocks, batch 65,536: run and R1CS check (K1c with
-  K1a, K2, K5 and K6 at L = 4);
+  K1a, K2 and KC at L = 4);
 - bigint-div over bn128, batch 8,192: run and R1CS check (K1d's long
   division);
 - the stdlib comparators over bn128 (LessThan(64), LessEqThan(64),
@@ -55,8 +55,10 @@ Unit plans hold every K1b, K1c and K1d opcode at the edge operands
 against its plain version, and K1 is held against the plain executor on
 every path's full plan; K4 is held against its plain version on every
 segment of the segmented paths and on two op circuits that reach every
-op a segment can hold.  Every path's sampled lanes equal the host
-calculator.
+op a segment can hold.  KC, the R1CS check of every path, is held against
+the check's plain route on a Poseidon2 slice, SHA256's 260-lane slice and
+random constraint systems at five fields (phase KC).  Every path's
+sampled lanes equal the host calculator.
 
     python3 chip_smoke.py            # needs a CUDA card
     python3 chip_smoke.py --rehearse # CPU, small batch, plain versions only;
@@ -84,7 +86,8 @@ try:
     import torch
 
     from circom_tpu_torch.backend.artifacts import save_program
-    from circom_tpu_torch.backend.checker import R1CSChecker
+    from circom_tpu_torch.backend.checker import (R1CSChecker, kc_args,
+                                                  kc_rows_per_chunk)
     from circom_tpu_torch.backend.interp import (gather_n, gather_w,
                                                  interp_k1, launch_gather_w)
     from circom_tpu_torch.backend.interp_ref import (gather_n_rows,
@@ -101,6 +104,7 @@ try:
                                                    merkle_source, mimc_source,
                                                    num2bits_source,
                                                    poseidon2_source,
+                                                   random_r1cs,
                                                    segment_ops_source)
     from circom_tpu_torch.compiler.pipeline import compile_source
     from circom_tpu_torch.convert import (K1B_OPCODES, K1C_OPCODES,
@@ -110,7 +114,7 @@ try:
                                           unit_shifts)
     from circom_tpu_torch.emit.binfmt import write_wtns
     from circom_tpu_torch.entry import dryrun_multichip, entry
-    from circom_tpu_torch.field.primes import field_spec
+    from circom_tpu_torch.field.primes import FieldSpec, field_spec
     from circom_tpu_torch import native
     from circom_tpu_torch.native import NativeCalculator
     from circom_tpu_torch.ops import build
@@ -158,6 +162,10 @@ MS_LANES = 16384
 MH_TIMEOUT = 240        # seconds for phase MH's two processes
 EDGE_COUNTS = (0, 1, 31, 32, 33, -1)
 SEED = 7
+# K5 and K6 sub: the R1CS check launched them before KC, and on the
+# interpreter and segment paths nothing else does, so there they must not
+# launch
+K5_K6 = ("mont_mul", "sub")
 
 
 T0 = time.perf_counter()
@@ -317,7 +325,8 @@ def edge_operands(spec, dev):
 
 
 def phase_field(rep, dev, nnz, n_rows, lanes):
-    """K5 and K6 against TorchField at the checker's shapes, at
+    """K5 and K6 against TorchField at the shapes of the check's plain
+    route (the per-op, scan and segment paths launch them), at
     goldilocks, bn128 and secq256r1 (p just under R = 2^256: the edge of
     the conditional subtract): random canonical operands, the edge
     operands of mont_edge_values (every pair, and each edge as a column
@@ -390,6 +399,144 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
                     time_ms(lambda: getattr(fk, name)(f, x, y)),
                     time_ms(lambda: getattr(f, name)(x, y), reps=2),
                     4 * 3 * e_xy * L, 0)
+
+
+# the base field of BLS12-381, 381 bits: KC's 24-limb instantiation (the
+# compiler's bls12381 is the 255-bit scalar field, 16 limbs)
+BLS12381_Q = int(
+    "1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f6241eab"
+    "fffeb153ffffb9feffffffffaaab", 16)
+
+
+def kc_bare(checker, zs, first):
+    """KC's launch alone on the slice zs into `first` (no checks, not
+    counted): the C call its wrapper makes."""
+    def launch():
+        fn = build.library("check").ctpu_r1cs_check
+        build.check_launch(fn(*kc_args(checker, zs, first, build.stream_ptr(
+            zs.device))), "r1cs_check")
+    return launch
+
+
+def kc_work(checker, zs):
+    """KC's least work on the slice zs when every lane satisfies every row:
+    (bytes: z read once, the CSR matrices, `first` written; 32-bit integer
+    instructions: a CIOS a nonzero and a row, k5_ops each, a lane)."""
+    b = zs.shape[-1]
+    csr = sum(t.numel() * t.element_size() for m in checker.csr for t in m)
+    nnz = sum(len(m[1]) for m in checker.csr)
+    return (zs.numel() * 4 + csr + 4 * b,
+            (nnz + checker.n_rows) * k5_ops(checker.field.L) * b)
+
+
+def kc_err(checker, zs, n_bad, label):
+    """KC and the plain route on the slice zs: the largest difference of
+    their first violated rows, which must flag n_bad lanes."""
+    got = checker.first_violated(zs)
+    want = checker.first_violated_plain(zs)
+    sync_all()
+    err = max_abs_err(got, want)
+    flagged = int((want < checker.n_rows).sum())
+    if err or flagged != n_bad:
+        raise SystemExit(f"FAIL KC {label}: max abs err {err} against the "
+                         f"plain route, {flagged} lanes flagged, not {n_bad}")
+    return err
+
+
+def phase_kc(rep, cc, prog, inputs, lanes, sizes):
+    """Phase KC: KC against the plain route (first_violated_plain) on the
+    card, bit for bit: Poseidon2/bn128 witnesses at the check's slice
+    (`lanes`), good and with five lanes corrupted at different wires; and
+    random systems (circuits/sources.random_r1cs, 40 rows of up to 8 terms
+    a matrix) at bn128, goldilocks (L = 4), bls12381, the base field of
+    BLS12-381 (L = 24) and secq256r1 (p just under R), at each lane count
+    of `sizes`, corrupted lanes among good ones.  KC is timed around its
+    bare launch on the good Poseidon2 slice, where every lane checks every
+    row, and the plain route on the same slice."""
+    dev, spec = prog.device, prog.spec
+    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
+                          device=dev, lanes=lanes)
+    wit = prog.run(inputs[..., :lanes].contiguous())
+    bad = wit.clone()
+    corrupt = ((3, 2), (40, 3), (150, 4), (322, 5), (100, lanes - 1))
+    for wire, lane in corrupt:
+        bad.view(torch.int32)[wire, 0, lane] ^= 1
+    err = kc_err(checker, bad, len(corrupt), "Poseidon2/bn128, corrupted")
+    del bad
+    err = max(err, kc_err(checker, wit, 0, "Poseidon2/bn128"))
+    first = torch.full((lanes,), checker.n_rows, dtype=torch.int32,
+                       device=dev)
+    ms = time_ms(bare(dev, kc_bare(checker, wit, first),
+                      lambda: checker.first_violated(wit)), reps=20)
+    plain_ms = time_ms(lambda: checker.first_violated_plain(wit), reps=2)
+    nbytes, ops = kc_work(checker, wit)
+    say(f"  KC on Poseidon2/bn128 at {tuple(wit.shape)}: bit-exact, good "
+        f"and with {len(corrupt)} lanes corrupted; {ms:.4f} ms a launch "
+        f"({kc_rows_per_chunk(checker.n_rows, lanes)} rows a block)")
+    del wit
+    primes = [field_spec(n) for n in ("bn128", "goldilocks", "bls12381",
+                                      "secq256r1")]
+    primes.insert(3, FieldSpec("bls12381_base", BLS12381_Q))
+    for k, sp in enumerate(primes):
+        for b in sizes:
+            rows, z = random_r1cs(sp, 8, 40, 8, b, seed=SEED + 40 + k)
+            bad_lanes = range(1, b, 37)
+            for j, lane in enumerate(bad_lanes):
+                z[9 + j % 40, j % sp.n_limbs, lane] ^= 1 << (j % 16)
+            chk = R1CSChecker(rows, z.shape[0], sp, device=dev)
+            err = max(err, kc_err(chk, to_device(z, dev), len(bad_lanes),
+                                  f"{sp.name} at {b} lanes"))
+        say(f"  KC at {sp.name} (L = {sp.n_limbs}): 40 random rows at "
+            f"{', '.join(map(str, sizes))} lanes, corrupted lanes among "
+            "them, bit-exact")
+    rep.add("r1cs_check", "circom_tpu_torch/ops/cuda/check.cu",
+            "circom_tpu/backend/checker.py:97", err, ms, plain_ms, nbytes,
+            ops, plan="Poseidon2/bn128", shape=[cc.counts()["n_wires"],
+                                                spec.n_limbs, lanes],
+            rows_per_chunk=kc_rows_per_chunk(checker.n_rows, lanes))
+
+
+def phase_kc_sha(rep, checker, wit):
+    """Phase KC on SHA256's full-limb witness (phase D): KC against the
+    plain route on its first slice (checker.lanes, 260: the slice rule),
+    good and with lanes corrupted; KC timed on that slice around its bare
+    launch, and once over every lane of the witness in one launch (as
+    wide a slice as the card holds), beside the check's slices."""
+    dev, B = wit.device, wit.shape[-1]
+    b = min(checker.lanes, B)
+    zs = wit[..., :b].contiguous()
+    bad = zs.clone()
+    corrupt = ((600, 1), (5000, b // 2), (20000, b - 1))
+    for wire, lane in corrupt:
+        bad.view(torch.int32)[wire, 0, lane] ^= 1
+    err = kc_err(checker, bad, len(corrupt), "SHA256's slice, corrupted")
+    del bad
+    err = max(err, kc_err(checker, zs, 0, "SHA256's slice"))
+    first = torch.full((b,), checker.n_rows, dtype=torch.int32, device=dev)
+    ms = time_ms(bare(dev, kc_bare(checker, zs, first),
+                      lambda: checker.first_violated(zs)), reps=10)
+    plain_ms = time_ms(lambda: checker.first_violated_plain(zs), reps=1)
+    nbytes, ops = kc_work(checker, zs)
+    first_all = torch.full((B,), checker.n_rows, dtype=torch.int32,
+                           device=dev)
+    all_ms = time_ms(bare(dev, kc_bare(checker, wit, first_all),
+                          lambda: checker.first_violated(wit)), reps=3)
+    n_slices = -(-B // b)
+    if err:
+        raise SystemExit(f"FAIL KC on SHA256: max abs err {err}")
+    b_ms, b_by = bound(nbytes, ops)
+    all_bound = bound(*kc_work(checker, wit))
+    rep.rows["r1cs_check"].update({
+        "sha_shape": list(zs.shape), "sha_ms": ms, "sha_plain_ms": plain_ms,
+        "sha_bound_ms": b_ms, "sha_bound_by": b_by,
+        "sha_rows_per_chunk": kc_rows_per_chunk(checker.n_rows, b),
+        "sha_all_lanes_ms": all_ms, "sha_all_lanes_bound_ms": all_bound[0],
+        "sha_slices": n_slices})
+    say(f"  KC on SHA256's slice {tuple(zs.shape)}: bit-exact, good and "
+        f"with {len(corrupt)} lanes corrupted; {ms:.4f} ms a launch (plain "
+        f"{plain_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by}); {n_slices} "
+        f"such launches {n_slices * ms:.2f} ms against one launch over all "
+        f"{B} lanes {all_ms:.3f} ms (bound {all_bound[0]:.3f} ms)")
 
 
 def phase_gather(rep, plan, B, dev):
@@ -470,7 +617,7 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
     sampled lanes against the host calculator (host_map: the lane's input
     ints -> the input map) and, given the circuit's NativeCalculator
     `native`, SAMPLE_LANES against it; with profile_check, where the
-    check's device time goes (K5's share)."""
+    check's device time goes (KC's share)."""
     dev, spec = prog.device, prog.spec
     B = inputs.shape[-1]
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
@@ -524,8 +671,9 @@ def poseidon2_path(paths, cc, spec, dev, B):
     rng = np.random.default_rng(SEED + 2)
     inputs = canonical_limbs(rng, spec, (prog.n_inputs, spec.n_limbs, B), dev)
     times = witness_path(paths, "poseidon2", cc, prog, inputs,
-                         ("interp_k1a", "gather_w", "mont_mul", "sub"),
-                         lambda ins: {"inputs": ins}, profile_check=True)
+                         ("interp_k1a", "gather_w", "r1cs_check"),
+                         lambda ins: {"inputs": ins}, never=K5_K6,
+                         profile_check=True)
     return prog, inputs, times
 
 
@@ -673,8 +821,8 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     say(f"phase F: the Poseidon2/goldilocks path (batch {B})")
     out["poseidon2_gl"] = witness_path(
         paths, "poseidon2_gl", cc_gl, prog_gl, x_gl,
-        ("interp_k1c", "interp_k1a", "gather_w", "mont_mul", "sub"),
-        lambda ins: {"inputs": ins})
+        ("interp_k1c", "interp_k1a", "gather_w", "r1cs_check"),
+        lambda ins: {"inputs": ins}, never=K5_K6)
     if not rehearse:
         profile_breakdown(lambda: prog_gl.run(x_gl),
                           out["poseidon2_gl"]["run_ms"], runs=20)
@@ -689,8 +837,8 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     say(f"phase G: the bigint-div/bn128 path (batch {b_div})")
     out["bigdiv"] = witness_path(
         paths, "bigdiv", cc_bd, prog_bd, x_bd,
-        ("interp_k1d", "interp_k1a", "gather_w", "mont_mul", "sub"),
-        lambda ins: {"a": ins[0], "b": ins[1]})
+        ("interp_k1d", "interp_k1a", "gather_w", "r1cs_check"),
+        lambda ins: {"a": ins[0], "b": ins[1]}, never=K5_K6)
     if not rehearse:
         profile_breakdown(lambda: prog_bd.run(x_bd), out["bigdiv"]["run_ms"],
                           runs=20)
@@ -702,8 +850,8 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     out["comparators"] = witness_path(
         paths, "comparators", cc_cmp, prog_cmp, x_cmp,
         ("interp_k1d", "interp_k1c", "interp_k1a", "gather_w", "gather_n",
-         "mont_mul", "sub"),
-        lambda ins: {"a": ins[0], "b": ins[1]})
+         "r1cs_check"),
+        lambda ins: {"a": ins[0], "b": ins[1]}, never=K5_K6)
     if not rehearse:
         profile_breakdown(lambda: prog_cmp.run(x_cmp),
                           out["comparators"]["run_ms"])
@@ -890,8 +1038,9 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
         x = edge_inputs(bn, prog.n_inputs, B, SEED + seed, dev)
         say(f"phase {'S' if name == 'n2b254' else 'S4'}: the {label} path "
             f"(batch {B}, {prog.fused.stats()})")
-        out[name] = witness_path(paths, name, cc, prog, x, ("k4",),
-                                 lambda ins: {"a": ins}, never=interp)
+        out[name] = witness_path(paths, name, cc, prog, x,
+                                 ("k4", "r1cs_check"), lambda ins: {"a": ins},
+                                 never=interp + K5_K6)
         if not rehearse:
             profile_breakdown(lambda: prog.run(x), out[name]["run_ms"])
         k4[name] = phase_k4_program(prog, x, label)
@@ -929,7 +1078,7 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
         f"{b_div}, straight-line: {prog.perop.n_live()} live of "
         f"{len(prog.dt.ops)} nodes, unroll {prog.unroll})")
     out["bigdiv_bits"] = witness_path(
-        paths, "bigdiv_bits", cc, prog, x, ("mont_mul", "sub"),
+        paths, "bigdiv_bits", cc, prog, x, ("mont_mul", "sub", "r1cs_check"),
         lambda ins: {"a": ins[0], "b": ins[1]}, never=interp + ("k4",))
     if not rehearse:
         # one traced run: the trace of a run holds up to ~30,000 launches
@@ -1041,7 +1190,7 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
     witnesses/s, launches, idle share and peak memory."""
     bn = field_spec("bn128")
     never = ("interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d", "k4")
-    must = ("gather_w", "mont_mul", "add", "sub")
+    must = ("gather_w", "mont_mul", "add", "sub", "r1cs_check")
     host_map = (lambda ins: {"a": ins})
     cc = compile_source(num2bits_source(254, 16))
     tape = cc.build_tape()[0]
@@ -1190,9 +1339,9 @@ def hinted_inputs(spec, n_inputs, hints, B, seed, dev):
 def must_launch(prog):
     """The kernels a run and R1CS check of an interpreter program launch,
     read off its plan: K1's parts, K2, K3 when the plan emits narrow
-    witness rows, K5 and K6 sub (the check)."""
+    witness rows, KC (the check)."""
     plan = prog.interp.plan
-    ks = [*plan.parts, "gather_w", "mont_mul", "sub"]
+    ks = [*plan.parts, "gather_w", "r1cs_check"]
     if (plan.nw_src < plan.n_bank_n_rows).any():
         ks.append("gather_n")
     return tuple(ks)
@@ -1231,8 +1380,8 @@ def mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, rehearse):
             f"{prog.n_witness} witness rows ({len(plan.nw_src)} narrow), "
             f"{len(cc.r1cs_rows())} constraints)")
         t = witness_path(paths, name, cc, prog, x, must_launch(prog),
-                         input_map(layout), n_lanes=n_host, native=calc,
-                         profile_check=name == "merkle")
+                         input_map(layout), never=K5_K6, n_lanes=n_host,
+                         native=calc, profile_check=name == "merkle")
         if not rehearse:
             # traced one at a time, the kernels of MM's 3-launch run went
             # unrecorded: ten runs a profiler step
@@ -1296,7 +1445,7 @@ def cli_runs(mm):
         calc=NativeCalculator(tape, bn, input_ranges=hints))}
 
 
-def phase_cli(runs, device, n):
+def phase_cli(paths, runs, device, n):
     """Phase CL: `python -m circom_tpu_torch.cli` in a subprocess on the
     circuits of CLI_CIRCUITS (MM's and MK's, which include the port's
     circuits, -l circom_tpu_torch/circuits, and bigint-div +
@@ -1305,8 +1454,13 @@ def phase_cli(runs, device, n):
     compile's, every .wtns write_wtns of the native calculator's witness,
     and the first .wtns files (all of those without range-hinted inputs,
     MK_HOST_LANES of Merkle's) that of the host calculator; a Merkle batch
-    with a pathIndex of 2 must exit 1 with error[T3015]."""
+    with a pathIndex of 2 must exit 1 with error[T3015].  The CLI's R1CS
+    check (batch_witnesses at --sanity_check 2) is timed in this process
+    on the same n witnesses, its launches counted (KC, never K5 or K6).
+    Returns the check's ms a circuit."""
     lib = os.path.join(ROOT, "circom_tpu_torch", "circuits")
+    bn = field_spec("bn128")      # the CLI's default prime
+    check_ms = {}
     rng = random.Random(SEED + 18)
     for path, run in runs.items():
         name, source = CLI_CIRCUITS[path]
@@ -1357,9 +1511,22 @@ def phase_cli(runs, device, n):
                         raise SystemExit(f"FAIL CLI on {name}: witness {bi} "
                                          ".wtns differs from the native "
                                          "calculator's")
+            z = to_device(np.stack(
+                [ints_to_limbs(w[:len(w) - tape.n_guards], bn.n_limbs)
+                 for w in nat], axis=-1), device)
+            checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], bn,
+                                  device=device)
+            checker.check(z)
+            ok, check_ms[name] = wall_ms(lambda: paths.run(
+                f"cli_{name}", lambda: checker.check(z), ("r1cs_check",),
+                K5_K6))
+            if not bool(ok.all()):
+                raise SystemExit(f"FAIL CLI on {name}: the R1CS check failed "
+                                 "a witness")
             say(f"  CLI on {name}: exit 0 in {ms / 1e3:.1f} s; .r1cs equals "
                 f"the port's compile, {n} .wtns equal the native "
-                f"calculator's, {n_host} the host calculator's")
+                f"calculator's, {n_host} the host calculator's; the check "
+                f"of the {n} witnesses {check_ms[name]:.2f} ms")
             if not hints:
                 continue
             bad = [list(rows[0]), list(rows[1])]
@@ -1373,6 +1540,7 @@ def phase_cli(runs, device, n):
                                  f"{r.stderr}")
             say(f"  CLI on {name}: a pathIndex of 2 exits 1 with "
                 "error[T3015], no .wtns written")
+    return check_ms
 
 
 def cpu_baseline(runs, n, reps=BASELINE_REPS):
@@ -1462,7 +1630,7 @@ def phase_mesh(paths, mk, lanes, rehearse):
         return shards, run_ms, check_ms
 
     shards, run_ms, check_ms = paths.run("mesh", run_and_check,
-                                         must_launch(prog))
+                                         must_launch(prog), K5_K6)
     peaks = {} if rehearse else {
         str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30 for d in cards}
     say(f"  step {run_ms:.1f} ms ({B / run_ms * 1e3:.0f} witnesses/s, "
@@ -1578,8 +1746,8 @@ def phase_graft_entry(paths, device):
     n = max(2, torch.cuda.device_count())
     _, ms = wall_ms(lambda: paths.run(
         "dryrun", lambda: dryrun_multichip(n, device),
-        ("interp_k1a", "interp_k1d", "gather_w", "gather_n", "mont_mul",
-         "sub")))
+        ("interp_k1a", "interp_k1d", "gather_w", "gather_n", "r1cs_check"),
+        K5_K6))
     say(f"  dryrun_multichip({n}) passed its three phases in {ms:.0f} ms")
 
 
@@ -1591,11 +1759,10 @@ def sha256_messages(B, seed):
 
 def profile_check_breakdown(checker, wit, check_ms):
     """One warm R1CS check under the profiler: its device time by kernel,
-    K5's (mont_mul_kernel) and K6's among them."""
+    KC's (r1cs_check_kernel) among them."""
     say("  the R1CS check:")
     profile_breakdown(lambda: checker.check_detailed(wit), check_ms, reps=1,
-                      aten=False, show=("mont_mul_kernel",
-                                        "elementwise_kernel<16, 2>"))
+                      aten=False, show=("r1cs_check_kernel",))
 
 
 def sha256_path(paths, cc, prog, dev, B):
@@ -1736,9 +1903,10 @@ def phase_bench(paths, dev, sha, rehearse):
     return rec
 
 
-def sha256_full_path(paths, cc, prog, spec, dev, B):
+def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
     """Phase D: the full-limb SHA256 witness at batch B and the R1CS check
-    of every lane, the checker's slice sized by its byte budget."""
+    of every lane, the checker's slice sized by its byte budget; then
+    phase KC on that witness (phase_kc_sha)."""
     msgs = sha256_messages(B, SEED + 6)
     x = np.zeros((512, spec.n_limbs, B), np.uint32)
     x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
@@ -1761,16 +1929,20 @@ def sha256_full_path(paths, cc, prog, spec, dev, B):
 
     wit, run_ms, check_ms = paths.run(
         "sha256_full", run_and_check,
-        ("interp_k1b", "gather_n", "mont_mul", "sub"))
+        ("interp_k1b", "gather_n", "r1cs_check"), K5_K6)
     shape = tuple(wit.shape)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if dev.type == "cuda" else 0.0
     if dev.type == "cuda":
         profile_check_breakdown(checker, wit, check_ms)
-        del wit
-        profile_breakdown(lambda: prog.run(x), run_ms)
     say(f"  full-limb witness {shape} in {run_ms:.1f} ms; R1CS check of all "
         f"{B} lanes in {check_ms:.1f} ms; peak device memory {peak:.1f} GiB")
+    say("phase KC: KC against the plain route on SHA256's slice")
+    phase_kc_sha(rep, checker, wit)
+    del wit
+    if dev.type == "cuda":
+        say("  the full-limb run:")
+        profile_breakdown(lambda: prog.run(x), run_ms)
     return run_ms, check_ms
 
 
@@ -1841,6 +2013,10 @@ def main():
     say("phase 4: K1a against the plain executor")
     order = torch.as_tensor(prog.interp.plan.win_order, device=dev)
     phase_interp(rep, prog, gather_rows(inputs, order))
+    say("phase KC: KC against the plain route (the Poseidon2 slice, five "
+        "fields)")
+    phase_kc(rep, cc, prog, inputs, lanes,
+             (9, 5) if args.rehearse else (1000, 260))
     del prog, inputs
     say("phase 5: the witness entry point (Poseidon2)")
     rng = random.Random(SEED + 3)
@@ -1869,8 +2045,8 @@ def main():
         torch.cuda.reset_peak_memory_stats()
     say(f"phase D: the full-limb SHA256 witness and R1CS check (batch "
         f"{b_full})")
-    full_ms, full_check_ms = sha256_full_path(paths, sha, sha_prog, spec, dev,
-                                              b_full)
+    full_ms, full_check_ms = sha256_full_path(paths, rep, sha, sha_prog,
+                                              spec, dev, b_full)
     say("phase E: the witness entry point (SHA256)")
     msgs = sha256_messages(2, SEED + 7)
     bits = sha256_io.msgs_to_bits_batch(msgs)
@@ -1902,7 +2078,7 @@ def main():
     mm = mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, args.rehearse)
     say(f"phase CL: the compile CLI (--witness-gpu, {b_cli} witnesses a "
         "circuit)")
-    phase_cli(cli_runs(mm), dev.type, b_cli)
+    cli_check = phase_cli(paths, cli_runs(mm), dev.type, b_cli)
     say(f"the CPU baseline ({b_base} witnesses a circuit)")
     cpu_baseline(mm, b_base)
     t_mm = time.perf_counter() - t_mm
@@ -1984,6 +2160,8 @@ def main():
         + (", ".join(f"{d} {g:.1f} GiB" for d, g in m["peaks"].items())
            or "not measured")
         + f"; two processes (MH) {mh_ms / 1e3:.1f} s")
+    say(f"the CLI's R1CS check ({b_cli} witnesses): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in cli_check.items()))
     say(f"smoke total {time.perf_counter() - t_all:.1f} s, phase BG "
         f"{t_bg:.1f} s, phases F-K "
         f"{t_new:.1f} s, phases S-W {t_seg:.1f} s, phases MM-CL and the "

@@ -31,8 +31,12 @@
   bits - 1; input c is a bit, so that its product by a constant is a
   plain product (mulp) at bn128 too, and a division at goldilocks gives
   its Montgomery products.
+- random_r1cs(spec, ...): a random constraint system with satisfying
+  witnesses, at any prime: rows of several terms with random
+  coefficients, for the R1CS check at primes no circuit path reaches.
 """
 
+import random
 from pathlib import Path
 
 import numpy as np
@@ -141,6 +145,47 @@ def comparator_inputs(B, seed, L):
         out[0, i] = (a >> np.uint64(16 * i)) & np.uint64(0xFFFF)
         out[1, i] = (b >> np.uint64(16 * i)) & np.uint64(0xFFFF)
     return out
+
+
+def random_r1cs(spec, n_inputs, n_rows, terms, B, seed):
+    """A random constraint system over the field `spec` and B witnesses
+    that satisfy it: (rows, their 16-bit limbs uint32 (n_wires,
+    spec.n_limbs, B)).  Wire 0 is 1, wires 1 ..
+    n_inputs random (the first lanes 0, 1 and p - 1), then one output
+    wire a row.  Row r has up to `terms` nonzeros in A and in B over the
+    wires before its output, coefficients random or 1 or p - 1, and C =
+    c_r·out_r + d_r·w_r; out_r is the value that satisfies it."""
+    rng = random.Random(seed)
+    p, L = spec.p, spec.n_limbs
+    n_wires = 1 + n_inputs + n_rows
+    z = [[1] * B] + [[rng.randrange(p) for _ in range(B)]
+                     for _ in range(n_inputs)]
+    for j, v in enumerate((0, 1, p - 1)[:min(B, n_inputs)]):
+        z[1 + j][j] = v
+
+    def coef():
+        return rng.choice((1, p - 1, rng.randrange(1, p)))
+
+    rows = []
+    for r in range(n_rows):
+        below = len(z)
+        a, b = ({rng.randrange(below): coef()
+                 for _ in range(rng.randint(1, terms))} for _ in range(2))
+        c_out, w, d = rng.randrange(1, p), rng.randrange(below), coef()
+        inv = pow(c_out, -1, p)
+        out = []
+        for lane in range(B):
+            az = sum(k * z[i][lane] for i, k in a.items())
+            bz = sum(k * z[i][lane] for i, k in b.items())
+            out.append((az * bz - d * z[w][lane]) * inv % p)
+        z.append(out)
+        rows.append((a, b, {below: c_out, w: d}))
+    limbs = np.zeros((n_wires, L, B), np.uint32)
+    for i, col in enumerate(z):
+        for lane, v in enumerate(col):
+            for k in range(L):
+                limbs[i, k, lane] = (v >> (16 * k)) & 0xFFFF
+    return rows, limbs
 
 
 def _stdlib():

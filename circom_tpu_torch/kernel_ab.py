@@ -34,11 +34,12 @@ checks, outputs allocated before), in turns: other, this, this, other.
 - K2 at Poseidon2/bn128's plan shape (the plan's wd_src over a random
   bank of (n_bank_rows, 16, 65,536)), beside `index_select` of the same
   rows into the same output.
-- K5 at every launch shape of one R1CS check of Poseidon2/bn128 (P) at
-  batch 65,536 and of the SHA256 block over bn128 (F) at 8,192: the
-  shapes are recorded from R1CSChecker.check itself, each distinct one
-  timed on random canonical operands, and the check's K5 time is the sum
-  over its launches.
+- K5 at every shape that the R1CS check's plain route gives a Montgomery
+  product, for Poseidon2/bn128 (P) at batch 65,536 and the SHA256 block
+  over bn128 (F) at 8,192: the shapes K5 had on the check before kernel
+  KC took the check over, recorded from the plain route itself, each
+  distinct one timed on random canonical operands, and the K5 time of
+  such a check is the sum over its products.
 
 Prints a line for each measurement, the card's name and power limit, and
 a JSON object as the last line.  Exits 1 without a card.
@@ -70,7 +71,6 @@ from .convert import N_OPERANDS, OPCODES, to_device
 from .compiler.pipeline import compile_source
 from .field.primes import LIMB_BITS, field_spec
 from .ops import build
-from .ops import field_kernels as fk
 from .ops.field import TorchField
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -349,24 +349,28 @@ def k2(libs, dev, reps):
 
 
 def k5_launches(rows, n_wires, spec, dev, B):
-    """Counter of (a shape, a strides, b strides) over the K5 launches of
-    one R1CSChecker.check of a batch of B, recorded at fk.launch without
-    launching: K5's shapes do not depend on the values."""
+    """Counter of (a shape, a strides, b strides) over the Montgomery
+    products of the R1CS check's plain route (first_violated_plain) on a
+    batch of B, each as K5 would be launched on it (the operands broadcast
+    and reshaped to (N, L, B) as field_kernels does): recorded, not
+    computed, since the shapes do not depend on the values."""
     seen = Counter()
-    real = fk.launch
-
-    def record(name, field, a, b, out):
-        if name == "mont_mul":
-            seen[tuple(a.shape), a.stride(), b.stride()] += 1
-
     checker = R1CSChecker(rows, n_wires, spec, device=dev)
+    field = checker.field
+
+    def record(a, b):
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        N, L, Bs = int(np.prod(shape[:-2])), shape[-2], shape[-1]
+        a3, b3 = (t.broadcast_to(shape).reshape(N, L, Bs) for t in (a, b))
+        seen[(N, L, Bs), a3.stride(), b3.stride()] += 1
+        return torch.zeros(shape, dtype=torch.uint32, device=a.device)
+
+    field.mont_mul = record
+    field.to_mont = lambda a: record(a, checker.R2)
     z = torch.zeros((n_wires, spec.n_limbs, 1), dtype=torch.uint32,
                     device=dev).expand(-1, -1, B)
-    fk.launch = record
-    try:
-        checker.check(z)
-    finally:
-        fk.launch = real
+    for zs in checker._slices(z):
+        checker.first_violated_plain(zs)
     return seen
 
 

@@ -38,7 +38,7 @@ from types import SimpleNamespace
 from ..utils.cache import build_dir
 
 SRC_DIR = Path(__file__).resolve().parent / "cuda"
-SOURCES = ("field_ops", "interp", "gather")
+SOURCES = ("field_ops", "interp", "gather", "check")
 HEADERS = ("dot32.cuh", "field.cuh", "field32.cuh", "narrow.cuh",
            "wide.cuh", "wide32.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,6 +69,11 @@ SIGNATURES = {
     "gather": {
         "ctpu_gather_rows": (_I, [_P, _P, _P, _LL, _LL, _P]),
         "ctpu_gather_n": (_I, [_P, _LL, _P, _P, _P, _P, _LL, _LL, _P]),
+    },
+    "check": {
+        "ctpu_r1cs_check": (
+            _I, [_I, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                 _PU32, _U32, _P, _P]),
     },
 }
 

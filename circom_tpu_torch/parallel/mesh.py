@@ -105,10 +105,8 @@ def shard_checker(checker, mesh):
     """A function of the shard outputs that runs `checker.check` on each
     shard's device and returns the bool (B,) verdicts in batch order, on
     the mesh's first device.  The checker's batch slices are launched in
-    turns, slice s of every shard before slice s + 1 of any: a shard's
-    check is tens of thousands of launches, and issued whole it would
-    hold the host on that card's full launch queue while the other cards
-    wait."""
+    turns, slice s of every shard before slice s + 1 of any, so that the
+    cards' checks overlap."""
     checkers = [checker.for_device(d) for d in mesh.devices]
     first = mesh.devices[0]
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from circom_tpu_torch.backend import checker as checker_mod
 from circom_tpu_torch.backend.checker import R1CSChecker
 from circom_tpu_torch.backend import interp
 from circom_tpu_torch.backend.interp import (gather_n, gather_w, interp_k1,
@@ -34,12 +35,13 @@ from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
                                                comparators_source,
                                                num2bits_source,
                                                poseidon2_source,
+                                               random_r1cs,
                                                segment_ops_source)
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.convert import (K1C_OPCODES, K1D_OPCODES,
                                       narrow_unit_arrays, plan_from_arrays,
                                       to_device, unit_arrays, unit_inputs)
-from circom_tpu_torch.field.primes import LIMB_BITS, field_spec
+from circom_tpu_torch.field.primes import LIMB_BITS, FieldSpec, field_spec
 from circom_tpu_torch.ops import build
 from circom_tpu_torch.ops import field_kernels as fk
 from circom_tpu_torch.ops.field import TorchField, as_i64, mont_edge_values
@@ -218,6 +220,71 @@ def test_witness_program_and_checker(card, poseidon2):
         ins = [limbs_to_int(x[i, :, lane]) for i in range(prog.n_inputs)]
         host = list(poseidon2.witness_host({"inputs": ins}))
         assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] == host
+
+
+# the base field of BLS12-381, 381 bits: KC's 24-limb instantiation
+BLS12381_Q = int(
+    "1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f6241eab"
+    "fffeb153ffffb9feffffffffaaab", 16)
+
+
+def kc_against_plain(checker, z):
+    """KC's first violated row of each lane of z (uint32 (n_wires, L, b)
+    on the card) equals the plain route's; returns it."""
+    got = checker.first_violated(z)
+    want = checker.first_violated_plain(z)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("prime", ["bn128", "goldilocks", "bls12381",
+                                   "bls12381_base", "secq256r1"])
+@pytest.mark.parametrize("b", [260, 1000])
+def test_kc_matches_plain(card, monkeypatch, prime, b):
+    """KC against the plain route on a random system with rows of up to 6
+    terms a matrix, lanes corrupted at different wires, at 260 lanes (a
+    SHA256 slice) and 1,000 (no multiple of 32), with one row a block and
+    with several."""
+    spec = FieldSpec(prime, BLS12381_Q) if prime == "bls12381_base" \
+        else field_spec(prime)
+    rows, z = random_r1cs(spec, 8, 40, 6, b, seed=b)
+    for k, lane in enumerate(range(3, b, 37)):
+        z[9 + k % 40, k % spec.n_limbs, lane] ^= 1 << (k % 16)
+    checker = R1CSChecker(rows, z.shape[0], spec, device=card)
+    zs = to_device(z, card)
+    first = kc_against_plain(checker, zs)
+    assert 0 < int((first < len(rows)).sum()) <= len(range(3, b, 37))
+    assert len(set(first[first < len(rows)].tolist())) > 3
+    ok, first_bad = checker.check_detailed(zs)
+    assert torch.equal(ok, first == len(rows))
+    assert torch.equal(first_bad, torch.where(ok, 0, first).long())
+    monkeypatch.setattr(checker_mod, "KC_BLOCKS", 7)
+    kc_against_plain(checker, zs)
+
+
+def test_kc_on_poseidon2_slice(card, poseidon2):
+    """KC on Poseidon2/bn128 witnesses at 8,192 lanes, the check's slice,
+    with lanes corrupted at different wires; check_detailed launches KC
+    once a slice, and neither K5 nor K6."""
+    spec = field_spec("bn128")
+    prog = WitnessProgram(poseidon2.build_tape()[0], spec, device=card)
+    rng = np.random.default_rng(14)
+    wit = prog.run(canonical(rng, "bn128", (prog.n_inputs, 16, 8192)))
+    for wire, lane in ((3, 2), (40, 3), (150, 4), (322, 5), (100, 8191)):
+        wit.view(torch.int32)[wire, 0, lane] ^= 1
+    checker = R1CSChecker(poseidon2.r1cs_rows(),
+                          poseidon2.counts()["n_wires"], spec, device=card,
+                          lanes=4096)
+    first = kc_against_plain(checker, wit)
+    assert sorted(torch.nonzero(first < 320).flatten().tolist()) == \
+        [2, 3, 4, 5, 8191]
+    build.reset_launches()
+    ok, _ = checker.check_detailed(wit)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"r1cs_check": 2}
+    assert int((~ok).sum()) == 5
 
 
 def random_int32(rng, shape):
