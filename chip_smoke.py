@@ -56,9 +56,12 @@ against its plain version, and K1 is held against the plain executor on
 every path's full plan; K4 is held against its plain version on every
 segment of the segmented paths and on two op circuits that reach every
 op a segment can hold.  KC, the R1CS check of every path, is held against
-the check's plain route on a Poseidon2 slice, SHA256's 260-lane slice and
-random constraint systems at five fields (phase KC).  Every path's
-sampled lanes equal the host calculator.
+the check's plain route on Poseidon2's 65,536 lanes and SHA256's 8,192 in
+one launch each, a SHA256 window read in place, random constraint systems
+at five fields and the accumulators' worst-case rows (phase KC); every
+checked path's check is one KC launch a batch (one a shard on the mesh)
+that copies nothing of z.  Every path's sampled lanes equal the host
+calculator.
 
     python3 chip_smoke.py            # needs a CUDA card
     python3 chip_smoke.py --rehearse # CPU, small batch, plain versions only;
@@ -87,6 +90,7 @@ try:
 
     from circom_tpu_torch.backend.artifacts import save_program
     from circom_tpu_torch.backend.checker import (R1CSChecker, kc_args,
+                                                  kc_products,
                                                   kc_rows_per_chunk)
     from circom_tpu_torch.backend.interp import (gather_n, gather_w,
                                                  interp_k1, launch_gather_w)
@@ -101,6 +105,7 @@ try:
                                                    bigdiv_num2bits_source,
                                                    comparator_inputs,
                                                    comparators_source,
+                                                   kc_extreme_r1cs,
                                                    merkle_source, mimc_source,
                                                    num2bits_source,
                                                    poseidon2_source,
@@ -147,7 +152,7 @@ BATCH = 65536
 BIGDIV_BATCH = 8192     # bench.py's bigint-div batch
 SHA_FULL_BATCH = 8192   # the full-limb SHA256 witness: 14.3 GB at 8,192
 SHA_PLAIN_BATCH = 4096  # K1b and K3 against the plain versions, all rows
-CHECK_LANES = 8192      # R1CSChecker's cap on its batch slice
+CHECK_LANES = 8192      # the plain route's window of Poseidon2's check
 SAMPLE_LANES = 64
 SHA_HOST_LANES = 4      # the host calculator takes ~4 s a SHA256 lane
 MM_BATCH = 65536
@@ -409,7 +414,7 @@ BLS12381_Q = int(
 
 
 def kc_bare(checker, zs, first):
-    """KC's launch alone on the slice zs into `first` (no checks, not
+    """KC's launch alone on the window zs into `first` (no checks, not
     counted): the C call its wrapper makes."""
     def launch():
         fn = build.library("check").ctpu_r1cs_check
@@ -418,22 +423,42 @@ def kc_bare(checker, zs, first):
     return launch
 
 
-def kc_work(checker, zs):
-    """KC's least work on the slice zs when every lane satisfies every row:
-    (bytes: z read once, the CSR matrices, `first` written; 32-bit integer
-    instructions: a CIOS a nonzero and a row, k5_ops each, a lane)."""
-    b = zs.shape[-1]
-    csr = sum(t.numel() * t.element_size() for m in checker.csr for t in m)
-    nnz = sum(len(m[1]) for m in checker.csr)
-    return (zs.numel() * 4 + csr + 4 * b,
-            (nnz + checker.n_rows) * k5_ops(checker.field.L) * b)
+def kc_work(checker, rows, zs):
+    """KC's least work on the window zs when every lane satisfies every
+    row: (bytes: z's window read once, the matrices, `first` written;
+    32-bit integer instructions, two a product: by coefficient class
+    (checker.kc_products, check.cu's count); and the count of a kernel
+    that runs a CIOS (k5_ops) a nonzero and a row)."""
+    b, L = zs.shape[-1], checker.field.L
+    mats = sum(t.numel() * t.element_size() for m in checker.kc for t in m)
+    nnz = sum(len(m[1]) for m in checker.coo)
+    return (zs.shape[0] * L * b * 4 + mats + 4 * b,
+            2 * kc_products(rows, checker.spec.p, L) * b,
+            (nnz + checker.n_rows) * k5_ops(L) * b)
+
+
+def kc_bounds(nbytes, ops, cios_ops):
+    """KC's bound (ms, by) from its class-aware count, and the operation
+    bound of the CIOS-a-nonzero count beside it."""
+    b_ms, b_by = bound(nbytes, ops)
+    return b_ms, b_by, bounds(nbytes, cios_ops)[1]
+
+
+def plain_first(checker, z):
+    """first_violated_plain over z in the plain route's windows
+    (checker.lanes): one window of a whole batch would take 16 bytes a
+    limb-lane of the largest matrix."""
+    return torch.cat([checker.first_violated_plain(
+        z[..., s:s + checker.lanes].contiguous())
+        for s in range(0, z.shape[-1], checker.lanes)])
 
 
 def kc_err(checker, zs, n_bad, label):
-    """KC and the plain route on the slice zs: the largest difference of
-    their first violated rows, which must flag n_bad lanes."""
+    """KC (one launch, zs read in place) and the plain route on the window
+    zs: the largest difference of their first violated rows, which must
+    flag n_bad lanes."""
     got = checker.first_violated(zs)
-    want = checker.first_violated_plain(zs)
+    want = plain_first(checker, zs)
     sync_all()
     err = max_abs_err(got, want)
     flagged = int((want < checker.n_rows).sum())
@@ -443,100 +468,142 @@ def kc_err(checker, zs, n_bad, label):
     return err
 
 
-def phase_kc(rep, cc, prog, inputs, lanes, sizes):
-    """Phase KC: KC against the plain route (first_violated_plain) on the
-    card, bit for bit: Poseidon2/bn128 witnesses at the check's slice
-    (`lanes`), good and with five lanes corrupted at different wires; and
-    random systems (circuits/sources.random_r1cs, 40 rows of up to 8 terms
-    a matrix) at bn128, goldilocks (L = 4), bls12381, the base field of
-    BLS12-381 (L = 24) and secq256r1 (p just under R), at each lane count
-    of `sizes`, corrupted lanes among good ones.  KC is timed around its
-    bare launch on the good Poseidon2 slice, where every lane checks every
-    row, and the plain route on the same slice."""
-    dev, spec = prog.device, prog.spec
-    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
-                          device=dev, lanes=lanes)
-    wit = prog.run(inputs[..., :lanes].contiguous())
-    bad = wit.clone()
-    corrupt = ((3, 2), (40, 3), (150, 4), (322, 5), (100, lanes - 1))
+def one_launch(paths, name, dev, n):
+    """A path's check must be n KC launches on a card: one a batch (a
+    shard's)."""
+    got = paths.counts[name].get("r1cs_check", 0)
+    if dev.type == "cuda" and got != n:
+        raise SystemExit(f"FAIL: {got} r1cs_check launches on the {name} "
+                         f"path, not {n} (one a batch)")
+
+
+def flip(z, corrupt):
+    """Flip bit 0 of limb 0 of each (wire, lane) of z, in place (twice
+    restores z)."""
     for wire, lane in corrupt:
-        bad.view(torch.int32)[wire, 0, lane] ^= 1
-    err = kc_err(checker, bad, len(corrupt), "Poseidon2/bn128, corrupted")
-    del bad
-    err = max(err, kc_err(checker, wit, 0, "Poseidon2/bn128"))
-    first = torch.full((lanes,), checker.n_rows, dtype=torch.int32,
-                       device=dev)
+        z.view(torch.int32)[wire, 0, lane] ^= 1
+
+
+def phase_kc(rep, cc, prog, inputs, sizes):
+    """Phase KC: KC against the plain route (first_violated_plain, in its
+    windows) on the card, bit for bit: Poseidon2/bn128 witnesses at the
+    whole batch in one launch, good and with five lanes corrupted at
+    different wires; random systems (circuits/sources.random_r1cs, 40
+    rows of up to 8 terms a matrix) at bn128, goldilocks (L = 4),
+    bls12381, the base field of BLS12-381 (L = 24) and secq256r1 (p just
+    under R), at each lane count of `sizes`, corrupted lanes among good
+    ones, with random_r1cs' default coefficients and with KC's six classes
+    drawn evenly; and kc_extreme_r1cs's rows, the accumulators' worst
+    case, at each field.  KC is timed around its bare launch
+    on the good Poseidon2 batch, where every lane checks every row, and
+    the plain route on the same batch."""
+    dev, spec = prog.device, prog.spec
+    rows = cc.r1cs_rows()
+    checker = R1CSChecker(rows, cc.counts()["n_wires"], spec, device=dev)
+    wit = prog.run(inputs)
+    B = wit.shape[-1]
+    corrupt = ((3, 2), (40, 3), (150, 4), (322, 5), (100, B - 1))
+    flip(wit, corrupt)
+    err = kc_err(checker, wit, len(corrupt), "Poseidon2/bn128, corrupted")
+    flip(wit, corrupt)
+    first = torch.full((B,), checker.n_rows, dtype=torch.int32, device=dev)
     ms = time_ms(bare(dev, kc_bare(checker, wit, first),
                       lambda: checker.first_violated(wit)), reps=20)
-    plain_ms = time_ms(lambda: checker.first_violated_plain(wit), reps=2)
-    nbytes, ops = kc_work(checker, wit)
-    say(f"  KC on Poseidon2/bn128 at {tuple(wit.shape)}: bit-exact, good "
-        f"and with {len(corrupt)} lanes corrupted; {ms:.4f} ms a launch "
-        f"({kc_rows_per_chunk(checker.n_rows, lanes)} rows a block)")
+    if int((first < checker.n_rows).sum()):
+        raise SystemExit("FAIL KC: a good Poseidon2 lane flagged")
+    plain_ms = time_ms(lambda: plain_first(checker, wit), reps=1)
+    nbytes, ops, cios_ops = kc_work(checker, rows, wit)
+    b_ms, b_by, cios_ms = kc_bounds(nbytes, ops, cios_ops)
+    say(f"  KC on Poseidon2/bn128 at {tuple(wit.shape)}, one launch: "
+        f"bit-exact, good and with {len(corrupt)} lanes corrupted; "
+        f"{ms:.4f} ms a launch ({kc_rows_per_chunk(checker.n_rows, B)} rows "
+        f"a block); bound {b_ms:.4f} ms by {b_by} ({ops // B} instructions "
+        f"a lane by class; {cios_ops // B} and {cios_ms:.4f} ms as a CIOS "
+        "a nonzero and a row)")
     del wit
     primes = [field_spec(n) for n in ("bn128", "goldilocks", "bls12381",
                                       "secq256r1")]
     primes.insert(3, FieldSpec("bls12381_base", BLS12381_Q))
     for k, sp in enumerate(primes):
-        for b in sizes:
-            rows, z = random_r1cs(sp, 8, 40, 8, b, seed=SEED + 40 + k)
-            bad_lanes = range(1, b, 37)
-            for j, lane in enumerate(bad_lanes):
-                z[9 + j % 40, j % sp.n_limbs, lane] ^= 1 << (j % 16)
-            chk = R1CSChecker(rows, z.shape[0], sp, device=dev)
-            err = max(err, kc_err(chk, to_device(z, dev), len(bad_lanes),
-                                  f"{sp.name} at {b} lanes"))
-        say(f"  KC at {sp.name} (L = {sp.n_limbs}): 40 random rows at "
+        for classes in (False, True):
+            for b in sizes:
+                rows_k, z = random_r1cs(sp, 8, 40, 8, b, seed=SEED + 40 + k,
+                                        classes=classes)
+                bad_lanes = range(1, b, 37)
+                for j, lane in enumerate(bad_lanes):
+                    z[9 + j % 40, j % sp.n_limbs, lane] ^= 1 << (j % 16)
+                chk = R1CSChecker(rows_k, z.shape[0], sp, device=dev)
+                err = max(err, kc_err(chk, to_device(z, dev),
+                                      len(bad_lanes),
+                                      f"{sp.name} at {b} lanes"))
+        rows_k, z = kc_extreme_r1cs(sp, sizes[0])
+        chk = R1CSChecker(rows_k, z.shape[0], sp, device=dev)
+        err = max(err, kc_err(chk, to_device(z, dev), sizes[0] - 2,
+                              f"{sp.name}'s extreme rows"))
+        say(f"  KC at {sp.name} (L = {sp.n_limbs}): 40 random rows (the "
+            f"default coefficients, and the six classes) at "
             f"{', '.join(map(str, sizes))} lanes, corrupted lanes among "
-            "them, bit-exact")
+            f"them, and the extreme rows at {sizes[0]} lanes, bit-exact")
     rep.add("r1cs_check", "circom_tpu_torch/ops/cuda/check.cu",
             "circom_tpu/backend/checker.py:97", err, ms, plain_ms, nbytes,
             ops, plan="Poseidon2/bn128", shape=[cc.counts()["n_wires"],
-                                                spec.n_limbs, lanes],
-            rows_per_chunk=kc_rows_per_chunk(checker.n_rows, lanes))
+                                                spec.n_limbs, B],
+            rows_per_chunk=kc_rows_per_chunk(checker.n_rows, B),
+            cios_ops_bound_ms=cios_ms)
 
 
-def phase_kc_sha(rep, checker, wit):
-    """Phase KC on SHA256's full-limb witness (phase D): KC against the
-    plain route on its first slice (checker.lanes, 260: the slice rule),
-    good and with lanes corrupted; KC timed on that slice around its bare
-    launch, and once over every lane of the witness in one launch (as
-    wide a slice as the card holds), beside the check's slices."""
+def phase_kc_sha(rep, checker, rows, wit):
+    """Phase KC on SHA256's full-limb witness (phase D): KC over all its
+    lanes in one launch against the plain route (in its 260-lane windows),
+    with lanes corrupted (in place, then restored); and a window of
+    checker.lanes lanes read in place (its batch stride passed) against
+    the plain route on a contiguous copy of the same lanes.  KC is timed
+    around its bare launch over the batch and over the window."""
     dev, B = wit.device, wit.shape[-1]
+    corrupt = ((600, 1), (5000, B // 2), (20000, B - 1))
+    flip(wit, corrupt)
+    err = kc_err(checker, wit, len(corrupt), "SHA256, corrupted")
     b = min(checker.lanes, B)
-    zs = wit[..., :b].contiguous()
-    bad = zs.clone()
-    corrupt = ((600, 1), (5000, b // 2), (20000, b - 1))
-    for wire, lane in corrupt:
-        bad.view(torch.int32)[wire, 0, lane] ^= 1
-    err = kc_err(checker, bad, len(corrupt), "SHA256's slice, corrupted")
-    del bad
-    err = max(err, kc_err(checker, zs, 0, "SHA256's slice"))
-    first = torch.full((b,), checker.n_rows, dtype=torch.int32, device=dev)
-    ms = time_ms(bare(dev, kc_bare(checker, zs, first),
-                      lambda: checker.first_violated(zs)), reps=10)
-    plain_ms = time_ms(lambda: checker.first_violated_plain(zs), reps=1)
-    nbytes, ops = kc_work(checker, zs)
-    first_all = torch.full((B,), checker.n_rows, dtype=torch.int32,
-                           device=dev)
-    all_ms = time_ms(bare(dev, kc_bare(checker, wit, first_all),
-                          lambda: checker.first_violated(wit)), reps=3)
-    n_slices = -(-B // b)
-    if err:
-        raise SystemExit(f"FAIL KC on SHA256: max abs err {err}")
-    b_ms, b_by = bound(nbytes, ops)
-    all_bound = bound(*kc_work(checker, wit))
+    s0 = max(0, B // 2 - b // 2)
+    win = wit[..., s0:s0 + b]
+    got = checker.first_violated(win)
+    want = checker.first_violated_plain(win.contiguous())
+    sync_all()
+    err = max(err, max_abs_err(got, want))
+    n_bad = sum(s0 <= lane < s0 + b for _w, lane in corrupt)
+    if err or int((want < checker.n_rows).sum()) != n_bad:
+        raise SystemExit(f"FAIL KC on SHA256's window: max abs err {err}")
+    flip(wit, corrupt)
+    first = torch.full((B,), checker.n_rows, dtype=torch.int32, device=dev)
+    ms = time_ms(bare(dev, kc_bare(checker, wit, first),
+                      lambda: checker.first_violated(wit)), reps=5)
+    win = wit[..., s0:s0 + b]
+    first_w = torch.full((b,), checker.n_rows, dtype=torch.int32,
+                         device=dev)
+    win_ms = time_ms(bare(dev, kc_bare(checker, win, first_w),
+                          lambda: checker.first_violated(win)), reps=10)
+    if int((first < checker.n_rows).sum()) + int(
+            (first_w < checker.n_rows).sum()):
+        raise SystemExit("FAIL KC: a good SHA256 lane flagged")
+    plain_ms = time_ms(lambda: checker.first_violated_plain(
+        win.contiguous()), reps=1)
+    nbytes, ops, cios_ops = kc_work(checker, rows, wit)
+    b_ms, b_by, cios_ms = kc_bounds(nbytes, ops, cios_ops)
+    w_ms, w_by, w_cios_ms = kc_bounds(*kc_work(checker, rows, win))
     rep.rows["r1cs_check"].update({
-        "sha_shape": list(zs.shape), "sha_ms": ms, "sha_plain_ms": plain_ms,
-        "sha_bound_ms": b_ms, "sha_bound_by": b_by,
-        "sha_rows_per_chunk": kc_rows_per_chunk(checker.n_rows, b),
-        "sha_all_lanes_ms": all_ms, "sha_all_lanes_bound_ms": all_bound[0],
-        "sha_slices": n_slices})
-    say(f"  KC on SHA256's slice {tuple(zs.shape)}: bit-exact, good and "
-        f"with {len(corrupt)} lanes corrupted; {ms:.4f} ms a launch (plain "
-        f"{plain_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by}); {n_slices} "
-        f"such launches {n_slices * ms:.2f} ms against one launch over all "
-        f"{B} lanes {all_ms:.3f} ms (bound {all_bound[0]:.3f} ms)")
+        "sha_shape": list(wit.shape), "sha_ms": ms, "sha_bound_ms": b_ms,
+        "sha_bound_by": b_by, "sha_cios_ops_bound_ms": cios_ms,
+        "sha_rows_per_chunk": kc_rows_per_chunk(checker.n_rows, B),
+        "sha_window": [s0, b], "sha_window_ms": win_ms,
+        "sha_window_plain_ms": plain_ms, "sha_window_bound_ms": w_ms,
+        "sha_window_cios_ops_bound_ms": w_cios_ms})
+    say(f"  KC on SHA256 {tuple(wit.shape)}, one launch: bit-exact, with "
+        f"{len(corrupt)} lanes corrupted; {ms:.3f} ms (bound {b_ms:.4f} ms "
+        f"by {b_by}, {ops // B} instructions a lane by class; {cios_ops // B}"
+        f" and {cios_ms:.3f} ms as a CIOS a nonzero and a row); the window "
+        f"[{s0}, {s0 + b}) read in place: bit-exact, {win_ms:.4f} ms (bound "
+        f"{w_ms:.4f} ms by {w_by}; the plain route on its copy "
+        f"{plain_ms:.1f} ms)")
 
 
 def phase_gather(rep, plan, B, dev):
@@ -621,7 +688,7 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
     dev, spec = prog.device, prog.spec
     B = inputs.shape[-1]
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
-                          device=dev, lanes=CHECK_LANES)
+                          device=dev)
 
     def run_and_check():
         seg = segments(dev)
@@ -640,6 +707,7 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
     # five more a run at a time without a check between them (each output
     # dropped at once), as bench_gpu.py times its runs
     paths.run(name, run_and_check, must_launch, never)
+    one_launch(paths, name, dev, 1)
     wit, run_ms, check_ms, seg = run_and_check()
     again = sorted(wall_ms(lambda: prog.run(inputs))[1] for _ in range(5))
     say(f"  witnesses: {tuple(wit.shape)} in {run_ms:.1f} ms "
@@ -1235,7 +1303,7 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
 
     x = edge_inputs(bn, tape.n_inputs, b_qs, SEED + 21, dev)
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], bn,
-                          device=dev, lanes=CHECK_LANES)
+                          device=dev)
     first = None
     for slots in (8, 64):
         name = f"n2b254x16_s{slots}"
@@ -1611,8 +1679,7 @@ def phase_mesh(paths, mk, lanes, rehearse):
         "device(s))")
     step = shard_program(prog, mesh)
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"],
-                          prog.spec, device=mesh.devices[0],
-                          lanes=CHECK_LANES)
+                          prog.spec, device=mesh.devices[0])
     check = shard_checker(checker, mesh)
     x = hinted_inputs(prog.spec, prog.n_inputs, mk["hints"], B, SEED + 30,
                       mesh.devices[0])
@@ -1631,6 +1698,7 @@ def phase_mesh(paths, mk, lanes, rehearse):
 
     shards, run_ms, check_ms = paths.run("mesh", run_and_check,
                                          must_launch(prog), K5_K6)
+    one_launch(paths, "mesh", mesh.devices[0], MS_SHARDS)
     peaks = {} if rehearse else {
         str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30 for d in cards}
     say(f"  step {run_ms:.1f} ms ({B / run_ms * 1e3:.0f} witnesses/s, "
@@ -1759,10 +1827,28 @@ def sha256_messages(B, seed):
 
 def profile_check_breakdown(checker, wit, check_ms):
     """One warm R1CS check under the profiler: its device time by kernel,
-    KC's (r1cs_check_kernel) among them."""
+    KC's (r1cs_check_kernel) among them; and the device memory the check
+    allocates beyond the witness, which must stay under 256 bytes a lane
+    (z is read in place: a contiguous copy of it would take
+    n_wires · L · 4 bytes a lane)."""
+    B = wit.shape[-1]
+    sync_all()
+    torch.cuda.reset_peak_memory_stats(wit.device)
+    base = torch.cuda.memory_allocated(wit.device)
+    checker.check_detailed(wit)
+    sync_all()
+    extra = torch.cuda.max_memory_allocated(wit.device) - base
+    say(f"  the R1CS check allocates {extra} bytes beyond the witness "
+        f"({extra / B:.1f} a lane; a copy of z would be "
+        f"{wit.shape[0] * wit.shape[1] * 4} a lane)")
+    if extra > 256 * B:
+        raise SystemExit(f"FAIL: the R1CS check allocates {extra} bytes "
+                         f"for {B} lanes: a copy of z")
     say("  the R1CS check:")
+    # three checks a profiler step: traced one at a time, the kernels of
+    # MK's one-launch check went unrecorded
     profile_breakdown(lambda: checker.check_detailed(wit), check_ms, reps=1,
-                      aten=False, show=("r1cs_check_kernel",))
+                      aten=False, show=("r1cs_check_kernel",), runs=3)
 
 
 def sha256_path(paths, cc, prog, dev, B):
@@ -1905,15 +1991,16 @@ def phase_bench(paths, dev, sha, rehearse):
 
 def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
     """Phase D: the full-limb SHA256 witness at batch B and the R1CS check
-    of every lane, the checker's slice sized by its byte budget; then
-    phase KC on that witness (phase_kc_sha)."""
+    of every lane, one KC launch; then phase KC on that witness
+    (phase_kc_sha)."""
     msgs = sha256_messages(B, SEED + 6)
     x = np.zeros((512, spec.n_limbs, B), np.uint32)
     x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
     x = to_device(x, dev)
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
-                          device=dev, lanes=CHECK_LANES)
-    say(f"  checker slice: {checker.lanes} lanes (max nnz "
+                          device=dev)
+    say(f"  the check: one KC launch over the batch (the plain route's "
+        f"window {checker.lanes} lanes, max nnz "
         f"{max(len(c[0]) for c in checker.coo)})")
 
     def run_and_check():
@@ -1930,6 +2017,7 @@ def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
     wit, run_ms, check_ms = paths.run(
         "sha256_full", run_and_check,
         ("interp_k1b", "gather_n", "r1cs_check"), K5_K6)
+    one_launch(paths, "sha256_full", dev, 1)
     shape = tuple(wit.shape)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if dev.type == "cuda" else 0.0
@@ -1937,8 +2025,9 @@ def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
         profile_check_breakdown(checker, wit, check_ms)
     say(f"  full-limb witness {shape} in {run_ms:.1f} ms; R1CS check of all "
         f"{B} lanes in {check_ms:.1f} ms; peak device memory {peak:.1f} GiB")
-    say("phase KC: KC against the plain route on SHA256's slice")
-    phase_kc_sha(rep, checker, wit)
+    say("phase KC: KC against the plain route on SHA256's batch and a "
+        "window of it")
+    phase_kc_sha(rep, checker, cc.r1cs_rows(), wit)
     del wit
     if dev.type == "cuda":
         say("  the full-limb run:")
@@ -1993,9 +2082,13 @@ def main():
         for lib, t in build.BUILD_SECONDS.items():
             say(f"  nvcc {names.get(lib, lib)} ({lib}): {t:.1f} s")
         for lib, log in build.BUILD_LOG.items():
+            entry = ""
             for line in log.splitlines():
+                if "Compiling entry function" in line:
+                    entry = " " + line.split("'")[1][:60]
                 if "registers" in line or "spill" in line:
-                    say(f"  ptxas {names.get(lib, lib)}: {line.strip()}")
+                    say(f"  ptxas {names.get(lib, lib)}{entry}: "
+                        f"{line.strip()}")
     t_all = time.perf_counter()
     spec = field_spec("bn128")
     cc = compile_source(generate((2,)) + "\ncomponent main = Poseidon2();\n")
@@ -2013,10 +2106,9 @@ def main():
     say("phase 4: K1a against the plain executor")
     order = torch.as_tensor(prog.interp.plan.win_order, device=dev)
     phase_interp(rep, prog, gather_rows(inputs, order))
-    say("phase KC: KC against the plain route (the Poseidon2 slice, five "
+    say("phase KC: KC against the plain route (the Poseidon2 batch, five "
         "fields)")
-    phase_kc(rep, cc, prog, inputs, lanes,
-             (9, 5) if args.rehearse else (1000, 260))
+    phase_kc(rep, cc, prog, inputs, (9, 5) if args.rehearse else (1000, 260))
     del prog, inputs
     say("phase 5: the witness entry point (Poseidon2)")
     rng = random.Random(SEED + 3)

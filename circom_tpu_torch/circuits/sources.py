@@ -34,6 +34,9 @@
 - random_r1cs(spec, ...): a random constraint system with satisfying
   witnesses, at any prime: rows of several terms with random
   coefficients, for the R1CS check at primes no circuit path reaches.
+- kc_extreme_r1cs(spec, B): rows at the edge of the R1CS check kernel's
+  accumulators (each coefficient class at its largest, 61 wide and 228
+  small terms a row, a long row, empty matrices) and witnesses at -1.
 """
 
 import random
@@ -147,14 +150,16 @@ def comparator_inputs(B, seed, L):
     return out
 
 
-def random_r1cs(spec, n_inputs, n_rows, terms, B, seed):
+def random_r1cs(spec, n_inputs, n_rows, terms, B, seed, classes=False):
     """A random constraint system over the field `spec` and B witnesses
     that satisfy it: (rows, their 16-bit limbs uint32 (n_wires,
     spec.n_limbs, B)).  Wire 0 is 1, wires 1 ..
     n_inputs random (the first lanes 0, 1 and p - 1), then one output
     wire a row.  Row r has up to `terms` nonzeros in A and in B over the
-    wires before its output, coefficients random or 1 or p - 1, and C =
-    c_r·out_r + d_r·w_r; out_r is the value that satisfies it."""
+    wires before its output, coefficients random or 1 or p - 1 (with
+    `classes`, drawn evenly from kernel KC's six classes: ±1, ±c with
+    1 < c < 2^32 and ±c wider), and C = c_r·out_r + d_r·w_r; out_r is the
+    value that satisfies it."""
     rng = random.Random(seed)
     p, L = spec.p, spec.n_limbs
     n_wires = 1 + n_inputs + n_rows
@@ -164,6 +169,10 @@ def random_r1cs(spec, n_inputs, n_rows, terms, B, seed):
         z[1 + j][j] = v
 
     def coef():
+        if classes:
+            m = rng.choice((1, rng.randrange(2, 1 << 32),
+                            rng.randrange(1 << 32, (p + 1) // 2)))
+            return rng.choice((m, p - m))
         return rng.choice((1, p - 1, rng.randrange(1, p)))
 
     rows = []
@@ -186,6 +195,74 @@ def random_r1cs(spec, n_inputs, n_rows, terms, B, seed):
             for k in range(L):
                 limbs[i, k, lane] = (v >> (16 * k)) & 0xFFFF
     return rows, limbs
+
+
+def kc_extreme_r1cs(spec, B):
+    """Rows at the edge of kernel KC's accumulators, over the field `spec`,
+    and B witnesses: (rows, their 16-bit limbs uint32 (n_wires,
+    spec.n_limbs, B)).  Each row has its own wires; its terms take each
+    class's largest |c| (1, 2^32 - 1 and (p - 1)/2) in one sign or both:
+    61 wide terms against 228 small ones, all positive, all negative and
+    mixed, units, rows with an empty A, B or C, and a C of 4,096 small
+    terms.  Each row's last C term, d·w, is chosen so that the row
+    holds where every wire is -1 mod p.  Lane 0 holds p - 1 on every
+    wire, lane 1 the largest k p - 1 below R (-1, not canonical: the
+    check takes a wire mod p), lane 2 R - 1 on every wire; lane 3 + j
+    sets a wire of row j % n_rows (of its C, or of its A where C is empty)
+    to 0, so that the row fails."""
+    p, L = spec.p, spec.n_limbs
+    unit, small, wide = 1, (1 << 32) - 1, (p - 1) // 2
+    n_wires = [0]
+
+    def terms(m, n, signs):
+        """{wire: coefficient} of n new wires, |c| = m, signs cycling
+        through `signs` (+1 / -1)."""
+        out = {}
+        for k in range(n):
+            n_wires[0] += 1
+            out[n_wires[0] - 1] = m if signs[k % len(signs)] > 0 else p - m
+        return out
+
+    pos, neg, both = (1,), (-1,), (1, -1)
+    shapes = [  # (A, B, C) of each row, each a list of (|c|, count, signs)
+        ([(wide, 61, pos)], [(small, 228, pos)],
+         [(wide, 61, pos), (small, 228, pos)]),
+        ([(wide, 61, neg)], [(small, 228, neg)],
+         [(wide, 61, neg), (small, 228, neg)]),
+        ([(small, 228, both)], [(wide, 61, both)],
+         [(wide, 20, both), (small, 100, both), (unit, 100, both)]),
+        ([(wide, 20, both), (small, 60, both), (unit, 60, both)],
+         [(unit, 1, neg)], [(unit, 228, both)]),
+        ([], [(small, 228, pos)], [(unit, 2, both)]),
+        ([(wide, 61, pos)], [], [(small, 228, neg)]),
+        ([(unit, 2, both)], [(unit, 1, pos)], []),
+        ([(unit, 1, pos)], [(small, 3, both)], [(small, 4096, pos)]),
+    ]
+    rows = []
+    for shape in shapes:
+        a, b, c = ({w: k for m, n, s in part for w, k in terms(m, n, s)
+                    .items()} for part in shape)
+        # every wire -1: A·B = sum_A · sum_B, C = -sum_C - d
+        sa, sb, sc = (sum(m.values()) for m in (a, b, c))
+        d = (-(sa * sb if a and b else 0) - sc) % p
+        if c or d:
+            c = {**c, n_wires[0]: d}
+            n_wires[0] += 1
+        rows.append((a, b, c))
+    R = 1 << (16 * L)
+
+    def limbs_of(v):
+        return np.array([(v >> (16 * k)) & 0xFFFF for k in range(L)],
+                        np.uint32)[:, None]
+
+    z = np.empty((n_wires[0], L, B), np.uint32)
+    z[...] = limbs_of(p - 1)
+    for lane, v in enumerate([p - 1, (R - 1) // p * p - 1, R - 1][:B]):
+        z[:, :, lane] = limbs_of(v)[:, 0]
+    for lane in range(3, B):
+        r = (lane - 3) % len(rows)
+        z[next(iter(rows[r][2] or rows[r][0])), :, lane] = 0
+    return rows, z
 
 
 def _stdlib():

@@ -1,7 +1,8 @@
-"""Time K1, K2 and K5 against the same kernels built from another checkout.
+"""Time K1, K2, K5 and KC against the same kernels built from another
+checkout.
 
     python -m circom_tpu_torch.kernel_ab --other DIR [--reps N]
-        [--kernels k1,k2,k5]
+        [--kernels k1,k2,k5,kc]
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked with `git archive`.  Its
@@ -40,6 +41,23 @@ checks, outputs allocated before), in turns: other, this, this, other.
   KC took the check over, recorded from the plain route itself, each
   distinct one timed on random canonical operands, and the K5 time of
   such a check is the sum over its products.
+- KC (check.cu) on the R1CS check of Poseidon2/bn128 (P) at batch 65,536
+  and of the full-limb SHA256 block over bn128 (F) at 8,192, each in one
+  launch over the whole batch, lanes corrupted at different wires.  The
+  other checkout's KC is taken to have the interface of the KC that ran
+  a CIOS a nonzero over CSR columns with coefficients coeff·R^2 mod p in
+  L/2 words (rebuilt here from the same rows, as its checker built
+  them):
+
+    ctpu_r1cs_check(L, z, b, a_ptr, a_col, a_coef, b_ptr, b_col, b_coef,
+                    c_ptr, c_col, c_coef, n_rows, rows_per_chunk, p_limbs,
+                    n0inv32, first, stream)
+
+  Where the other check.cu takes this checkout's entry streams instead
+  (its entry point names a_ent: a variant of this KC), it gets the same
+  arguments as this one.  This checkout's KC runs through its checker's
+  own arguments (kc_args).  The first violated rows of both must be
+  identical.
 
 Prints a line for each measurement, the card's name and power limit, and
 a JSON object as the last line.  Exits 1 without a card.
@@ -59,7 +77,8 @@ import torch
 
 import numpy as np
 
-from .backend.checker import R1CSChecker
+from .backend.checker import (R1CSChecker, kc_args, kc_products,
+                              kc_rows_per_chunk)
 from .backend.interp import k1_args, k1_file_shape
 from .backend.torch_backend import WitnessProgram
 from .circuits import sha256_io
@@ -72,17 +91,29 @@ from .compiler.pipeline import compile_source
 from .field.primes import LIMB_BITS, field_spec
 from .ops import build
 from .ops.field import TorchField
+from .ops.limbs import ints_to_limbs
 
 ROOT = Path(__file__).resolve().parents[1]
 NAMES = ("interp", "gather", "field_ops")
 _P, _I, _LL, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_uint32)
 _PU32 = ctypes.POINTER(ctypes.c_uint32)
-# the other checkout's entry points: this checkout's, but for K1's
+# the other checkout's entry points: this checkout's, but for K1's and
+# KC's
 OTHER_SIGNATURES = dict(build.SIGNATURES, interp={"ctpu_interp_k1": (
     _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
          _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32, _PU32, _U32,
-         _PU32, _PU32, _PU32, _I, _I, _P])})
+         _PU32, _PU32, _PU32, _I, _I, _P])}, check={"ctpu_r1cs_check": (
+             _I, [_I, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                  _LL, _PU32, _U32, _P, _P])})
+
+
+
+def streams_kc(root):
+    """Whether the check.cu of the checkout at `root` takes KC's entry
+    streams (this checkout's interface), not CSR columns."""
+    return "a_ent" in (Path(root) / "circom_tpu_torch" / "ops" / "cuda"
+                       / "check.cu").read_text()
 
 
 def build_libraries(other, names=NAMES):
@@ -110,17 +141,17 @@ def build_libraries(other, names=NAMES):
     with ThreadPoolExecutor(max_workers=len(todo)) as pool:
         done = list(pool.map(one, todo))
     libs = {}
-    for (tag, _, name), (so, r, seconds) in zip(todo, done):
+    for (tag, root, name), (so, r, seconds) in zip(todo, done):
         if r.returncode:
             raise SystemExit(f"nvcc failed on the {tag} {name}.cu:\n"
                              f"{r.stdout}")
         print(f"  nvcc {tag} {name}.cu: {seconds:.1f} s")
         for line in r.stdout.splitlines():
-            if "registers" in line:
+            if "registers" in line or "spill" in line:
                 print(f"  ptxas {tag} {name}: {line.strip()}")
         lib = ctypes.CDLL(str(so))
-        sigs = (OTHER_SIGNATURES if tag == "other"
-                else build.SIGNATURES)[name]
+        sigs = (OTHER_SIGNATURES if tag == "other" and not (
+            name == "check" and streams_kc(root)) else build.SIGNATURES)[name]
         for fn, (res, args) in sigs.items():
             getattr(lib, fn).restype = res
             getattr(lib, fn).argtypes = args
@@ -416,14 +447,113 @@ def k5(libs, name, rows, n_wires, B, dev, reps):
             "shapes": shapes}
 
 
+def csr_matrices(rows, spec, dev):
+    """The CSR KC's matrices of `rows`, as its checker built them: a (ptr
+    int32 (n_rows + 1), col int32 (nnz), coeff·R^2 mod p uint32 (nnz, L/2))
+    triple a matrix, each row's nonzeros by column."""
+    L, p = spec.n_limbs, spec.p
+    R = 1 << (LIMB_BITS * L)
+    out = []
+    for mi in range(3):
+        rws, cols, coefs = [], [], []
+        for ri, row in enumerate(rows):
+            for col, coef in sorted(row[mi].items()):
+                rws.append(ri)
+                cols.append(col)
+                coefs.append(coef * R % p * R % p)
+        ptr = np.zeros(len(rows) + 1, np.int32)
+        np.cumsum(np.bincount(np.asarray(rws, np.int64),
+                              minlength=len(rows)), out=ptr[1:])
+        limbs = ints_to_limbs(coefs, L).reshape(-1, L)
+        words = limbs[:, 0::2] | (limbs[:, 1::2] << 16)
+        out.append(tuple(to_device(a, dev) for a in (
+            ptr, np.asarray(cols, np.int32), np.ascontiguousarray(words))))
+    return out
+
+
+def kc_case(name, dev, B):
+    """(rows, spec, witness with lanes corrupted) of KC's case `name`: P,
+    Poseidon2/bn128, or F, the full-limb SHA256 block over bn128."""
+    spec = field_spec("bn128")
+    if name == "P":
+        cc = compile_source(poseidon2_source())
+        prog = WitnessProgram(cc.build_tape()[0], spec, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        x = canonical(gen, spec, (prog.n_inputs, spec.n_limbs, B), dev)
+        corrupt = ((3, 2), (40, 3), (150, 4), (322, 5), (100, B - 1))
+    else:
+        cc = compile_source(
+            (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text()
+            + "\ncomponent main = Sha256Block();\n")
+        prog = WitnessProgram(cc.build_tape()[0], spec, device=dev,
+                              input_ranges=cc.input_range_hints())
+        rng = np.random.default_rng(17)
+        msgs = [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
+                                               dtype=np.uint8)]
+        x = np.zeros((512, spec.n_limbs, B), np.uint32)
+        x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
+        x = to_device(x, dev)
+        corrupt = ((600, 1), (5000, B // 2), (20000, B - 1), (27000, 7))
+    wit = prog.run(x)
+    for wire, lane in corrupt:
+        wit.view(torch.int32)[wire, 0, lane] ^= 1
+    return cc.r1cs_rows(), cc.counts()["n_wires"], spec, wit
+
+
+def kc(libs, name, B, dev, reps, streams):
+    """KC on case `name` at batch B in one launch, the other checkout's (the
+    CSR KC's interface, or with `streams` this one's) and this one's:
+    their first violated rows compared, then timed in turns."""
+    rows, n_wires, spec, wit = kc_case(name, dev, B)
+    checker = R1CSChecker(rows, n_wires, spec, device=dev)
+    old = csr_matrices(rows, spec, dev)
+    field, n = checker.field, checker.n_rows
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = build.u32_array(field.p_list)
+    rpc = kc_rows_per_chunk(n, B)
+    firsts = {k: torch.full((B,), n, dtype=torch.int32, device=dev)
+              for k in ("other", "this")}
+    this_args = kc_args(checker, wit, firsts["this"], stream)
+    other_args = (kc_args(checker, wit, firsts["other"], stream) if streams
+                  else (spec.n_limbs, wit.data_ptr(), B,
+                        *[t.data_ptr() for m in old for t in m], n, rpc, p,
+                        field.n0inv32, firsts["other"].data_ptr(), stream))
+    fns = {
+        "other": lambda: checked(libs["other", "check"].ctpu_r1cs_check(
+            *other_args), "other KC"),
+        "this": lambda: checked(libs["this", "check"].ctpu_r1cs_check(
+            *this_args), "this KC")}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    want = firsts["other"]
+    bad = int((want < n).sum())
+    if not torch.equal(firsts["this"], want):
+        raise SystemExit(f"KC {name}: this differs from the other checkout's")
+    ms = in_turns(fns, reps)
+    products = kc_products(rows, spec.p, spec.n_limbs)
+    nnz = sum(len(r[m]) for r in rows for m in range(3))
+    old_products = (nnz + n) * 2 * (spec.n_limbs // 2) ** 2
+    for k, v in ms.items():
+        print(f"  KC {name} at {B} ({n} rows, {nnz} nonzeros) {k}: "
+              f"{v[0]:.4f}, {v[1]:.4f} ms")
+    print(f"  KC {name}: first violated rows identical, {bad} lanes "
+          f"flagged; {rpc} rows a block; 32-bit products a lane: "
+          f"{products} by class, {old_products} as a CIOS a nonzero and a "
+          "row")
+    return {"batch": B, "rows": n, "nnz": nnz, "flagged": bad,
+            "rows_per_chunk": rpc, "products_per_lane": products,
+            "cios_products_per_lane": old_products, "ms": ms}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", default="k1,k2,k5",
+    ap.add_argument("--kernels", default="k1,k2,k5,kc",
                     help="which comparisons to run, and so which sources "
-                         "to build (default: all three)")
+                         "to build (default: all four)")
     args = ap.parse_args(argv)
     kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -435,8 +565,14 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip())
     names = [n for k, n in (("k1", "interp"), ("k2", "gather"),
-                            ("k5", "field_ops")) if k in kernels]
-    libs = build_libraries(args.other, names)
+                            ("k5", "field_ops"), ("kc", "check"))
+             if k in kernels]
+    with ThreadPoolExecutor(1) as pool:
+        # KC's witnesses run this checkout's kernels: built beside
+        fixed = pool.submit(build.build_all) if "kc" in kernels else None
+        libs = build_libraries(args.other, names)
+        if fixed is not None:
+            print(f"  this checkout's kernels built in {fixed.result():.1f} s")
     result = {"card": card.strip()}
     if "k1" in kernels:
         for name, B in K1_CASES:
@@ -456,6 +592,13 @@ def main(argv=None):
         result["k5_F"] = k5(libs, "F", sha.r1cs_rows(),
                             sha.counts()["n_wires"], 8192, dev,
                             max(2, args.reps // 4))
+    if "kc" in kernels:
+        streams = streams_kc(args.other)
+        result["kc_P"] = kc(libs, "P", 65536, dev, args.reps, streams)
+        torch.cuda.empty_cache()
+        result["kc_F"] = kc(libs, "F", 8192, dev, max(2, args.reps // 4),
+                            streams)
+        torch.cuda.empty_cache()
     print(json.dumps(result))
     return 0
 

@@ -72,8 +72,8 @@ SIGNATURES = {
     },
     "check": {
         "ctpu_r1cs_check": (
-            _I, [_I, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
-                 _PU32, _U32, _P, _P]),
+            _I, [_I, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _PU32,
+                 _U32, _P, _P]),
     },
 }
 

@@ -1,8 +1,9 @@
 """Kernel KC (ops/cuda/check.cu), the R1CS check of one batch slice, on
 the CPU.
 
-- The checker's CSR matrices equal its COO lists row for row, with each
-  coefficient coeff·R^2 in L/2 32-bit words (the COO's coeff·R times R).
+- KC's matrices hold the checker's COO lists row for row: each row's
+  entries decode (column, class, sign, coefficient words) to the same
+  nonzeros, wide entries first, then small, then units, each by column.
 - The plain route `first_violated_plain`, and the verdicts built from it,
   equal the JAX checker's check_detailed (jitted, on the CPU): verdicts
   and first-bad indices, on Poseidon2/bn128 lanes corrupted to fail at
@@ -245,24 +246,40 @@ def test_no_rows_match_jax():
 def test_csr_equals_coo(cases, name):
     rows, n_wires, spec, _z, _lanes = cases[name]
     port = R1CSChecker(rows, n_wires, spec, device="cpu")
-    L = spec.n_limbs
+    L, p = spec.n_limbs, spec.p
+    N = L // 2
     R = 1 << (LIMB_BITS * L)
-    for (rws, cols, coef), (ptr, col, words) in zip(port.coo, port.csr):
-        assert ptr.dtype == col.dtype == torch.int32
-        assert words.dtype == torch.uint32 and words.shape == (len(cols),
-                                                               L // 2)
-        assert ptr.tolist() == [0] + np.cumsum(np.bincount(
-            rws.numpy(), minlength=len(rows))).tolist()
-        assert col.tolist() == cols.tolist()
-        want = [limbs_to_int(c[:, 0]) * R % spec.p
+    unshift = pow(2, -32 * (N - 1), p)
+    for (rws, cols, coef), (ptr, ent) in zip(port.coo, port.kc):
+        assert ptr.dtype == torch.int32 and ent.dtype == torch.uint32
+        assert ptr.shape == (len(rows) + 1,) and int(ptr[0]) == 0
+        words = ent.view(torch.int32).numpy().view(np.uint32).tolist()
+        assert int(ptr[-1]) == len(words)
+        want = [limbs_to_int(c[:, 0]) * pow(R, -1, p) % p
                 for c in coef.view(torch.int32).numpy().view(np.uint32)]
-        got = [sum(int(w) << (32 * i) for i, w in enumerate(row))
-               for row in words.view(torch.int32).numpy().view(np.uint32)]
-        assert got == want
-        for r in range(len(rows)):      # row r's nonzeros, in column order
-            assert sorted(cols[ptr[r]:ptr[r + 1]].tolist()) == \
-                cols[ptr[r]:ptr[r + 1]].tolist()
-            assert (rws[ptr[r]:ptr[r + 1]] == r).all()
+        for r in range(len(rows)):
+            got, k = [], int(ptr[r])
+            while k < int(ptr[r + 1]):
+                e = words[k]
+                col, cls, neg = e >> 3, (e >> 1) & 3, e & 1
+                if cls == checker_mod.KC_WIDE:
+                    m = sum(w << (32 * i) for i, w in
+                            enumerate(words[k + 1:k + 1 + N])) * unshift % p
+                    k += 1 + N
+                elif cls == checker_mod.KC_SMALL:
+                    m, k = words[k + 1], k + 2
+                else:
+                    m, k = 1, k + 1
+                assert checker_mod.kc_class((p - m if neg else m) % p, p) \
+                    == (cls, bool(neg), m)
+                got.append((col, cls, (p - m if neg else m) % p))
+            assert k == int(ptr[r + 1])
+            # wide entries first, then small, then units, each by column
+            assert got == sorted(got, key=lambda g: (-g[1], g[0]))
+            sel = (rws == r).numpy()
+            assert sorted((c, v) for c, _, v in got) == sorted(
+                zip(cols.numpy()[sel].tolist(),
+                    [w for w, s in zip(want, sel) if s]))
 
 
 def host_first(lib, checker, z):
