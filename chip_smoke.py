@@ -30,15 +30,18 @@ mismatch exits non-zero.  The paths:
   which both fused backends refuse: run straight-line (K5, K6 and plain
   PyTorch) and R1CS check;
 - 16 x Num2Bits(254) over bn128 (9,415 ops, above the unroll threshold):
-  on the scan executor (K2 gathers, K5, K6) at batch 8,192, bit for bit
-  against the straight-line run of the same tape, both timed; and at
-  65,536 with 8 and 64 slots a step, every lane checked (phase QS);
+  on the scan executor (one launch of KS a run) at batch 8,192, bit for
+  bit against the straight-line run of the same tape, both timed; and at
+  65,536 with 8 and 64 slots a step, every lane checked (phase QS); KS's
+  two layouts timed and held bit for bit against the step loop on the
+  card (phase KS);
 - MultiMiMC7(5) over bn128, batch 65,536, and MerkleInclusion(32) over
   Poseidon2/bn128, batch 16,384 (K1a and K1b in one K1 launch, K3 for
   the pathIndex bits): run and R1CS check, sampled lanes against the host
   and the native calculator;
 - the compile CLI (python -m circom_tpu_torch.cli --witness-gpu) on both
-  circuits and on bigint-div + Num2Bits(254) (the scan), and the native
+  circuits and on bigint-div + Num2Bits(254) (the scan: its witness step
+  also in this process, one KS launch), and the native
   calculator's witnesses/s on this host beside the card's (the CPU
   baseline);
 - MerkleInclusion(32) over Poseidon2/bn128 at 65,536 witnesses split
@@ -47,8 +50,9 @@ mismatch exits non-zero.  The paths:
   the R1CS check of every lane, sampled lanes of every shard against the
   native and the host calculator (phase MS);
 - two coordinated processes (python -m circom_tpu_torch.parallel.multihost
-  --spawn 2 --device cuda), exact parity and an all-reduced verdict
-  (phase MH), and the entry points entry() and dryrun_multichip()
+  --spawn 2 --device cuda) on the scan, exact parity, an all-reduced
+  verdict and one KS launch a shard (phase MH), and the entry points
+  entry() and dryrun_multichip()
   (circom_tpu_torch/entry.py, phase GE).
 
 Unit plans hold every K1b, K1c and K1d opcode at the edge operands
@@ -96,6 +100,8 @@ try:
                                                  interp_k1, launch_gather_w)
     from circom_tpu_torch.backend.interp_ref import (gather_n_rows,
                                                      gather_rows, run_plan)
+    from circom_tpu_torch.backend.scan import (KS_LAYOUTS, KS_WARPS,
+                                               launch_scan)
     from circom_tpu_torch.backend.torch_backend import WitnessProgram
     from circom_tpu_torch.circuits import sha256_io
     from circom_tpu_torch.backend.segments import (SegmentedProgram,
@@ -119,6 +125,7 @@ try:
                                           unit_shifts)
     from circom_tpu_torch.emit.binfmt import write_wtns
     from circom_tpu_torch.entry import dryrun_multichip, entry
+    from circom_tpu_torch.witness import batch_witnesses
     from circom_tpu_torch.field.primes import FieldSpec, field_spec
     from circom_tpu_torch import native
     from circom_tpu_torch.native import NativeCalculator
@@ -135,7 +142,8 @@ try:
                                                   sync_all, wall_ms)
     from circom_tpu_torch.utils.roofline import (HBM_BYTES_PER_S,
                                                  INT_OPS_PER_SM_CLOCK,
-                                                 k1_ops, lane_ops_per_s)
+                                                 k1_ops, ks_bytes, ks_ops,
+                                                 lane_ops_per_s)
 
     import bench_gpu
 except ImportError as e:
@@ -956,6 +964,12 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     return out
 
 
+KS_SOURCE = "circom_tpu_torch/ops/cuda/scan.cu"
+KS_REPLACES = "circom_tpu/backend/jax_backend.py:571"
+# the kernels a scan run must not launch: K1's parts, K4, and the step
+# loop's gathers, products, adds and subtracts (KS runs every step)
+SCAN_NEVER = ("interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d", "k4",
+              "gather_w", "mont_mul", "add", "sub")
 K4_SOURCE = "circom_tpu_torch/ops/segment_gen.py"
 K4_REPLACES = "circom_tpu/backend/segments.py:242"
 
@@ -1190,6 +1204,17 @@ def idle_share(prog, x, run_ms):
     return max(0.0, 1 - busy / ms)
 
 
+def ks_idle_share(prog, x, run_ms):
+    """The device's idle share of a scan run that took run_ms by the host
+    clock.  The run is one KS launch, so the device is busy for that
+    launch alone: timed here by CUDA events around the bare launch on the
+    same tables and inputs.  (Within this long process the profiler
+    recorded no KS kernel, where a process of its own recorded it.)"""
+    rf, out = ks_buffers(prog.scan, x.shape[-1], x.device)
+    busy = time_ms(lambda: launch_scan(prog.scan, x, rf, out), reps=3)
+    return max(0.0, 1 - busy / run_ms)
+
+
 def phase_scan_kernels(rep, prog, B, key):
     """K2, K5 and K6 at the shapes a scan step of `prog` gives them, bit
     for bit against their plain versions on the same card tensors: K2
@@ -1246,19 +1271,21 @@ def phase_scan_kernels(rep, prog, B, key):
 
 
 def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
-    """Phases Q and QS: 16 x Num2Bits(254)/bn128, 9,415 ops, above both
-    fused backends' limits and the default unroll threshold, so on the
-    scan executor (K2 gathers, K5 and K6; never K1 or K4), as in the JAX
-    package.  Q: at batch b_q, every lane through the R1CS check and 8
-    against the host calculator; its witness bit for bit against the
-    straight-line run of the same tape and inputs (unroll_threshold
-    2^30), both timed, with their launches and idle shares.  QS: at
-    batch b_qs with 8 and 64 slots a step, every lane checked, the two
-    witnesses equal bit for bit, 4 lanes against the host; run ms,
-    witnesses/s, launches, idle share and peak memory."""
+    """Phases Q, QS and KS: 16 x Num2Bits(254)/bn128, 9,415 ops, above
+    both fused backends' limits and the default unroll threshold, so on
+    the scan executor, as in the JAX package: one KS launch a run, never
+    K1, K4 or the step loop's kernels (K2, K5, K6).  Q: at batch b_q,
+    every lane through the R1CS check and 8 against the host calculator;
+    its witness bit for bit against the straight-line run of the same
+    tape and inputs (unroll_threshold 2^30), both timed, with
+    their launches and idle shares; K2, K5 and K6 at a loop step's shape
+    against their plain versions.  QS: at batch b_qs with 8 and 64 slots
+    a step, every lane checked, the two witnesses equal bit for bit, 4
+    lanes against the host; run ms, witnesses/s, launches, idle share and
+    peak memory.  KS: phase_ks."""
     bn = field_spec("bn128")
-    never = ("interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d", "k4")
-    must = ("gather_w", "mont_mul", "add", "sub", "r1cs_check")
+    never = SCAN_NEVER
+    must = ("scan", "r1cs_check")
     host_map = (lambda ins: {"a": ins})
     cc = compile_source(num2bits_source(254, 16))
     tape = cc.build_tape()[0]
@@ -1288,7 +1315,8 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
     for label, p, n in (("scan", prog, n_scan), ("straight-line", line,
                                                  n_line)):
         ms = wall_ms(lambda: p.run(x))[1]     # the witness not kept
-        idle = None if rehearse else idle_share(p, x, ms)
+        idle = (None if rehearse else ks_idle_share(p, x, ms) if p is prog
+                else idle_share(p, x, ms))
         q[label] = {"run_ms": ms, "launches": n, "idle": idle}
         say(f"  Q {label}: run {ms:.1f} ms ({b_q / ms * 1e3:.0f} "
             f"witnesses/s), launches {n}, idle share "
@@ -1311,9 +1339,9 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
         sched = prog.scan.sched
         say(f"phase QS: the 16 x Num2Bits(254)/bn128 scan at batch {b_qs}, "
             f"{slots} slots ({sched.n_steps} steps, {sched.n_regs} "
-            f"registers: a {sched.n_regs * 64 * b_qs / 1e9:.1f} GB register "
-            f"file beside a {(sched.n_witness + 1) * 64 * b_qs / 1e9:.1f} GB "
-            "witness buffer)")
+            f"registers: KS's {sched.n_regs * 32 * b_qs / 1e9:.1f} GB "
+            f"register file beside a {sched.n_witness * 64 * b_qs / 1e9:.1f} "
+            "GB witness)")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1340,7 +1368,7 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
                              "the one at 8")
         del wit
         warm = wall_ms(lambda: prog.run(x))[1]    # the witness not kept
-        idle = None if rehearse else idle_share(prog, x, warm)
+        idle = None if rehearse else ks_idle_share(prog, x, warm)
         out[name] = {"run_ms": warm, "first_ms": ms, "check_ms": check_ms,
                      "idle": idle, "peak_gib": peak,
                      "launches": paths.counts[name]}
@@ -1360,7 +1388,109 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
     del prog
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    out["ks"] = phase_ks(rep, tape, dev, b_q, b_qs, rehearse)
     return out
+
+
+def ks_buffers(scan, B, dev):
+    """KS's register file (n_regs, L/2, B) and witness (n_witness, L, B),
+    uint32, as ScanProgram.run_ks allocates them."""
+    L = scan.field.L
+    return (torch.empty((scan.sched.n_regs, L // 2, B), dtype=torch.int32,
+                        device=dev).view(torch.uint32),
+            torch.empty((scan.n_witness, L, B), dtype=torch.int32,
+                        device=dev))
+
+
+def phase_ks(rep, tape, dev, b_q, b_qs, rehearse):
+    """Phase KS: kernel KS on 16 x Num2Bits(254)/bn128's tables, Q's (8
+    slots) at b_q and b_qs lanes and QS's 64 slots at b_qs.  Each layout
+    of KS_LAYOUTS (a thread a lane, a warp a slot) is timed around its
+    bare launch and held bit for bit against the step loop on the card
+    (K2, K5, K6 and plain PyTorch; timed once a batch at 8 slots: KS's
+    plain ms; at 64 slots the witness is the same).  Then the kept
+    layout's run (WitnessProgram.run) at each shape: launches, ms, idle
+    share, and the device memory it allocates beyond its inputs.  KS's
+    row: ms at Q with KS_WARPS, the compulsory bytes' and the operations'
+    bounds (ks_bytes, ks_ops), the register file's traffic beside, every
+    shape and layout."""
+    bn = field_spec("bn128")
+    progs = {s: WitnessProgram(tape, bn, device=dev, slots=s) for s in (8, 64)}
+    sched = progs[8].scan.sched
+    say(f"phase KS: KS on Q's tables ({sched.n_steps} steps of "
+        f"{sched.slots} slots, {len(progs[8].scan.ks['ent'])} "
+        f"entries) at {b_q} and {b_qs} lanes and on QS's 64 slots; layouts "
+        f"{KS_LAYOUTS} warps a block, {KS_WARPS} kept")
+    reg_b, comp_b = ks_bytes(sched, bn.n_limbs)
+    ops = ks_ops(sched, bn.p)
+    cuda = dev.type == "cuda"
+    res, want = {}, None
+    for label, slots, B in (("q", 8, b_q), ("qs8", 8, b_qs),
+                            ("qs64", 64, b_qs)):
+        prog = progs[slots]
+        x = edge_inputs(bn, prog.n_inputs, B, SEED + 21, dev)
+        row = res[label] = {"lanes": B, "slots": slots}
+        if slots == 8:
+            # the loop's second run is timed: its first loads K2, K5 and K6
+            want = None
+            if cuda:
+                torch.cuda.empty_cache()
+            want = prog.scan.run_loop(x)
+            want, row["plain_ms"] = wall_ms(lambda: prog.scan.run_loop(x))
+        for warps in KS_LAYOUTS:
+            if cuda:
+                rf, got = ks_buffers(prog.scan, B, dev)
+                ms = time_ms(lambda: launch_scan(prog.scan, x, rf, got,
+                                                 warps),
+                             reps=5 if B == b_q else 3)
+                del rf
+            else:
+                ms = time_ms(lambda: prog.run(x), reps=1)
+                got = prog.run(x)
+            err = max_abs_err(got.view(torch.uint32), want)
+            row[f"w{warps}_ms"] = ms
+            say(f"  KS {label} ({B} lanes, {slots} slots), {warps} warps a "
+                f"block: {ms:.4f} ms, " + (f"max abs err {err}" if err else
+                                          "bit-exact against the step loop"))
+            if err:
+                raise SystemExit(f"FAIL KS on {label} at {warps} warps: "
+                                 f"differs from the step loop")
+            del got
+            if cuda:
+                torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        wit, n = run_launches(prog, x)
+        row["alloc_gib"] = ((torch.cuda.max_memory_allocated(dev) - base)
+                            / 2 ** 30 if cuda else None)
+        del wit
+        row["run_ms"] = wall_ms(lambda: prog.run(x))[1]
+        row["launches"] = n
+        row["idle"] = (None if rehearse else
+                       ks_idle_share(prog, x, row["run_ms"]))
+        t_reg, t_ops = bounds(reg_b * B, ops * B)
+        row.update(reg_bound_ms=t_reg, comp_bound_ms=bounds(comp_b * B, 0)[0],
+                   ops_bound_ms=t_ops)
+        say(f"  KS {label}: run {row['run_ms']:.3f} ms, launches {n}, idle "
+            "share " + ("not measured" if row["idle"] is None
+                        else f"{row['idle']:.3f}")
+            + ", allocates " + ("not measured" if row["alloc_gib"] is None
+                                else f"{row['alloc_gib']:.2f} GiB")
+            + f"; bounds: register traffic {t_reg:.3f} ms, compulsory "
+            f"{row['comp_bound_ms']:.3f} ms, operations {t_ops:.4f} ms"
+            + (f"; the step loop {row['plain_ms']:.1f} ms"
+               if "plain_ms" in row else ""))
+        del x
+    del want
+    if cuda:
+        torch.cuda.empty_cache()
+    q = res["q"]
+    rep.add("scan", KS_SOURCE, KS_REPLACES, 0, q[f"w{KS_WARPS}_ms"],
+            q["plain_ms"], comp_b * b_q, ops * b_q,
+            reg_bound_ms=q["reg_bound_ms"], layouts=list(KS_LAYOUTS),
+            kept_warps=KS_WARPS, shapes=res)
+    return res
 
 
 def lane_values(wit, x, lanes):
@@ -1509,8 +1639,31 @@ def cli_runs(mm):
     say(f"  bigint-div + Num2Bits(254)/bn128 through the CLI: the scan, "
         f"{prog.scan.sched.n_steps} steps of {prog.scan.sched.slots} slots")
     return {**mm, "bigdiv_bits": dict(
-        cc=cc, tape=tape, layout=layout, hints=hints,
+        cc=cc, tape=tape, layout=layout, hints=hints, scan=True,
         calc=NativeCalculator(tape, bn, input_ranges=hints))}
+
+
+def cli_scan_run(paths, name, cc, tape, hints, rows, nat, device):
+    """The CLI's witness step in this process on the CLI's inputs: its
+    program (cli.py's constructor call: unroll_threshold=0, the range
+    hints) through witness.batch_witnesses at --sanity_check 2, counted
+    as path cli_<name>_run: one KS launch and the R1CS check, none of
+    SCAN_NEVER; every witness equals the native calculator's."""
+    prog = WitnessProgram(tape, field_spec("bn128"), device=device,
+                          unroll_threshold=0, input_ranges=hints)
+    cols = [[r[i] for r in rows] for i in range(tape.n_inputs)]
+    rows_r1cs, n_wires = cc.r1cs_rows(), cc.counts()["n_wires"]
+    dec = paths.run(f"cli_{name}_run", lambda: batch_witnesses(
+        prog, cols, rows_r1cs, n_wires, 2), ("scan", "r1cs_check"),
+        SCAN_NEVER)
+    if dec is None or any(dec[i][bi] != nat[bi][i]
+                          for bi in range(len(rows))
+                          for i in range(len(dec))):
+        raise SystemExit(f"FAIL CLI on {name}: the witness step in process "
+                         "differs from the native calculator")
+    say(f"  CLI on {name}: its witness step in this process (one KS launch "
+        f"and the check) equals the native calculator on {len(rows)} "
+        "witnesses")
 
 
 def phase_cli(paths, runs, device, n):
@@ -1595,6 +1748,8 @@ def phase_cli(paths, runs, device, n):
                 f"the port's compile, {n} .wtns equal the native "
                 f"calculator's, {n_host} the host calculator's; the check "
                 f"of the {n} witnesses {check_ms[name]:.2f} ms")
+            if run.get("scan"):
+                cli_scan_run(paths, name, cc, tape, hints, rows, nat, device)
             if not hints:
                 continue
             bad = [list(rows[0]), list(rows[1])]
@@ -1765,32 +1920,50 @@ def phase_mesh(paths, mk, lanes, rehearse):
             "devices": [str(d) for d in mesh.devices]}
 
 
-def phase_multihost(device):
+def phase_multihost(paths, device, rehearse):
     """Phase MH: python -m circom_tpu_torch.parallel.multihost --spawn 2
     in a subprocess: two coordinated processes, each splitting its slice
-    over 4 shards, every lane against the host calculator, the verdict
-    all-reduced; its artifact must say ok, checker_all_ok and exact
-    parity."""
+    over 4 shards on the scan, every lane against the host calculator,
+    the verdict all-reduced; its artifact must say ok, checker_all_ok and
+    exact parity.  Each process's launches (--launches) must hold one KS
+    launch a shard, the R1CS check, and none of SCAN_NEVER; their sum is
+    the path's count."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         out = os.path.join(tmp, "mp.json")
+        counts = os.path.join(tmp, "launches")
         r, ms = wall_ms(lambda: subprocess.run(
             [sys.executable, "-m", "circom_tpu_torch.parallel.multihost",
-             "--spawn", "2", "--device", device, "--out", out],
+             "--spawn", "2", "--device", device, "--out", out,
+             "--launches", counts],
             cwd=ROOT, capture_output=True, text=True, timeout=MH_TIMEOUT))
         if r.returncode != 0:
             raise SystemExit(f"FAIL MH (exit {r.returncode}):\n"
                              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
         with open(out) as fh:
             art = json.load(fh)
+        per = []
+        for pid in range(2):
+            with open(f"{counts}.{pid}") as fh:
+                per.append(json.load(fh))
     if not (art["ok"] and art["checker_all_ok"] and art["parity"] == "exact"
             and art["n_processes"] == 2
             and art["elements_checked_per_process"] * 2 == art["batch"]):
         raise SystemExit(f"FAIL MH: {art}")
+    shards = art["devices_per_process"]
+    for pid, c in enumerate(per):
+        bad = [k for k in SCAN_NEVER if c.get(k)]
+        if not rehearse and (c.get("scan") != shards or not c.get(
+                "r1cs_check") or bad):
+            raise SystemExit(f"FAIL MH: process {pid} launched {c}: not one "
+                             f"KS launch a shard ({shards}) and the check, "
+                             "or a kernel of the step loop")
+    paths.counts["mh"] = {k: sum(c.get(k, 0) for c in per)
+                          for k in set().union(*per)}
     say(f"  2 processes, {art['global_devices']} shards, batch "
         f"{art['batch']}, platform {art['platform']}: every lane equals the "
         f"host calculator, the all-ok verdict reduced; step "
         f"{art['step_seconds_first_call']} s (first call), command "
-        f"{ms / 1e3:.1f} s; {art['mechanism']}")
+        f"{ms / 1e3:.1f} s; {art['mechanism']}; launches {per}")
     return ms
 
 
@@ -2182,7 +2355,7 @@ def main():
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     say("phase MH: two coordinated processes (parallel/multihost.py)")
-    mh_ms = phase_multihost(dev.type)
+    mh_ms = phase_multihost(paths, dev.type, args.rehearse)
     say("phase GE: the entry points (circom_tpu_torch/entry.py)")
     phase_graft_entry(paths, dev.type)
     t_ms = time.perf_counter() - t_ms

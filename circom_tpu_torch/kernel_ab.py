@@ -1,8 +1,8 @@
-"""Time K1, K2, K5 and KC against the same kernels built from another
+"""Time K1, K2, K5, KC and KS against the same kernels built from another
 checkout.
 
     python -m circom_tpu_torch.kernel_ab --other DIR [--reps N]
-        [--kernels k1,k2,k5,kc]
+        [--kernels k1,k2,k5,kc,ks]
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked with `git archive`.  Its
@@ -58,6 +58,11 @@ checks, outputs allocated before), in turns: other, this, this, other.
   arguments as this one.  This checkout's KC runs through its checker's
   own arguments (kc_args).  The first violated rows of both must be
   identical.
+- KS (scan.cu, the same interface in both) on 16 x Num2Bits(254)/bn128's
+  scan tables at 8 slots and batch 8,192 (Q) and 65,536 (QS8), and at 64
+  slots and 65,536 (QS64), through this checkout's ks_args, at 1, 2, 4
+  and 8 warps a block: every launch's witness equal to this checkout's
+  run, which equals the step loop's at Q.
 
 Prints a line for each measurement, the card's name and power limit, and
 a JSON object as the last line.  Exits 1 without a card.
@@ -80,11 +85,13 @@ import numpy as np
 from .backend.checker import (R1CSChecker, kc_args, kc_products,
                               kc_rows_per_chunk)
 from .backend.interp import k1_args, k1_file_shape
+from .backend.scan import ks_args
 from .backend.torch_backend import WitnessProgram
 from .circuits import sha256_io
 from .circuits.gen_poseidon import generate
 from .circuits.sources import (BIGINT_DIV_SRC, comparator_inputs,
-                               comparators_source, poseidon2_source)
+                               comparators_source, num2bits_source,
+                               poseidon2_source)
 from .backend.interp_plan import _NARROW_RESULT, _OPERAND_FILES
 from .convert import N_OPERANDS, OPCODES, to_device
 from .compiler.pipeline import compile_source
@@ -546,14 +553,59 @@ def kc(libs, name, B, dev, reps, streams):
             "cios_products_per_lane": old_products, "ms": ms}
 
 
+KS_CASES = (("Q", 8, 8192), ("QS8", 8, 65536), ("QS64", 64, 65536))
+KS_WARPS_AB = (1, 2, 4, 8)
+
+
+def ks(libs, dev, reps):
+    """KS of both checkouts on Q's tape at every KS_CASES shape and
+    KS_WARPS_AB layout, in turns; {case: {"tag w<warps>": [ms, ms]}}."""
+    spec = field_spec("bn128")
+    tape = compile_source(num2bits_source(254, 16)).build_tape()[0]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for name, slots, B in KS_CASES:
+        prog = WitnessProgram(tape, spec, device=dev, slots=slots)
+        scan = prog.scan
+        x = canonical(gen, spec, (prog.n_inputs, spec.n_limbs, B), dev)
+        want = prog.run(x).view(torch.int32)
+        if name == "Q" and not torch.equal(
+                want, scan.run_loop(x).view(torch.int32)):
+            raise SystemExit("KS on Q differs from the step loop")
+        rf = torch.empty((scan.sched.n_regs, spec.n_limbs // 2, B),
+                         dtype=torch.int32, device=dev).view(torch.uint32)
+        got = torch.empty_like(want)
+        stream = build.stream_ptr(dev)
+        fns = {}
+        for tag in ("other", "this"):
+            for warps in KS_WARPS_AB:
+                args = ks_args(scan, x, rf, got, warps, stream)
+                fns[f"{tag} w{warps}"] = (
+                    lambda lib=libs[tag, "scan"], args=args:
+                    checked(lib.ctpu_scan(*args), "KS"))
+        for k, fn in fns.items():
+            fn()
+            if not torch.equal(got, want):
+                raise SystemExit(f"KS {k} on {name} differs from this "
+                                 "checkout's run")
+        t = in_turns(fns, reps if B == 8192 else max(2, reps // 4))
+        out[name] = t
+        for k, v in t.items():
+            print(f"  KS {name} ({B} lanes, {slots} slots) {k}: "
+                  + ", ".join(f"{m:.4f}" for m in v) + " ms")
+        del prog, scan, x, want, rf, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", default="k1,k2,k5,kc",
+    ap.add_argument("--kernels", default="k1,k2,k5,kc,ks",
                     help="which comparisons to run, and so which sources "
-                         "to build (default: all four)")
+                         "to build (default: all five)")
     args = ap.parse_args(argv)
     kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -565,11 +617,13 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip())
     names = [n for k, n in (("k1", "interp"), ("k2", "gather"),
-                            ("k5", "field_ops"), ("kc", "check"))
-             if k in kernels]
+                            ("k5", "field_ops"), ("kc", "check"),
+                            ("ks", "scan")) if k in kernels]
     with ThreadPoolExecutor(1) as pool:
-        # KC's witnesses run this checkout's kernels: built beside
-        fixed = pool.submit(build.build_all) if "kc" in kernels else None
+        # KC's witnesses and KS's reference run this checkout's kernels:
+        # built beside
+        fixed = (pool.submit(build.build_all) if kernels & {"kc", "ks"}
+                 else None)
         libs = build_libraries(args.other, names)
         if fixed is not None:
             print(f"  this checkout's kernels built in {fixed.result():.1f} s")
@@ -599,6 +653,8 @@ def main(argv=None):
         result["kc_F"] = kc(libs, "F", 8192, dev, max(2, args.reps // 4),
                             streams)
         torch.cuda.empty_cache()
+    if "ks" in kernels:
+        result["ks"] = ks(libs, dev, args.reps)
     print(json.dumps(result))
     return 0
 

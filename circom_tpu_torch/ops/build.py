@@ -38,7 +38,7 @@ from types import SimpleNamespace
 from ..utils.cache import build_dir
 
 SRC_DIR = Path(__file__).resolve().parent / "cuda"
-SOURCES = ("field_ops", "interp", "gather", "check")
+SOURCES = ("field_ops", "interp", "gather", "check", "scan")
 HEADERS = ("dot32.cuh", "field.cuh", "field32.cuh", "narrow.cuh",
            "wide.cuh", "wide32.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -74,6 +74,11 @@ SIGNATURES = {
         "ctpu_r1cs_check": (
             _I, [_I, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _PU32,
                  _U32, _P, _P]),
+    },
+    "scan": {
+        "ctpu_scan": (
+            _I, [_I, _P, _P, _I, _P, _P, _P, _P, _LL, _PU32, _U32, _I, _I,
+                 _P]),
     },
 }
 

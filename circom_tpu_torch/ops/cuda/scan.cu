@@ -1,0 +1,375 @@
+// Kernel KS: the scan executor's whole run, every step of a witness tape,
+// as one launch.
+//
+// It replaces the JAX package's jitted `lax.scan` over the step tables
+// (circom_tpu/backend/jax_backend.py:571-617, `WitnessProgram._run`, over
+// the 27 branches of `_branch`, :392-465), which XLA compiles into one
+// program and which no Pallas kernel computes.  Before KS the port ran it
+// as a Python loop (backend/scan.py `ScanProgram.run_loop`, kept as KS's
+// plain version): a step gathered its S operands (K2), computed them with
+// one call of the per-op library (K5, K6 or plain PyTorch) and wrote its
+// results back with `index_copy_`, some 16 launches a step, each moving a
+// whole (S, L, B) block through device memory.
+//
+// A lane depends on no other lane, so here a lane's registers, witness
+// rows and steps belong to the threads of one block, and nothing but the
+// block's barrier orders them.  The tables (backend/scan.py builds them
+// once a program) are one stream of entries of 8 int32s, (op, a, b, c, o,
+// w, imm, 0), cut into steps by `off`: step s is the entries [off[s],
+// off[s + 1]).  The first step loads the constants and inputs into their
+// registers and the witness rows that copy them; then one step a step of
+// the schedule, holding its real slots only (the schedule's padding slots
+// read register 0 and write the trash register and row: KS skips them);
+// the last step copies the witness rows that duplicate another.  o < 0
+// writes no register, w < 0 no witness row.  The host checks once, when
+// it builds the tables, that no entry reads a register before an earlier
+// step writes it, that a step writes no register it or another of its
+// entries reads, and that every witness row is written exactly once; so
+// the register file needs no initialisation and the witness buffer no
+// trash row, and the kernel tests nothing at run time.
+//
+// The register file is KS's own: (n_regs, N, B) 32-bit words, N = L/2
+// (two 16-bit limbs a word, half the bytes of the loop's uint32 limbs),
+// lane-minor, so that a warp's 32 lanes read and write each word as one
+// 128-byte line.  The witness keeps the reference's layout, (n_witness,
+// L, B) 16-bit limbs in uint32.  Each opcode computes in words with the
+// device functions K1 and K5 are held to: field32.cuh's CIOS (mont_mul32,
+// cond_sub32), dot32.cuh's mod_add32 and mod_sub32, wide32.cuh's
+// comparisons, bit ops, shifts and long division, bit for bit the values
+// of TorchField and `perop.node_value` (the shifts and the power per slot,
+// as `shift_dyn` and `pow_dyn`).
+//
+// Layout.  A block is 32 lanes and `warps` warps: warp k of a step takes
+// the step's entries k, k + warps, ... on its 32 lanes, and the block's
+// barrier follows each step.  warps = 1 is a thread a lane (each thread
+// walks every entry of its lane in order; no barrier); warps = 8 a warp a
+// slot, which spreads a step's slots over the SM (a step's slots are one
+// dataflow level: independent).  At 8,192 lanes a thread a lane is 256
+// warps on 132 SMs, two an SM, and each entry's dependent loads (the
+// entry, then its operands) are exposed; a warp a slot has up to eight
+// times the warps in flight on full steps.  Both are built and
+// chip_smoke.py's phase KS times both; backend/scan.py KS_WARPS is the
+// one kept.
+//
+// Bound: the bytes of the register file.  An entry reads its operands'
+// N words a lane, writes N and, for a witness row, L 16-bit limbs: about
+// 1.0 MB a lane on 16 x Num2Bits(254)/bn128 (utils/roofline.ks_bytes),
+// 2.5 ms at 8,192 lanes and 20 ms at 65,536 if every access reached
+// device memory; the compulsory bytes (inputs read once, the witness
+// written once) are 0.64 and 5.1 ms.  The registers live at once are a
+// small part of the file, so most of the traffic stays in the 50 MB L2;
+// the design keeps every access a coalesced line and nothing of a step in
+// device memory between steps.  The operations (utils/roofline.ks_ops)
+// are far below: shifts and ands are N words each, products 2 N^2
+// 32x32->64-bit products.
+//
+// Plain C++ apart from the launch and the barrier, so that g++ builds it
+// for the host (tests/test_torch_scan_kernel.py, with a thread a CUDA
+// thread and a host barrier).
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "dot32.cuh"
+#include "field.cuh"
+#include "field32.cuh"
+#include "wide32.cuh"
+
+namespace ctpu {
+
+constexpr int KS_LANES = 32;      // lanes a block: a thread of each warp
+constexpr int KS_MAX_WARPS = 8;
+
+// KS's opcodes: backend/scan.py KS_OPS in this order
+enum KsOp {
+  KS_ADD, KS_SUB, KS_MUL, KS_MULP, KS_DIV, KS_NEG, KS_LT, KS_LE, KS_GT,
+  KS_GE, KS_EQ, KS_NEQ, KS_LAND, KS_LOR, KS_LNOT, KS_BAND, KS_BOR, KS_BXOR,
+  KS_BNOT, KS_SHL, KS_SHR, KS_POW, KS_IDIV, KS_MOD, KS_SELECT, KS_TO_MONT,
+  KS_FROM_MONT,
+  // the run's first and last steps
+  KS_CONST, KS_INPUT, KS_DUP
+};
+
+struct KsArgs {
+  const int* off;          // (n_steps + 1,)
+  const int4* ent;         // two int4 an entry
+  int n_steps;
+  const uint32_t* consts;  // (n_consts, N) words: const imm's value
+  const uint32_t* x;       // (n_inputs, L, b) 16-bit limbs
+  uint32_t* rf;            // (n_regs, N, b) words
+  uint32_t* out;           // (n_witness, L, b) 16-bit limbs
+  long long b;             // lanes
+};
+
+template <int N>
+struct KsConsts {
+  uint32_t p[N], r2[N], one[N], half[N], mask[N], pm2[N];
+  uint32_t n0inv32;  // -p^-1 mod 2^32
+  int bits;          // p.bit_length(): the long division's steps
+  int pm2_bits;      // (p - 2).bit_length(): the inversion's exponent
+};
+
+template <int N>
+__device__ __forceinline__ void load_reg(const uint32_t* rf, int r,
+                                         long long b, long long lane,
+                                         uint32_t (&v)[N]) {
+  const uint32_t* s = rf + (long long)r * N * b + lane;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = s[i * b];
+}
+
+template <int N>
+__device__ __forceinline__ void mont(const uint32_t (&x)[N],
+                                     const uint32_t (&y)[N],
+                                     const KsConsts<N>& kc,
+                                     uint32_t (&out)[N]) {
+  uint32_t t[N];
+  mont_mul32<N>(x, y, kc.p, kc.n0inv32, t);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = t[i];
+}
+
+// TorchField.mul_norm: a b R^-1, then * R^2
+template <int N>
+__device__ __forceinline__ void mul_norm(const uint32_t (&x)[N],
+                                         const uint32_t (&y)[N],
+                                         const KsConsts<N>& kc,
+                                         uint32_t (&out)[N]) {
+  uint32_t t[N];
+  mont<N>(x, y, kc, t);
+  mont<N>(t, kc.r2, kc, out);
+}
+
+// TorchField.div_mont: a * pow_mont(b, p - 2), pow_mont starting from b
+// and taking the exponent's bits below its top one
+template <int N>
+__device__ __forceinline__ void div_mont(const uint32_t (&x)[N],
+                                         const uint32_t (&y)[N],
+                                         const KsConsts<N>& kc,
+                                         uint32_t (&out)[N]) {
+  uint32_t acc[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = y[i];
+#pragma unroll 1
+  for (int i = kc.pm2_bits - 2; i >= 0; --i) {
+    mont<N>(acc, acc, kc, acc);
+    if ((kc.pm2[i >> 5] >> (i & 31)) & 1u) mont<N>(acc, y, kc, acc);
+  }
+  mont<N>(x, acc, kc, out);
+}
+
+// TorchField.pow_dyn: 32 rounds from one_mont, a square each and a
+// product where bit 31 - i of e is set
+template <int N>
+__device__ __forceinline__ void pow_dyn(const uint32_t (&x)[N], uint32_t e,
+                                        const KsConsts<N>& kc,
+                                        uint32_t (&out)[N]) {
+  uint32_t acc[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = kc.one[i];
+#pragma unroll 1
+  for (int i = 0; i < 32; ++i) {
+    mont<N>(acc, acc, kc, acc);
+    if ((e >> (31 - i)) & 1u) mont<N>(acc, x, kc, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = acc[i];
+}
+
+template <int N, int C>
+__device__ __forceinline__ void cmp_bit(const uint32_t (&x)[N],
+                                        const uint32_t (&y)[N],
+                                        const KsConsts<N>& kc,
+                                        uint32_t (&out)[N]) {
+  out[0] = cmp32<N, C>(x, y, kc.half) ? 1u : 0u;
+#pragma unroll
+  for (int i = 1; i < N; ++i) out[i] = 0;
+}
+
+// One entry on one lane.
+template <int L>
+__device__ __forceinline__ void ks_entry(const KsArgs& a,
+                                         const KsConsts<L / 2>& kc, int e,
+                                         long long lane) {
+  constexpr int N = L / 2;
+  const int4 h0 = __ldg(a.ent + 2 * e);
+  const int4 h1 = __ldg(a.ent + 2 * e + 1);
+  const int op = h0.x, ra = h0.y, rb = h0.z, rc = h0.w;
+  const int ro = h1.x, rw = h1.y, imm = h1.z;
+  const long long b = a.b;
+  uint32_t x[N], y[N], r[N];
+  // the shifts and the long division read a's words in place, an index
+  // that depends on the slot's count
+  const uint32_t* ap = a.rf + (long long)ra * N * b + lane;
+  auto word = [ap, b](int i) { return ap[i * b]; };
+  switch (op) {
+    case KS_CONST:
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] = __ldg(a.consts + imm * N + i);
+      break;
+    case KS_INPUT:
+      pack32<L>(a.x + (long long)ra * L * b + lane, b, r);
+      break;
+    case KS_DUP: {
+      const uint32_t* s = a.out + (long long)ra * L * b + lane;
+      uint32_t* d = a.out + (long long)rw * L * b + lane;
+#pragma unroll
+      for (int i = 0; i < L; ++i) d[i * b] = s[i * b];
+      return;
+    }
+    case KS_SHL:
+      shift32<N, true>(word, imm, kc.p, kc.mask, r);
+      break;
+    case KS_SHR:
+      shift32<N, false>(word, imm, kc.p, kc.mask, r);
+      break;
+    case KS_IDIV:
+    case KS_MOD:
+      load_reg<N>(a.rf, rb, b, lane, y);
+      idiv32<N>(word, y, kc.bits, r);
+      if (op == KS_MOD) {  // a - mul_norm(a // b, b)
+        mul_norm<N>(r, y, kc, r);
+        load_reg<N>(a.rf, ra, b, lane, x);
+        mod_sub32<N>(x, r, kc.p, r);
+      }
+      break;
+    default:
+      load_reg<N>(a.rf, ra, b, lane, x);
+      switch (op) {
+        case KS_NEG: {
+          uint32_t z[N];
+#pragma unroll
+          for (int i = 0; i < N; ++i) z[i] = 0;
+          mod_sub32<N>(z, x, kc.p, r);
+          break;
+        }
+        case KS_LNOT:
+          r[0] = nonzero32<N>(x) ? 0u : 1u;
+#pragma unroll
+          for (int i = 1; i < N; ++i) r[i] = 0;
+          break;
+        case KS_BNOT: bnot32<N>(x, kc.mask, kc.p, r); break;
+        case KS_POW: pow_dyn<N>(x, (uint32_t)imm, kc, r); break;
+        case KS_TO_MONT: mont<N>(x, kc.r2, kc, r); break;
+        case KS_FROM_MONT: {
+          uint32_t one[N];
+#pragma unroll
+          for (int i = 0; i < N; ++i) one[i] = i == 0 ? 1u : 0u;
+          mont<N>(x, one, kc, r);
+          break;
+        }
+        case KS_SELECT: {
+          const int src = nonzero32<N>(x) ? rb : rc;
+          load_reg<N>(a.rf, src, b, lane, r);
+          break;
+        }
+        default:
+          load_reg<N>(a.rf, rb, b, lane, y);
+          switch (op) {
+            case KS_ADD: mod_add32<N>(x, y, kc.p, r); break;
+            case KS_SUB: mod_sub32<N>(x, y, kc.p, r); break;
+            case KS_MUL: mont<N>(x, y, kc, r); break;
+            case KS_MULP: mul_norm<N>(x, y, kc, r); break;
+            case KS_DIV: div_mont<N>(x, y, kc, r); break;
+            case KS_LT: cmp_bit<N, WCMP_LT>(x, y, kc, r); break;
+            case KS_LE: cmp_bit<N, WCMP_LE>(x, y, kc, r); break;
+            case KS_GT: cmp_bit<N, WCMP_GT>(x, y, kc, r); break;
+            case KS_GE: cmp_bit<N, WCMP_GE>(x, y, kc, r); break;
+            case KS_EQ: cmp_bit<N, WCMP_EQ>(x, y, kc, r); break;
+            case KS_NEQ: cmp_bit<N, WCMP_NEQ>(x, y, kc, r); break;
+            case KS_LAND: cmp_bit<N, WCMP_LAND>(x, y, kc, r); break;
+            case KS_LOR: cmp_bit<N, WCMP_LOR>(x, y, kc, r); break;
+            case KS_BAND: bitop32<N, 0>(x, y, kc.p, r); break;
+            case KS_BOR: bitop32<N, 1>(x, y, kc.p, r); break;
+            default: bitop32<N, 2>(x, y, kc.p, r); break;  // KS_BXOR
+          }
+      }
+  }
+  if (ro >= 0) {
+    uint32_t* d = a.rf + (long long)ro * N * b + lane;
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i * b] = r[i];
+  }
+  if (rw >= 0) unpack32<L>(r, a.out + (long long)rw * L * b + lane, b);
+}
+
+template <int L>
+__global__ void __launch_bounds__(KS_LANES * KS_MAX_WARPS)
+    scan_kernel(const __grid_constant__ KsArgs a,
+                const __grid_constant__ KsConsts<L / 2> kc) {
+  const int warps = blockDim.x / KS_LANES;
+  const int warp = threadIdx.x / KS_LANES;
+  const long long lane =
+      (long long)blockIdx.x * KS_LANES + threadIdx.x % KS_LANES;
+  const bool live = lane < a.b;
+  int e0 = __ldg(a.off);
+  for (int s = 0; s < a.n_steps; ++s) {
+    const int e1 = __ldg(a.off + s + 1);
+    if (live)
+      for (int e = e0 + warp; e < e1; e += warps) ks_entry<L>(a, kc, e, lane);
+    e0 = e1;
+    // the step's writes before the next step's reads, across the warps
+    if (warps > 1) __syncthreads();
+  }
+}
+
+// The words of a value of L 16-bit limbs.
+template <int N>
+void words_of(const uint32_t* limbs, uint32_t (&w)[N]) {
+  for (int i = 0; i < N; ++i) w[i] = limbs[2 * i] | (limbs[2 * i + 1] << 16);
+}
+
+template <int L>
+void launch(const KsArgs& a, const uint32_t* limbs, uint32_t n0inv32,
+            int bits, int warps, cudaStream_t s) {
+  constexpr int N = L / 2;
+  KsConsts<N> kc = {};
+  words_of<N>(limbs, kc.p);
+  words_of<N>(limbs + L, kc.r2);
+  words_of<N>(limbs + 2 * L, kc.one);
+  words_of<N>(limbs + 3 * L, kc.half);
+  words_of<N>(limbs + 4 * L, kc.mask);
+  // p - 2 (p is an odd prime > 2) and its bit length
+  uint32_t borrow = 2;
+  kc.pm2_bits = 0;
+  for (int i = 0; i < N; ++i) {
+    const uint64_t d = (uint64_t)kc.p[i] - borrow;
+    kc.pm2[i] = (uint32_t)d;
+    borrow = (uint32_t)(d >> 63);
+  }
+  for (int i = 32 * N - 1; i >= 0 && kc.pm2_bits == 0; --i)
+    if ((kc.pm2[i >> 5] >> (i & 31)) & 1u) kc.pm2_bits = i + 1;
+  kc.n0inv32 = n0inv32;
+  kc.bits = bits;
+  const long long blocks = (a.b + KS_LANES - 1) / KS_LANES;
+  scan_kernel<L><<<(unsigned)blocks, KS_LANES * warps, 0, s>>>(a, kc);
+}
+
+}  // namespace ctpu
+
+// off: int32 (n_steps + 1); ent: int32 (off[n_steps], 8), the entries
+// above; consts: uint32 (n_consts, L/2) words; x: uint32 (n_inputs, L, b)
+// 16-bit limbs; rf: uint32 (n_regs, L/2, b), written before it is read;
+// out: uint32 (n_witness, L, b), every row written.  limbs: 5 L host
+// words, the 16-bit limbs of p, R^2 mod p, R mod p, p // 2 and 2^bits - 1;
+// n0inv32 = -p^-1 mod 2^32; bits = p.bit_length().  L is 4, 16 or 24,
+// warps 1 to 8, b > 0 (else cudaErrorInvalidValue).  Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int ctpu_scan(int L, const int* off, const int* ent, int n_steps,
+                         const uint32_t* consts, const uint32_t* x,
+                         uint32_t* rf, uint32_t* out, long long b,
+                         const uint32_t* limbs, uint32_t n0inv32, int bits,
+                         int warps, void* stream) {
+  if (b <= 0 || n_steps < 0 || warps < 1 || warps > ctpu::KS_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  const ctpu::KsArgs a = {off, reinterpret_cast<const int4*>(ent), n_steps,
+                          consts, x, rf, out, b};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (L) {
+    case 4: ctpu::launch<4>(a, limbs, n0inv32, bits, warps, s); break;
+    case 16: ctpu::launch<16>(a, limbs, n0inv32, bits, warps, s); break;
+    case 24: ctpu::launch<24>(a, limbs, n0inv32, bits, warps, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

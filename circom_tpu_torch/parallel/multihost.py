@@ -13,7 +13,9 @@ with MIN over the group, is the one collective.
 
 spawns 2 workers on this host (each with a free port's address and a
 wait limit) and writes, from process 0, an artifact with the JAX
-module's keys.  `--local-devices` is the shards a process (the JAX
+module's keys.  `--launches PATH` has process k write the kernel
+launches of its step and check (ops/build.py LAUNCHES) to PATH.k, a JSON
+object.  `--local-devices` is the shards a process (the JAX
 module's virtual devices a process).  The backend: gloo on the CPU; nccl
 where each process has a card of its own; gloo over a CPU tensor where
 processes share a card (NCCL refuses two ranks on one GPU).  Process k
@@ -63,7 +65,7 @@ def backend_for(device, nproc):
 
 
 def _worker(coordinator, nproc, pid, local_devices, out_path, prime,
-            device):
+            device, launches_path=""):
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -72,6 +74,7 @@ def _worker(coordinator, nproc, pid, local_devices, out_path, prime,
     from ..backend.torch_backend import WitnessProgram
     from ..compiler.pipeline import compile_source
     from ..field.primes import field_spec
+    from ..ops import build
     from ..ops.limbs import limbs_to_int
     from ..utils.device import resolve_device
     from .mesh import make_mesh, shard_checker, shard_program
@@ -107,9 +110,15 @@ def _worker(coordinator, nproc, pid, local_devices, out_path, prime,
         mesh = make_mesh(devices=[dev] * local_devices)
         step = shard_program(prog, mesh)
         check = shard_checker(checker, mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        build.reset_launches()
         t0 = time.time()
         out = step(local)
         ok_local = bool(check(out).all())
+        if launches_path:
+            Path(f"{launches_path}.{pid}").write_text(
+                json.dumps(dict(build.LAUNCHES)))
         # nccl reduces a tensor on the process's card, gloo one on the CPU
         flag = torch.tensor([int(ok_local)], dtype=torch.int32,
                             device=dev if backend == "nccl" else "cpu")
@@ -155,7 +164,7 @@ def _worker(coordinator, nproc, pid, local_devices, out_path, prime,
         dist.destroy_process_group()
 
 
-def _spawn(nproc, local_devices, out_path, prime, device):
+def _spawn(nproc, local_devices, out_path, prime, device, launches_path=""):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -170,7 +179,8 @@ def _spawn(nproc, local_devices, out_path, prime, device):
          "--coordinator", coord, "--nproc", str(nproc), "--pid", str(pid),
          "--local-devices", str(local_devices),
          "--out", out_path if pid == 0 else "", "--prime", prime,
-         "--device", device], env=env) for pid in range(nproc)]
+         "--device", device, "--launches", launches_path], env=env)
+        for pid in range(nproc)]
     deadline = time.monotonic() + WAIT_SECONDS
     try:
         rcs = [p.wait(timeout=max(deadline - time.monotonic(), 0.1))
@@ -199,12 +209,14 @@ def main(argv=None):
     ap.add_argument("--out", default="")
     ap.add_argument("--prime", default="goldilocks")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--launches", default="",
+                    help="process k writes its kernel launches to PATH.k")
     args = ap.parse_args(argv)
     if args.spawn:
         return _spawn(args.spawn, args.local_devices, args.out, args.prime,
-                      args.device)
+                      args.device, args.launches)
     _worker(args.coordinator, args.nproc, args.pid, args.local_devices,
-            args.out, args.prime, args.device)
+            args.out, args.prime, args.device, args.launches)
     return 0
 
 

@@ -1,16 +1,19 @@
-"""The card's peaks and the interpreter's counts, for the roofline.
+"""The card's peaks and the kernels' counts, for the roofline.
 
 One count for `chip_smoke.py` and `bench_gpu.py`: the bytes a second of
-HBM3 and the 32-bit integer instructions a second of the card, and what
-the interpreter kernel K1 and the witness gathers need a lane (a
-witness), counted from the plan.
+HBM3 and the 32-bit integer instructions a second of the card, what the
+interpreter kernel K1 and the witness gathers need a lane (a witness),
+counted from the plan, and what the scan kernel KS needs a lane, counted
+from its schedule.
 """
 
 import subprocess
 
+import numpy as np
 import torch
 
 from ..backend.interp_plan import _NARROW_RESULT as NARROW_RESULT
+from ..backend.scan import KS_OPS, ks_tables
 from ..convert import OPCODES
 
 # H100 SXM peak HBM3 bandwidth (NVIDIA data sheet), and the peak rate of
@@ -78,3 +81,59 @@ def witness_bytes(plan, mixed=False):
     else:
         written = row * plan.n_witness
     return emitted + read + written
+
+
+# KS's opcodes by the operands they read a lane (the rest read two)
+_KS_READS = {"neg": 1, "lnot": 1, "bnot": 1, "shl_k": 1, "shr_k": 1,
+             "pow_k": 1, "to_mont": 1, "from_mont": 1, "select": 2,
+             "const": 0, "input": 0, "dup": 0}
+
+
+def ks_bytes(sched, L):
+    """KS's bytes a lane: (the register file's traffic, the compulsory
+    bytes).  The traffic counts one access to device memory for each
+    entry's operand words (N = L/2 a register; a shift or a long division
+    reads its operand's N words in place; select reads its condition and
+    one of its two values), its register write (N words), its witness
+    row (L 16-bit limbs), an input's L limbs and a copied row's L read
+    and L written; L2 hits are not told apart.  The compulsory bytes are
+    the inputs read once and the witness written once.  4 bytes a word and
+    a limb."""
+    N = L // 2
+    _off, ent = ks_tables(sched)
+    op = np.asarray(KS_OPS)[ent[:, 0]]
+    reads = np.asarray([_KS_READS.get(o, 2) for o in op]) * N
+    reads += np.where((op == "input") | (op == "dup"), L, 0)
+    writes = np.where(ent[:, 4] >= 0, N, 0) + np.where(ent[:, 5] >= 0, L, 0)
+    n_inputs = 1 + max((i for _, i in sched.input_loads), default=-1)
+    return (4 * int(reads.sum() + writes.sum()),
+            4 * L * (n_inputs + sched.n_witness))
+
+
+def ks_ops(sched, p):
+    """KS's 32-bit integer instructions a lane, counted low: two a
+    32x32->64-bit product, 2 N^2 products a Montgomery product (N = L/2
+    words): one for mul, to_mont and from_mont, two for mulp, 32 squares
+    and a product a set exponent bit for pow_k, p - 2's bits below its
+    top (a square each, a product where set) and the last product for
+    div; 4 N a bit of p for the long division of idiv and mod (mod adds
+    two products and N); N for every other opcode, none for a load or a
+    copied row."""
+    bits = p.bit_length()
+    N = -(-bits // 16) // 2
+    mont = 4 * N * N
+    e = p - 2
+    div = (e.bit_length() - 1 + bin(e).count("1")) * mont
+    fixed = {"mul": mont, "to_mont": mont, "from_mont": mont,
+             "mulp": 2 * mont, "div": div, "idiv": 4 * N * bits,
+             "mod": 4 * N * bits + 2 * mont + N,
+             "const": 0, "input": 0, "dup": 0}
+    _off, ent = ks_tables(sched)
+    ops = 0
+    for code, imm in zip(ent[:, 0].tolist(), ent[:, 6].tolist()):
+        o = KS_OPS[code]
+        if o == "pow_k":
+            ops += (32 + bin(imm).count("1")) * mont
+        else:
+            ops += fixed.get(o, N)
+    return ops

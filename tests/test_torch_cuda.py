@@ -567,14 +567,18 @@ component main = PowDiv();
 """
 
 
+# the kernels a scan run launched one a step before KS
+STEP_KERNELS = ("gather_w", "mont_mul", "add", "sub")
+
+
 @pytest.mark.parametrize("slots", (8, 64))
 @pytest.mark.parametrize("circuit", ("bigdiv_num2bits", "pow_div"))
 def test_scan_steps_match_plain(card, circuit, slots):
-    """The scan executor on the card (K2 gathers, K5 and K6) against its
-    plain version on the CPU, step for step, over bn128: bigint-div +
+    """The scan executor on the card (one KS launch a run) against its
+    plain version, the step loop on the CPU, over bn128: bigint-div +
     Num2Bits(254) (idiv, mod, products, shifts, ands, adds) and powers
     and a division (pow_k with per-slot exponents, div), lanes dividing
-    by 0 included; no interpreter and no K4."""
+    by 0 included; no step kernel, no interpreter and no K4."""
     cc = compile_source(bigdiv_num2bits_source() if circuit ==
                         "bigdiv_num2bits" else POW_DIV_SRC)
     spec = field_spec("bn128")
@@ -591,12 +595,38 @@ def test_scan_steps_match_plain(card, circuit, slots):
     build.reset_launches()
     wit = prog.run(x)
     torch.cuda.synchronize()
-    assert all(build.LAUNCHES[k] for k in ("gather_w", "mont_mul", "sub"))
-    assert not any(k.startswith("interp") or k == "k4"
-                   for k in build.LAUNCHES)
+    assert dict(build.LAUNCHES) == {"scan": 1}
     np.testing.assert_array_equal(
         wit.view(torch.int32).cpu().numpy(),
         plain.run(x).view(torch.int32).numpy())
+
+
+@pytest.mark.parametrize("warps", (1, 8))
+def test_ks_matches_loop_on_q(card, warps):
+    """KS at a thread a lane and at a warp a slot against the step loop on
+    the card (K2, K5, K6), on 16 x Num2Bits(254)/bn128's tables (Q's: 1,366
+    steps of 8 slots) at 300 lanes, the edges 0, 1, p - 1 and 2^253 in the
+    first lanes; a run (KS_WARPS) launches KS once and no step kernel."""
+    cc = compile_source(num2bits_source(254, 16))
+    spec = field_spec("bn128")
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=card)
+    assert prog.scan is not None and prog.scan.sched.n_steps == 1366
+    rng = random.Random(7)
+    B = 300
+    cols = [[rng.randrange(spec.p) for _ in range(B)]
+            for _ in range(prog.n_inputs)]
+    for i, col in enumerate(cols):
+        col[:4] = [0, 1, spec.p - 1, 1 << 253][i % 4:] + \
+            [0, 1, spec.p - 1, 1 << 253][:i % 4]
+    x = to_device(prog.encode_inputs(cols), card)
+    want = prog.scan.run_loop(x)
+    got = prog.scan.run_ks(x, warps)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    build.reset_launches()
+    prog.run(x)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["scan"] == 1
+    assert not any(build.LAUNCHES[k] for k in STEP_KERNELS)
 
 
 def test_build_generated_is_cached(card, monkeypatch):
