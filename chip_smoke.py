@@ -11,7 +11,7 @@ mismatch exits non-zero.  The paths:
 - SHA256 over bn128, batch 65,536: WitnessProgram.run_mixed, the mixed
   witness (K1b, K3), every lane's digest against hashlib;
 - SHA256 over bn128, batch 8,192: the full-limb run and the R1CS check of
-  every lane (K1b, K3, KC);
+  every lane (K1b, KW, KC);
 - bench_gpu.py's workloads in-process (phase BG): Poseidon2/bn128 at
   65,536, SHA256/bn128 run_mixed at 32,768, Poseidon2/goldilocks at 65,536
   and bigint-div/bn128 at 8,192 (K1a-K1d, K2, K3), each gated as the
@@ -22,7 +22,7 @@ mismatch exits non-zero.  The paths:
   division);
 - the stdlib comparators over bn128 (LessThan(64), LessEqThan(64),
   IsEqual() and Num2Bits(64)), batch 65,536: run and R1CS check (K1a,
-  K1c, K1d, K2, K3);
+  K1c, K1d, KW);
 - Num2Bits(254) and 4 x Num2Bits(254) over bn128, batch 65,536, which
   the interpreter refuses: run on the segments (K4, one and four
   segments) and R1CS check;
@@ -35,15 +35,15 @@ mismatch exits non-zero.  The paths:
   65,536 with 8 and 64 slots a step, every lane checked (phase QS); KS's
   two layouts timed and held bit for bit against the step loop on the
   card (phase KS);
-- MultiMiMC7(5) over bn128, batch 65,536, and MerkleInclusion(32) over
-  Poseidon2/bn128, batch 16,384 (K1a and K1b in one K1 launch, K3 for
-  the pathIndex bits): run and R1CS check, sampled lanes against the host
-  and the native calculator;
+- MultiMiMC7(5) over bn128, batch 65,536 (K2), and MerkleInclusion(32)
+  over Poseidon2/bn128, batch 16,384 (K1a and K1b in one K1 launch, KW
+  for its wide rows and pathIndex bits): run and R1CS check, sampled
+  lanes against the host and the native calculator;
 - the compile CLI (python -m circom_tpu_torch.cli --witness-gpu) on both
-  circuits and on bigint-div + Num2Bits(254) (the scan: its witness step
-  also in this process, one KS launch), and the native
-  calculator's witnesses/s on this host beside the card's (the CPU
-  baseline);
+  circuits and on bigint-div + Num2Bits(254) (the scan), each circuit's
+  witness step also in this process (K2, KW or one KS launch, and the
+  check), and the native calculator's witnesses/s on this host beside
+  the card's (the CPU baseline);
 - MerkleInclusion(32) over Poseidon2/bn128 at 65,536 witnesses split
   over four shards of 16,384 (parallel/mesh.py: cuda:0..3 where there
   are four cards, else four shards on cuda:0): every shard's witness,
@@ -64,8 +64,12 @@ the check's plain route on Poseidon2's 65,536 lanes and SHA256's 8,192 in
 one launch each, a SHA256 window read in place, random constraint systems
 at five fields and the accumulators' worst-case rows (phase KC); every
 checked path's check is one KC launch a batch (one a shard on the mesh)
-that copies nothing of z.  Every path's sampled lanes equal the host
-calculator.
+that copies nothing of z.  KW, the full-limb witness's assembly, is held
+against its plain version (the parts route: K2, K3, the plain widening,
+index_put) on the full-limb SHA256, comparators and MerkleInclusion(32)
+witnesses, and timed against its byte bound beside that route (phase
+KW); a run of those paths launches K1 and KW and neither K2 nor K3.
+Every path's sampled lanes equal the host calculator.
 
     python3 chip_smoke.py            # needs a CUDA card
     python3 chip_smoke.py --rehearse # CPU, small batch, plain versions only;
@@ -143,7 +147,7 @@ try:
     from circom_tpu_torch.utils.roofline import (HBM_BYTES_PER_S,
                                                  INT_OPS_PER_SM_CLOCK,
                                                  k1_ops, ks_bytes, ks_ops,
-                                                 lane_ops_per_s)
+                                                 kw_bytes, lane_ops_per_s)
 
     import bench_gpu
 except ImportError as e:
@@ -179,6 +183,10 @@ SEED = 7
 # interpreter and segment paths nothing else does, so there they must not
 # launch
 K5_K6 = ("mont_mul", "sub")
+# K2 and K3: a full-limb run whose witness KW assembles launches neither
+KW_NEVER = ("gather_w", "gather_n")
+KW_SOURCE = "circom_tpu_torch/ops/cuda/gather.cu"
+KW_REPLACES = "circom_tpu/backend/interp.py:2200"
 
 
 T0 = time.perf_counter()
@@ -661,6 +669,98 @@ def phase_gather(rep, plan, B, dev):
             library_ms=lib_ms, copy_ms=copy_ms)
 
 
+def idle_of(profile):
+    """The device's idle share of a run from profile_breakdown's (busy ms,
+    wall ms, kernels)."""
+    busy, ms, _ = profile
+    return round(max(0.0, 1 - busy / ms), 3)
+
+
+def run_peak(dev, fn):
+    """(fn()'s output, its ms by the host clock, the GiB it allocated at
+    its peak beyond what was allocated before it; 0 on the CPU)."""
+    if dev.type != "cuda":
+        out, ms = wall_ms(fn)
+        return out, ms, 0.0
+    sync_all()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, ms = wall_ms(fn)
+    return out, ms, (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+
+
+def phase_kw(prog, x, label):
+    """Phase KW on one path's plan and inputs x: from the same K1 banks,
+    KW's witness against its plain version, the parts route (K2, K3, the
+    plain widening, index_put), bit for bit; KW's bare launch (output
+    given) by CUDA events against its byte bound (utils/roofline.kw_bytes),
+    the parts route's time, and index_select of as many bank rows into the
+    same output for reference; then a run (K1 + KW, the path's) and K1
+    followed by the parts route, each from the inputs: its ms and the
+    memory it allocated at its peak.  Returns the numbers."""
+    interp, dev, plan = prog.interp, prog.device, prog.interp.plan
+    inputs, x_w, x_n = interp._inputs(x)
+    B = inputs.shape[-1]
+    bank, bank_n = interp_k1(plan, prog.field, x_w, x_n)
+
+    def parts():
+        return interp.assemble_parts(inputs, x_w, x_n, bank, bank_n)
+
+    got = bare(dev, lambda: interp.assemble_kw(inputs, bank, bank_n),
+               parts)()
+    want, first_parts_ms = wall_ms(parts)
+    err = 0 if same_witness(got, want) else max(1, max_abs_err(got, want))
+    del want
+    kw_ms = time_ms(bare(dev, lambda: interp.assemble_kw(
+        inputs, bank, bank_n, out=got), parts), reps=10)
+    parts_ms = time_ms(parts, reps=3)
+    W = got.shape[0]
+    idx = torch.arange(W, device=dev) % bank.shape[0]
+    bank_i, got_i = bank.view(torch.int32), got.view(torch.int32)
+    sel_ms = time_ms(lambda: torch.index_select(bank_i, 0, idx, out=got_i),
+                     reps=10)
+    del got, bank, bank_n
+    nbytes = kw_bytes(plan, B)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"  KW on {label}: {W} rows of ({plan.L}, {B}), max abs err {err} "
+        f"against the parts route; KW {kw_ms:.4f} ms ({nbytes / 1e9:.3f} GB:"
+        f" bound {t_bytes:.4f} ms, {t_bytes / kw_ms:.0%} of it); the parts "
+        f"route {parts_ms:.3f} ms (first {first_parts_ms:.1f}); index_select"
+        f" of {W} bank rows into the same output {sel_ms:.4f} ms")
+
+    def parts_run():
+        i, w, n = interp._inputs(x)
+        return interp.assemble_parts(i, w, n, *interp_k1(plan, prog.field,
+                                                         w, n))
+
+    prog.run(x)
+    _, run_ms, run_gib = run_peak(dev, lambda: prog.run(x))
+    parts_run()
+    _, old_ms, old_gib = run_peak(dev, parts_run)
+    say(f"  {label} run: K1 + KW {run_ms:.2f} ms, allocating {run_gib:.2f} "
+        f"GiB at its peak; K1 + the parts route {old_ms:.2f} ms, "
+        f"{old_gib:.2f} GiB")
+    return {"err": err, "ms": kw_ms, "plain_ms": parts_ms, "bytes": nbytes,
+            "index_select_ms": sel_ms, "rows": W, "B": B, "run_ms": run_ms,
+            "run_gib": run_gib, "parts_run_ms": old_ms,
+            "parts_run_gib": old_gib}
+
+
+def add_kw_row(rep, kw):
+    """KW's row of the kernels line: F's shape first, MK's and C's beside
+    it, the error the largest of the three."""
+    f, mk, c = kw["sha256_full"], kw["merkle"], kw["comparators"]
+    extra = {}
+    for key, k in (("mk", mk), ("c", c)):
+        extra.update({f"{key}_ms": k["ms"], f"{key}_plain_ms": k["plain_ms"],
+                      f"{key}_bound_ms": bound(k["bytes"], 0)[0],
+                      f"{key}_index_select_ms": k["index_select_ms"]})
+    rep.add("assemble", KW_SOURCE, KW_REPLACES,
+            max(k["err"] for k in (f, mk, c)), f["ms"], f["plain_ms"],
+            f["bytes"], 0, plan="SHA256/bn128 full limbs",
+            index_select_ms=f["index_select_ms"], **extra)
+
+
 def phase_interp(rep, prog, x_w):
     """K1a against the plain executor on the Poseidon2 plan, emitted bank
     rows compared bit for bit after the trailing REDC."""
@@ -925,12 +1025,16 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     say(f"phase H: the stdlib comparators/bn128 path (batch {B})")
     out["comparators"] = witness_path(
         paths, "comparators", cc_cmp, prog_cmp, x_cmp,
-        ("interp_k1d", "interp_k1c", "interp_k1a", "gather_w", "gather_n",
-         "r1cs_check"),
-        lambda ins: {"a": ins[0], "b": ins[1]}, never=K5_K6)
+        ("interp_k1d", "interp_k1c", "interp_k1a", "assemble", "r1cs_check"),
+        lambda ins: {"a": ins[0], "b": ins[1]}, never=K5_K6 + KW_NEVER)
     if not rehearse:
-        profile_breakdown(lambda: prog_cmp.run(x_cmp),
-                          out["comparators"]["run_ms"])
+        # K1 and KW alone: traced one run at a time, such a run's kernels
+        # go unrecorded
+        out["comparators"]["idle"] = idle_of(profile_breakdown(
+            lambda: prog_cmp.run(x_cmp), out["comparators"]["run_ms"],
+            runs=10))
+    say("phase KW: KW against the parts route on C's witness")
+    out["comparators"]["kw"] = phase_kw(prog_cmp, x_cmp, "comparators/bn128")
 
     say("phase I: K1c/K1d opcodes against ops/wide.py and ops/narrow.py")
     unit_err = phase_k1cd_units(dev, 400 if rehearse else 4096)
@@ -1536,13 +1640,17 @@ def hinted_inputs(spec, n_inputs, hints, B, seed, dev):
 
 def must_launch(prog):
     """The kernels a run and R1CS check of an interpreter program launch,
-    read off its plan: K1's parts, K2, K3 when the plan emits narrow
-    witness rows, KC (the check)."""
-    plan = prog.interp.plan
-    ks = [*plan.parts, "gather_w", "r1cs_check"]
-    if (plan.nw_src < plan.n_bank_n_rows).any():
-        ks.append("gather_n")
-    return tuple(ks)
+    read off its plan: K1's parts, K2 where the witness is the wide
+    bank's rows in witness order, else KW; KC (the check)."""
+    interp = prog.interp
+    return (*interp.plan.parts,
+            "gather_w" if interp._k2_whole else "assemble", "r1cs_check")
+
+
+def never_launch(prog):
+    """The kernels such a run must not launch: K5 and K6, and K2 and K3
+    where KW assembles the witness."""
+    return K5_K6 + (() if prog.interp._k2_whole else KW_NEVER)
 
 
 def mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, rehearse):
@@ -1578,12 +1686,17 @@ def mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, rehearse):
             f"{prog.n_witness} witness rows ({len(plan.nw_src)} narrow), "
             f"{len(cc.r1cs_rows())} constraints)")
         t = witness_path(paths, name, cc, prog, x, must_launch(prog),
-                         input_map(layout), never=K5_K6, n_lanes=n_host,
-                         native=calc, profile_check=name == "merkle")
+                         input_map(layout), never=never_launch(prog),
+                         n_lanes=n_host, native=calc,
+                         profile_check=name == "merkle")
         if not rehearse:
             # traced one at a time, the kernels of MM's 3-launch run went
             # unrecorded: ten runs a profiler step
-            profile_breakdown(lambda: prog.run(x), t["run_ms"], runs=10)
+            t["idle"] = idle_of(profile_breakdown(
+                lambda: prog.run(x), t["run_ms"], runs=10))
+        if name == "merkle":
+            say("phase KW: KW against the parts route on MK's witness")
+            t["kw"] = phase_kw(prog, x, label)
         out[name] = dict(t, B=B, cc=cc, tape=tape, layout=layout,
                          hints=hints, calc=calc, label=label, prog=prog)
         if rehearse and name == "merkle":
@@ -1643,27 +1756,35 @@ def cli_runs(mm):
         calc=NativeCalculator(tape, bn, input_ranges=hints))}
 
 
-def cli_scan_run(paths, name, cc, tape, hints, rows, nat, device):
+def cli_witness_run(paths, name, cc, tape, hints, rows, nat, device,
+                    prog=None):
     """The CLI's witness step in this process on the CLI's inputs: its
     program (cli.py's constructor call: unroll_threshold=0, the range
-    hints) through witness.batch_witnesses at --sanity_check 2, counted
-    as path cli_<name>_run: one KS launch and the R1CS check, none of
-    SCAN_NEVER; every witness equals the native calculator's."""
-    prog = WitnessProgram(tape, field_spec("bn128"), device=device,
-                          unroll_threshold=0, input_ranges=hints)
+    hints; or `prog`, the same circuit's interpreter program, whose plan
+    does not depend on the threshold) through witness.batch_witnesses at
+    --sanity_check 2, counted
+    as path cli_<name>_run: on the scan one KS launch and the R1CS check,
+    none of SCAN_NEVER; on the interpreter must_launch's kernels (K1, K2
+    or KW, the check), none of never_launch's; every witness equals the
+    native calculator's."""
+    if prog is None:
+        prog = WitnessProgram(tape, field_spec("bn128"), device=device,
+                              unroll_threshold=0, input_ranges=hints)
+    if prog.interp is not None:
+        must, never = must_launch(prog), never_launch(prog)
+    else:
+        must, never = ("scan", "r1cs_check"), SCAN_NEVER
     cols = [[r[i] for r in rows] for i in range(tape.n_inputs)]
     rows_r1cs, n_wires = cc.r1cs_rows(), cc.counts()["n_wires"]
     dec = paths.run(f"cli_{name}_run", lambda: batch_witnesses(
-        prog, cols, rows_r1cs, n_wires, 2), ("scan", "r1cs_check"),
-        SCAN_NEVER)
+        prog, cols, rows_r1cs, n_wires, 2), must, never)
     if dec is None or any(dec[i][bi] != nat[bi][i]
                           for bi in range(len(rows))
                           for i in range(len(dec))):
         raise SystemExit(f"FAIL CLI on {name}: the witness step in process "
                          "differs from the native calculator")
-    say(f"  CLI on {name}: its witness step in this process (one KS launch "
-        f"and the check) equals the native calculator on {len(rows)} "
-        "witnesses")
+    say(f"  CLI on {name}: its witness step in this process ({', '.join(must)}"
+        f") equals the native calculator on {len(rows)} witnesses")
 
 
 def phase_cli(paths, runs, device, n):
@@ -1748,8 +1869,8 @@ def phase_cli(paths, runs, device, n):
                 f"the port's compile, {n} .wtns equal the native "
                 f"calculator's, {n_host} the host calculator's; the check "
                 f"of the {n} witnesses {check_ms[name]:.2f} ms")
-            if run.get("scan"):
-                cli_scan_run(paths, name, cc, tape, hints, rows, nat, device)
+            cli_witness_run(paths, name, cc, tape, hints, rows, nat, device,
+                            run.get("prog"))
             if not hints:
                 continue
             bad = [list(rows[0]), list(rows[1])]
@@ -1852,7 +1973,8 @@ def phase_mesh(paths, mk, lanes, rehearse):
         return shards, run_ms, check_ms
 
     shards, run_ms, check_ms = paths.run("mesh", run_and_check,
-                                         must_launch(prog), K5_K6)
+                                         must_launch(prog),
+                                         never_launch(prog))
     one_launch(paths, "mesh", mesh.devices[0], MS_SHARDS)
     peaks = {} if rehearse else {
         str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30 for d in cards}
@@ -1909,14 +2031,16 @@ def phase_mesh(paths, mk, lanes, rehearse):
                 say(f"  one shard's check alone on {mesh.devices[k]}: "
                     f"{ms:.1f} ms")
         del shards
+        busy, ms, _ = profile_breakdown(lambda: step(x), warm_ms, reps=1,
+                                        aten=False)
+        idle = round(max(0.0, 1 - busy / ms), 3) if len(cards) == 1 \
+            else None
         if len(cards) > 1:
-            busy, ms, _ = profile_breakdown(lambda: step(x), warm_ms,
-                                            reps=1, aten=False)
             say(f"  {len(cards)} cards busy {busy:.1f} ms in a {ms:.1f} ms "
                 f"step: the shards overlap {busy / ms:.2f}-fold")
     return {"B": B, "run_ms": run_ms, "warm_ms": warm_ms,
             "check_ms": check_ms, "warm_check_ms": warm_check_ms,
-            "peaks": peaks,
+            "peaks": peaks, "idle": None if rehearse else idle,
             "devices": [str(d) for d in mesh.devices]}
 
 
@@ -2189,7 +2313,7 @@ def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
 
     wit, run_ms, check_ms = paths.run(
         "sha256_full", run_and_check,
-        ("interp_k1b", "gather_n", "r1cs_check"), K5_K6)
+        ("interp_k1b", "assemble", "r1cs_check"), K5_K6 + KW_NEVER)
     one_launch(paths, "sha256_full", dev, 1)
     shape = tuple(wit.shape)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
@@ -2202,10 +2326,14 @@ def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
         "window of it")
     phase_kc_sha(rep, checker, cc.r1cs_rows(), wit)
     del wit
+    idle = None
     if dev.type == "cuda":
         say("  the full-limb run:")
-        profile_breakdown(lambda: prog.run(x), run_ms)
-    return run_ms, check_ms
+        idle = idle_of(profile_breakdown(lambda: prog.run(x), run_ms))
+    say("phase KW: KW against the parts route on F's witness")
+    kw = phase_kw(prog, x, "SHA256/bn128")
+    return {"run_ms": run_ms, "check_ms": check_ms, "idle": idle,
+            "peak_gib": peak, "kw": kw}
 
 
 def main():
@@ -2310,8 +2438,7 @@ def main():
         torch.cuda.reset_peak_memory_stats()
     say(f"phase D: the full-limb SHA256 witness and R1CS check (batch "
         f"{b_full})")
-    full_ms, full_check_ms = sha256_full_path(paths, rep, sha, sha_prog,
-                                              spec, dev, b_full)
+    full = sha256_full_path(paths, rep, sha, sha_prog, spec, dev, b_full)
     say("phase E: the witness entry point (SHA256)")
     msgs = sha256_messages(2, SEED + 7)
     bits = sha256_io.msgs_to_bits_batch(msgs)
@@ -2360,6 +2487,9 @@ def main():
     phase_graft_entry(paths, dev.type)
     t_ms = time.perf_counter() - t_ms
 
+    kw = {"sha256_full": full["kw"], "merkle": mm["merkle"]["kw"],
+          "comparators": new["comparators"]["kw"]}
+    add_kw_row(rep, kw)
     for name, row in rep.rows.items():
         by_path = paths.of(name)
         row["launches"] = sum(by_path.values())
@@ -2369,8 +2499,9 @@ def main():
     say(f"SHA256 mixed path: {sha_ms:.1f} ms run_mixed, "
         f"{B / sha_ms * 1e3:.0f} mixed witnesses/s (batch {B}); K1b "
         f"{k1b_ms:.3f} ms, K3 {k3_ms:.3f} ms")
-    say(f"SHA256 full path: {full_ms:.1f} ms full-limb run, "
-        f"{full_check_ms:.1f} ms R1CS check (batch {b_full})")
+    say(f"SHA256 full path: {full['run_ms']:.1f} ms full-limb run, "
+        f"{full['check_ms']:.1f} ms R1CS check (batch {b_full}); idle "
+        f"{full['idle']}, peak {full['peak_gib']:.1f} GiB")
     say("bench_gpu.py's workloads (phase BG): "
         + ", ".join(f"{k} {bg[k]}" for k in (
             "poseidon2_gpu_wit_s", "poseidon2_wall_wit_s",
@@ -2386,7 +2517,8 @@ def main():
         say(f"{label} path: {t['run_ms']:.1f} ms witness run "
             f"({b / t['run_ms'] * 1e3:.0f} witnesses/s), "
             f"{t['check_ms']:.1f} ms R1CS check (batch {b}); K1 "
-            f"{new['k1'][name]:.3f} ms")
+            f"{new['k1'][name]:.3f} ms" + (f"; idle {t['idle']}"
+                                           if "idle" in t else ""))
     for name, label, b in (
             ("n2b254", "Num2Bits(254)/bn128 (segments)", B),
             ("n2b254x4", "4 x Num2Bits(254)/bn128 (segments)", B),
@@ -2413,7 +2545,14 @@ def main():
     for t in mm.values():
         say(f"{t['label']} path: {t['run_ms']:.1f} ms witness run "
             f"({t['B'] / t['run_ms'] * 1e3:.0f} witnesses/s), "
-            f"{t['check_ms']:.1f} ms R1CS check (batch {t['B']})")
+            f"{t['check_ms']:.1f} ms R1CS check (batch {t['B']})"
+            + (f"; idle {t['idle']}" if "idle" in t else ""))
+    for name, k in kw.items():
+        say(f"KW on the {name} path (batch {k['B']}): {k['ms']:.4f} ms "
+            f"(bound {bound(k['bytes'], 0)[0]:.4f} ms), the parts route "
+            f"{k['plain_ms']:.3f} ms; run {k['run_ms']:.2f} ms allocating "
+            f"{k['run_gib']:.2f} GiB at its peak, with the parts route "
+            f"{k['parts_run_ms']:.2f} ms and {k['parts_run_gib']:.2f} GiB")
     m = mesh_t
     say(f"mesh path, MerkleInclusion(32)/bn128 in {MS_SHARDS} shards on "
         f"{', '.join(m['devices'])}: {m['run_ms']:.1f} ms step, first run "
@@ -2424,7 +2563,7 @@ def main():
            else "") + f" (batch {m['B']}); peak "
         + (", ".join(f"{d} {g:.1f} GiB" for d, g in m["peaks"].items())
            or "not measured")
-        + f"; two processes (MH) {mh_ms / 1e3:.1f} s")
+        + f", idle {m['idle']}; two processes (MH) {mh_ms / 1e3:.1f} s")
     say(f"the CLI's R1CS check ({b_cli} witnesses): "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in cli_check.items()))
     say(f"smoke total {time.perf_counter() - t_all:.1f} s, phase BG "

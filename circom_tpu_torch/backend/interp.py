@@ -1,4 +1,5 @@
-"""The witness interpreter on the card: kernel K1, then the gathers K2, K3.
+"""The witness interpreter on the card: kernel K1, then the witness's
+assembly by KW (or the gather K2), and the mixed witness's gathers K2, K3.
 
 `TorchInterpreter(plan, field)` runs a plan two ways:
 
@@ -12,10 +13,17 @@
 
 On CUDA it launches the interpreter kernel K1 (ops/cuda/interp.cu: every
 opcode of the planner, K1a to K1d, with the trailing REDC, in one
-launch), the wide witness gather K2 and the narrow gather with bit unpack
-K3 (ops/cuda/gather.cu).  On the CPU it runs the plain versions of
-backend/interp_ref.py.  Narrow rows of the full-limb witness are widened
-by plain PyTorch, as the JAX package widens them in XLA.
+launch), then for the full-limb witness the assembly kernel KW
+(ops/cuda/gather.cu: every witness row written once from its source, a
+wide bank row, an input row, a constant or a narrow bank row unpacked and
+widened), or K2 alone where the witness is the wide bank's rows in
+witness order; for the mixed witness the narrow gather with bit unpack
+K3 and the wide gather K2 (KW where the wide rows name inputs or
+constants).  On the CPU it runs the plain versions: backend/interp_ref.py
+for K1, K2 and K3, and for KW the parts route (`assemble_parts`: the
+wide, narrow and narrow input rows gathered apart, the narrow ones
+widened by ops/narrow.widen_narrow, each put into the witness), as the
+JAX package assembles the witness in XLA.
 
 The layout is batch-minor throughout: wide bank row chunk*(K+1) + em and
 narrow bank row chunk*(KN+1) + em hold emission row em of a chunk.  The
@@ -26,9 +34,10 @@ several kernel calls answer the TPU's memory layout and do not exist here.
 import numpy as np
 import torch
 
-from ..convert import GOLDILOCKS_OPS, DevicePlan, u32_on
+from ..convert import GOLDILOCKS_OPS, DevicePlan, to_device, u32_on
 from ..ops.build import launch, library, stream_ptr, u32_array
 from ..ops.field import GOLDILOCKS_P, TorchField, as_i64, as_u32
+from ..ops.limbs import int_to_limbs
 from ..ops.narrow import to_i32, widen_narrow
 from .interp_ref import gather_n_rows, gather_rows, run_plan
 from .plan import UnsupportedTapeOp
@@ -183,6 +192,90 @@ def launch_gather_n(bank_n, x_n, src, shift, out):
            shift.data_ptr(), out.data_ptr(), W, B, stream_ptr(out.device))
 
 
+# KW's row kinds, column 0 of its table (ops/cuda/gather.cu): a wide bank
+# row, an input row (a wide input, or a narrow input's own limbs), a
+# constant, a narrow bank row (bit `shift` unpacked, then widened)
+KW_BANK, KW_INPUT, KW_CONST, KW_NARROW = range(4)
+
+
+def _take(a, i):
+    """a[i] where i lies inside a; 0 elsewhere (rows the caller drops)."""
+    if not len(a):
+        return np.zeros(len(i), np.int64)
+    return a[np.clip(i, 0, len(a) - 1)]
+
+
+def _kinds(n, cases):
+    """(kind, source) of n rows from disjoint (kind, mask, source) cases;
+    kind -1 where no mask holds."""
+    kind, src = np.full(n, -1, np.int64), np.zeros(n, np.int64)
+    for k, mask, v in cases:
+        kind = np.where(mask, k, kind)
+        src = np.where(mask, v, src)
+    return kind, src
+
+
+def kw_table(plan: DevicePlan):
+    """KW's table of the plan's full-limb witness: int32 (n_witness, 4),
+    row w (kind, source row, shift, 0) in witness order, a KW_INPUT source
+    a row of the full-limb inputs.  Checked once, here, so that a run
+    syncs nothing: raises ValueError if a witness row is written other
+    than once or a source lies outside its tensor (the wide inputs' empty
+    slot, which no plan names, included)."""
+    n_w = plan.n_witness
+    pos = np.concatenate([plan.wd_idx, plan.nw_idx]).astype(np.int64)
+    if pos.size and (pos.min() < 0 or pos.max() >= n_w) or \
+            (np.bincount(pos, minlength=n_w) != 1).any():
+        raise ValueError("KW's table writes a witness row other than once")
+    win = np.asarray(plan.win_order, np.int64)
+    nin = np.asarray(plan.nin_order, np.int64)
+    # wide rows read [wide bank; wide inputs (at least one slot); consts]
+    s = plan.wd_src.astype(np.int64)
+    slot = s - plan.n_bank_rows
+    c = slot - max(len(win), 1)
+    wk, ws = _kinds(len(s), [
+        (KW_BANK, (s >= 0) & (slot < 0), s),
+        (KW_INPUT, (slot >= 0) & (slot < len(win)), _take(win, slot)),
+        (KW_CONST, (c >= 0) & (c < len(plan.consts)), c)])
+    # narrow rows read [narrow bank; narrow inputs]
+    s = plan.nw_src.astype(np.int64)
+    slot = s - plan.n_bank_n_rows
+    nk, ns = _kinds(len(s), [
+        (KW_NARROW, (s >= 0) & (slot < 0), s),
+        (KW_INPUT, (slot >= 0) & (slot < len(nin)), _take(nin, slot))])
+    if (wk < 0).any() or (nk < 0).any():
+        raise ValueError("KW's table names a source row outside its tensor")
+    tab = np.zeros((n_w, 4), np.int32)
+    tab[plan.wd_idx, 0], tab[plan.wd_idx, 1] = wk, ws
+    tab[plan.nw_idx, 0], tab[plan.nw_idx, 1] = nk, ns
+    tab[plan.nw_idx, 2] = np.where(nk == KW_NARROW, plan.nw_shift, 0)
+    return tab
+
+
+def kw_inputs(tab):
+    """The input rows a KW table reads: 1 + its largest KW_INPUT source."""
+    return int(tab[tab[:, 0] == KW_INPUT, 1].max(initial=-1)) + 1
+
+
+def kw_q(field: TorchField):
+    """p - 2^32 in the field's 16-bit limbs: the negative widening's
+    addend."""
+    return int_to_limbs(field.p - (1 << 32), field.L)
+
+
+def kw_args(field: TorchField, tab, bank, bank_n, inputs, consts, out,
+            stream):
+    """ctpu_assemble's arguments (ops/build.py SIGNATURES["gather"]) for
+    KW's table tab int32 (W, 4) over the wide bank uint32 (R, L, B), the
+    narrow bank int32 (R_n, B), the full-limb inputs uint32 (n_inputs, L,
+    B) and the constants uint32 (n_const, L), into out uint32 (W, L, B);
+    all contiguous on one device."""
+    return (field.L, out.shape[-1], tab.data_ptr(), tab.shape[0],
+            bank.data_ptr(), bank_n.data_ptr(), inputs.data_ptr(),
+            consts.data_ptr(), u32_array(kw_q(field)), out.data_ptr(),
+            stream)
+
+
 def _check_index(idx, n, what):
     if idx.shape[0]:
         lo, hi = torch.aminmax(idx)
@@ -199,9 +292,10 @@ class TorchInterpreter:
         self.field = field
         self.device = plan.device
         self.n_witness = plan.n_witness
-        # the full-limb witness in parts, by where its rows come from: the
-        # wide rows, the narrow emission rows (K3, then the widening) and
-        # the narrow input rows (the input's own limbs).  Their index
+        # the full-limb witness in parts (the parts route, KW's plain
+        # version), by where its rows come from: the wide rows, the narrow
+        # emission rows (K3, then the widening) and the narrow input rows
+        # (the input's own limbs).  Their index
         # tensors live on the device from here on, so that a run copies
         # nothing from the host after its launches (a copy from the host
         # would wait for them).
@@ -218,6 +312,17 @@ class TorchInterpreter:
         present = [k for k, idx in enumerate(pos) if len(idx)]
         self._whole = present[0] if len(present) == 1 and np.array_equal(
             pos[present[0]], np.arange(plan.n_witness)) else None
+        # the wide rows name the wide bank alone (the planned circuits'
+        # case), and on the card the witness is then K2's gather of them
+        self._bank_only = not len(plan.wd_src) or \
+            plan.wd_src.max() < plan.n_bank_rows
+        self._k2_whole = self._whole == 0 and self._bank_only
+        # KW's tables, checked here and then kept on the device: the
+        # full-limb witness's and its wide rows' (run_mixed's)
+        tab = kw_table(plan)
+        host = {"full": tab, "wide": tab[plan.wd_idx]}
+        self._kw_inputs = {k: kw_inputs(t) for k, t in host.items()}
+        self._kw = {k: to_device(t, self.device) for k, t in host.items()}
 
     # The plan's gathers.  Their indices were held inside the rows when
     # the plan was built (convert.plan_from_arrays), so on the card they
@@ -279,13 +384,14 @@ class TorchInterpreter:
         PyTorch's uint32 has no index_put)."""
         out.view(torch.int32)[pos] = rows.view(torch.int32)
 
-    def _wide_rows(self, bank, x_w, B):
-        """The wide rows of the mixed witness, uint32 (n_wd, L, B): rows of
-        [wide bank; wide inputs (at least one slot); consts] at wd_src,
-        gathered by K2.  Planned circuits emit every witness row, so the
-        source is the bank alone unless a plan names inputs or consts."""
+    def _wide_parts(self, bank, x_w, B):
+        """The wide rows of the witness, uint32 (n_wd, L, B), by the parts
+        route: rows of [wide bank; wide inputs (at least one slot);
+        consts] at wd_src, gathered by K2.  Planned circuits emit every
+        witness row, so the source is the bank alone unless a plan names
+        inputs or consts."""
         plan = self.plan
-        if not len(plan.wd_src) or plan.wd_src.max() < plan.n_bank_rows:
+        if self._bank_only:
             return self._gather_w(bank, plan.dev["wd_src"])
         slots = x_w if len(plan.win_order) else torch.zeros(
             (1, plan.L, B), dtype=torch.uint32, device=self.device)
@@ -294,32 +400,19 @@ class TorchInterpreter:
                                                            consts)])
         return self._gather_w(source.view(torch.uint32), plan.dev["wd_src"])
 
-    def _run_mixed(self, inputs):
-        """inputs uint32 (n_inputs, L or 2, B) -> (narrow int32 (n_nw, B),
-        wide uint32 (n_wd, L, B)) in the row order of mixed_layout()."""
+    def assemble_parts(self, inputs, x_w, x_n, bank, bank_n):
+        """KW's plain version, the parts route: the full-limb witness
+        uint32 (n_witness, L, B) from K1's banks, the inputs on the device
+        and _inputs' x_w, x_n.  The wide rows (_wide_parts), the narrow
+        emission rows (K3, then ops/narrow.widen_narrow) and the narrow
+        input rows (the input's own limbs) are made apart and each put
+        into the witness; a part that is the witness, in witness order,
+        is returned as it is.  The CPU's route, and KW's oracle on the
+        card."""
         plan = self.plan
-        _, x_w, x_n = self._inputs(inputs)
-        B = x_w.shape[-1]
-        bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
-        if len(plan.nw_src):
-            narrow = self._gather_n(bank_n, x_n, plan.dev["nw_src"],
-                                    plan.dev["nw_shift"])
-        else:
-            narrow = torch.empty((0, B), dtype=torch.int32,
-                                 device=self.device)
-        return narrow, self._wide_rows(bank, x_w, B)
-
-    def _run(self, inputs):
-        """uint32 (n_inputs, L, B) -> witness uint32 (n_witness, L, B)."""
-        plan = self.plan
-        inputs, x_w, x_n = self._inputs(inputs)
-        if inputs.shape[1] != plan.L:
-            raise ValueError(f"the full-limb witness needs full-limb input "
-                             f"rows ({plan.L} limbs), got {inputs.shape[1]}")
         B = inputs.shape[-1]
-        bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
         parts = (
-            lambda: self._wide_rows(bank, x_w, B),
+            lambda: self._wide_parts(bank, x_w, B),
             lambda: widen_narrow(self._gather_n(
                 bank_n, x_n, self._nw_src, self._nw_shift), self.field.p,
                 plan.L),
@@ -333,3 +426,57 @@ class TorchInterpreter:
             if n:
                 self._put(out, pos, rows())
         return out
+
+    def assemble_kw(self, inputs, bank, bank_n, rows="full", out=None):
+        """KW on the card, one launch: the full-limb witness uint32
+        (n_witness, L, B) (rows="full"), or its wide rows in wd_src's
+        order (rows="wide"), from K1's banks, the full-limb inputs on the
+        device and the plan's constants, into `out` where given (a
+        contiguous tensor of that shape).  The table was checked when the
+        interpreter was made; there is no other route."""
+        tab = self._kw[rows]
+        if inputs.shape[0] < self._kw_inputs[rows]:
+            raise ValueError(f"KW reads {self._kw_inputs[rows]} input rows, "
+                             f"got {inputs.shape[0]}")
+        if out is None:
+            out = torch.empty((tab.shape[0], self.plan.L, inputs.shape[-1]),
+                              dtype=torch.uint32, device=self.device)
+        if out.numel():
+            launch("assemble", library("gather").ctpu_assemble, self.device,
+                   *kw_args(self.field, tab, bank, bank_n,
+                            inputs.contiguous(), self.plan.dev["consts"],
+                            out, stream_ptr(self.device)))
+        return out
+
+    def _run_mixed(self, inputs):
+        """inputs uint32 (n_inputs, L or 2, B) -> (narrow int32 (n_nw, B),
+        wide uint32 (n_wd, L, B)) in the row order of mixed_layout()."""
+        plan = self.plan
+        inputs, x_w, x_n = self._inputs(inputs)
+        B = x_w.shape[-1]
+        bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
+        if len(plan.nw_src):
+            narrow = self._gather_n(bank_n, x_n, plan.dev["nw_src"],
+                                    plan.dev["nw_shift"])
+        else:
+            narrow = torch.empty((0, B), dtype=torch.int32,
+                                 device=self.device)
+        if self.device.type == "cpu" or self._bank_only:
+            return narrow, self._wide_parts(bank, x_w, B)
+        return narrow, self.assemble_kw(inputs, bank, bank_n, "wide")
+
+    def _run(self, inputs):
+        """uint32 (n_inputs, L, B) -> witness uint32 (n_witness, L, B): on
+        the card K1, then KW (K2 alone where the witness is the wide
+        bank's rows in witness order); on the CPU the plain versions."""
+        plan = self.plan
+        inputs, x_w, x_n = self._inputs(inputs)
+        if inputs.shape[1] != plan.L:
+            raise ValueError(f"the full-limb witness needs full-limb input "
+                             f"rows ({plan.L} limbs), got {inputs.shape[1]}")
+        bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
+        if self.device.type == "cpu":
+            return self.assemble_parts(inputs, x_w, x_n, bank, bank_n)
+        if self._k2_whole:
+            return self._gather_w(bank, plan.dev["wd_src"])
+        return self.assemble_kw(inputs, bank, bank_n)

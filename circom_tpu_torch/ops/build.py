@@ -69,6 +69,8 @@ SIGNATURES = {
     "gather": {
         "ctpu_gather_rows": (_I, [_P, _P, _P, _LL, _LL, _P]),
         "ctpu_gather_n": (_I, [_P, _LL, _P, _P, _P, _P, _LL, _LL, _P]),
+        "ctpu_assemble": (_I, [_I, _LL, _P, _LL, _P, _P, _P, _P, _PU32, _P,
+                               _P]),
     },
     "check": {
         "ctpu_r1cs_check": (

@@ -30,6 +30,35 @@
 // a run of output rows unpacking one word row re-reads it from L2.  Bound
 // on the card: device-memory bandwidth, the output written once (27,369
 // rows for SHA256) and each distinct source row read once.
+//
+// KW: the interpreter's full-limb witness, uint32 (W, L, B) in 16-bit
+// canonical limbs, in one launch straight from its sources.  Not a Pallas
+// site: it replaces what the JAX package's InterpreterProgram runs as one
+// jitted XLA program after its kernel (backend/interp.py:2200-2219: a
+// `take` of the narrow emissions, `_unpack_bits`, `_widen_narrow`, the
+// banks concatenated, one `take` into witness order).  A table of one int4
+// a witness row (backend/interp.kw_table, checked on the host when it is
+// built: each row written once, each source inside its tensor) names the
+// row's source, one of four kinds:
+//   KW_BANK    a row of the wide bank, copied (K2's copy);
+//   KW_INPUT   a row of the full-limb inputs, copied: a wide input, or a
+//              narrow input's own limbs;
+//   KW_CONST   a constant (L limbs), the same in every lane;
+//   KW_NARROW  a narrow bank row, bit `shift` unpacked as K3 does, then
+//              widened: v >= 0 -> [v & 0xffff, v >> 16, 0, ...]; v < 0 ->
+//              (p - 2^32) + uint32(v), one carry chain over p - 2^32's
+//              limbs (ops/narrow.widen_narrow), in registers.
+// blockIdx.y walks the witness rows, threads run along the lanes and write
+// every limb of theirs, so each source value is read once and each limb
+// written once, coalesced: 16 bytes a thread (4 lanes) where B is a
+// multiple of 4 and the bases are 16-byte aligned, else 4.  Offsets are
+// 64-bit (F's witness at 8,192 lanes is 14.3 GB).  Bound on the card:
+// device-memory bandwidth, the witness written once and each distinct
+// source row read once (utils/roofline.kw_bytes).  On an H100 80GB HBM3 at
+// 700 W it writes SHA256's full-limb witness at 8,192 lanes (14.41 GB
+// moved) in 4.51 ms, 95 % of that bound and as fast as index_select of as
+// many rows into the same output (4.62 ms); MerkleInclusion(32)'s at
+// 16,384 lanes in 7.19 ms (90 %).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -94,6 +123,108 @@ __global__ void gather_n_kernel(const int32_t* __restrict__ bank_n,
   }
 }
 
+// KW's row kinds: column 0 of its table (backend/interp.py KW_*)
+enum { KW_BANK = 0, KW_INPUT = 1, KW_CONST = 2, KW_NARROW = 3 };
+constexpr int KW_MAX_L = 32;
+constexpr int KW_CHUNK = 8;   // limbs a thread loads before it stores
+
+struct KwArgs {
+  const int4* tab;          // (W,): kind, source row, shift, 0
+  const uint32_t* bank;     // (n_bank_rows, L, B) wide bank
+  const int32_t* bank_n;    // (n_bank_n_rows, B) narrow bank
+  const uint32_t* inputs;   // (n_inputs, L, B) full-limb inputs
+  const uint32_t* consts;   // (n_consts, L)
+  uint32_t* out;            // (W, L, B)
+  long long W, B;
+  int L;
+  uint32_t q[KW_MAX_L];     // p - 2^32 in 16-bit limbs
+};
+
+template <int V>
+struct KwVec;
+template <>
+struct KwVec<1> {
+  using T = uint32_t;
+  static __device__ __forceinline__ T splat(uint32_t c) { return c; }
+};
+template <>
+struct KwVec<4> {
+  using T = uint4;
+  static __device__ __forceinline__ T splat(uint32_t c) {
+    return make_uint4(c, c, c, c);
+  }
+};
+
+// limb l of the widening of narrow value v (ops/narrow.widen_narrow),
+// limbs taken in order 0, 1, ..., with carry the chain's carry in and out
+__device__ __forceinline__ uint32_t widen_limb(int32_t v, int l,
+                                               uint32_t q_l,
+                                               uint32_t& carry) {
+  const uint32_t u = (uint32_t)v;
+  const uint32_t t =
+      (l == 0 ? (u & 0xffffu) : l == 1 ? (u >> 16) : 0u) + q_l + carry;
+  carry = t >> 16;
+  if (v < 0) return t & 0xffffu;
+  return l == 0 ? (u & 0xffffu) : l == 1 ? (u >> 16) : 0u;
+}
+
+template <int V>
+__global__ void assemble_kernel(const __grid_constant__ KwArgs a) {
+  using T = typename KwVec<V>::T;
+  const long long n_vec = a.B / V;
+  const long long row = (long long)a.L * a.B;
+  for (long long w = blockIdx.y; w < a.W; w += gridDim.y) {
+    const int4 t = __ldg(a.tab + w);
+    T* dst = reinterpret_cast<T*>(a.out + w * row);
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         i < n_vec; i += (long long)gridDim.x * blockDim.x) {
+      if (t.x == KW_BANK || t.x == KW_INPUT) {
+        const T* src = reinterpret_cast<const T*>(
+            (t.x == KW_BANK ? a.bank : a.inputs) + (long long)t.y * row);
+        for (int l0 = 0; l0 < a.L; l0 += KW_CHUNK) {
+          T v[KW_CHUNK];
+#pragma unroll
+          for (int j = 0; j < KW_CHUNK; ++j)
+            if (l0 + j < a.L) v[j] = __ldg(src + (l0 + j) * n_vec + i);
+#pragma unroll
+          for (int j = 0; j < KW_CHUNK; ++j)
+            if (l0 + j < a.L) dst[(l0 + j) * n_vec + i] = v[j];
+        }
+      } else if (t.x == KW_CONST) {
+        const uint32_t* c = a.consts + (long long)t.y * a.L;
+        for (int l = 0; l < a.L; ++l)
+          dst[l * n_vec + i] = KwVec<V>::splat(__ldg(c + l));
+      } else {
+        const int32_t* src = a.bank_n + (long long)t.y * a.B;
+        int32_t v[V];
+        if constexpr (V == 4) {
+          const int4 x = __ldg(reinterpret_cast<const int4*>(src) + i);
+          v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+        } else {
+          v[0] = __ldg(src + i);
+        }
+        uint32_t carry[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          v[k] = unpack_bit(v[k], t.z);
+          carry[k] = 0;
+        }
+        for (int l = 0; l < a.L; ++l) {
+          uint32_t o[V];
+#pragma unroll
+          for (int k = 0; k < V; ++k) o[k] = widen_limb(v[k], l, a.q[l],
+                                                        carry[k]);
+          if constexpr (V == 4) {
+            dst[l * n_vec + i] = make_uint4(o[0], o[1], o[2], o[3]);
+          } else {
+            dst[l * n_vec + i] = o[0];
+          }
+        }
+      }
+    }
+  }
+}
+
 }  // namespace ctpu
 
 // K2.  bank: (R, row_words) uint32, idx: (W,) int32, out: (W, row_words),
@@ -137,6 +268,42 @@ extern "C" int ctpu_gather_n(const int32_t* bank_n, long long n_bank_rows,
   } else {
     ctpu::gather_n_kernel<1><<<grid, threads, 0, s>>>(
         bank_n, n_bank_rows, x_n, src, shift, out, W, B);
+  }
+  return (int)cudaGetLastError();
+}
+
+// KW.  tab: (W, 4) int32, each row (kind, source row, shift, 0) with every
+// source inside its tensor; bank: (n_bank_rows, L, B) uint32; bank_n:
+// (n_bank_n_rows, B) int32; inputs: (n_inputs, L, B) uint32; consts:
+// (n_consts, L) uint32; out: (W, L, B) uint32, every row written; all on
+// the device.  q: L host words, the 16-bit limbs of p - 2^32.  L is 1 to
+// KW_MAX_L (else cudaErrorInvalidValue).  Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int ctpu_assemble(int L, long long B, const int32_t* tab,
+                             long long W, const uint32_t* bank,
+                             const int32_t* bank_n, const uint32_t* inputs,
+                             const uint32_t* consts, const uint32_t* q,
+                             uint32_t* out, void* stream) {
+  if (L < 1 || L > ctpu::KW_MAX_L || W < 0 || B < 0)
+    return (int)cudaErrorInvalidValue;
+  if (W == 0 || B == 0) return 0;
+  ctpu::KwArgs a = {reinterpret_cast<const int4*>(tab), bank, bank_n,
+                    inputs, consts, out, W, B, L, {}};
+  for (int l = 0; l < L; ++l) a.q[l] = q[l];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = B % 4 == 0 &&
+                   ((uintptr_t)bank | (uintptr_t)bank_n | (uintptr_t)inputs |
+                    (uintptr_t)out) % 16 == 0;
+  const long long n_vec = vec ? B / 4 : B;
+  long long threads = (n_vec + 31) / 32 * 32;
+  if (threads > 256) threads = 256;
+  long long bx = (n_vec + threads - 1) / threads;
+  if (bx > 1024) bx = 1024;
+  const dim3 grid((unsigned)bx, (unsigned)(W < 65535 ? W : 65535));
+  if (vec) {
+    ctpu::assemble_kernel<4><<<grid, (unsigned)threads, 0, s>>>(a);
+  } else {
+    ctpu::assemble_kernel<1><<<grid, (unsigned)threads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

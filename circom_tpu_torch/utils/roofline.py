@@ -3,8 +3,9 @@
 One count for `chip_smoke.py` and `bench_gpu.py`: the bytes a second of
 HBM3 and the 32-bit integer instructions a second of the card, what the
 interpreter kernel K1 and the witness gathers need a lane (a witness),
-counted from the plan, and what the scan kernel KS needs a lane, counted
-from its schedule.
+counted from the plan, what the assembly kernel KW moves, counted from
+its table, and what the scan kernel KS needs a lane, counted from its
+schedule.
 """
 
 import subprocess
@@ -12,6 +13,8 @@ import subprocess
 import numpy as np
 import torch
 
+from ..backend.interp import (KW_BANK, KW_CONST, KW_INPUT, KW_NARROW,
+                              kw_table)
 from ..backend.interp_plan import _NARROW_RESULT as NARROW_RESULT
 from ..backend.scan import KS_OPS, ks_tables
 from ..convert import OPCODES
@@ -81,6 +84,20 @@ def witness_bytes(plan, mixed=False):
     else:
         written = row * plan.n_witness
     return emitted + read + written
+
+
+def kw_bytes(plan, B):
+    """KW's HBM bytes at B lanes, each counted once: the full-limb witness
+    written (L 16-bit limbs a row and a lane) and each distinct source row
+    of its table read (a wide bank or input row L limbs a lane, a narrow
+    bank row one int32 a lane, a constant L limbs), 4 bytes a limb and an
+    int32.  The table itself (16 bytes a row) is not counted."""
+    L = plan.L
+    src = {tuple(r) for r in kw_table(plan)[:, :2].tolist()}
+    lane = {KW_BANK: L, KW_INPUT: L, KW_NARROW: 1, KW_CONST: 0}
+    per_lane = L * plan.n_witness + sum(lane[k] for k, _ in src)
+    consts = sum(L for k, _ in src if k == KW_CONST)
+    return 4 * (B * per_lane + consts)
 
 
 # KS's opcodes by the operands they read a lane (the rest read two)

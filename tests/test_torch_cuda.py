@@ -33,6 +33,7 @@ from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
                                                bigdiv_num2bits_source,
                                                comparator_inputs,
                                                comparators_source,
+                                               merkle_source,
                                                num2bits_source,
                                                poseidon2_source,
                                                random_r1cs,
@@ -159,9 +160,9 @@ def test_launch_on_a_second_card(card):
 
 
 def test_main_path_gathers_make_no_index_sync(card, monkeypatch):
-    """WitnessProgram's run and run_mixed launch K2 and K3 without the
-    public wrappers' index check (a device-to-host sync), and still give
-    the host calculator's witness."""
+    """WitnessProgram's run (K1 and KW) and run_mixed (K1, K2 and K3)
+    launch without the public wrappers' index check (a device-to-host
+    sync), and still give the host calculator's witness."""
     cc = compile_source(comparators_source())
     spec = field_spec("bn128")
     prog = WitnessProgram(cc.build_tape()[0], spec, device=card,
@@ -175,12 +176,84 @@ def test_main_path_gathers_make_no_index_sync(card, monkeypatch):
     build.reset_launches()
     wit = prog.run(x)
     prog.run_mixed(x)
-    assert build.LAUNCHES["gather_w"] == 2 and build.LAUNCHES["gather_n"] == 2
+    assert build.LAUNCHES["gather_w"] == 1 and build.LAUNCHES["gather_n"] == 1
+    assert build.LAUNCHES["assemble"] == 1
     w = wit.view(torch.int32).cpu().numpy().view(np.uint32)
     for lane in (0, 299):
         ins = [limbs_to_int(x[i, :, lane]) for i in range(prog.n_inputs)]
         host = list(cc.witness_host({"a": ins[0], "b": ins[1]}))
         assert [limbs_to_int(w[i, :, lane]) for i in range(len(host))] == host
+
+
+def kw_program(name, device, B):
+    """(program, inputs) of a path whose full-limb witness KW assembles:
+    SHA256 (narrow emissions), MerkleInclusion(32) (wide rows and the
+    pathIndex bits), the comparators (both), over bn128 at B lanes."""
+    spec = field_spec("bn128")
+    rng = random.Random(B)
+    if name == "sha256":
+        cc = compile_source((ROOT / "circom_tpu_torch/circuits/sha256.circom")
+                            .read_text() + "\ncomponent main = Sha256Block();\n")
+        msgs = [bytes(rng.randrange(256) for _ in range(32))
+                for _ in range(B)]
+        x = np.zeros((512, spec.n_limbs, B), np.uint32)
+        x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
+    elif name == "merkle32":
+        cc = compile_source(merkle_source(32))
+    else:
+        cc = compile_source(comparators_source())
+        x = comparator_inputs(B, 66, spec.n_limbs)
+    hints = cc.input_range_hints()
+    prog = WitnessProgram(cc.build_tape()[0], spec, device=device,
+                          input_ranges=hints)
+    if name == "merkle32":
+        cols = [[rng.randrange(2) if i in hints else rng.randrange(spec.p)
+                 for _ in range(B)] for i in range(prog.n_inputs)]
+        x = prog.encode_inputs(cols)
+    return prog, x
+
+
+@pytest.mark.parametrize("B", [301, 512])
+@pytest.mark.parametrize("name", ["sha256", "merkle32", "comparators"])
+def test_kw_matches_parts_route(card, name, B):
+    """KW against its plain version, the parts route (K2, K3, the plain
+    widening, index_put), on the same K1 banks, bit for bit, at a lane
+    count that is not a multiple of 4 (4 bytes a thread) and one that is;
+    a run launches K1 and KW and neither K2 nor K3, and gives KW's
+    witness."""
+    prog, x = kw_program(name, card, B)
+    interp = prog.interp
+    assert not interp._k2_whole
+    inputs, x_w, x_n = interp._inputs(x)
+    bank, bank_n = interp_k1(interp.plan, prog.field, x_w, x_n)
+    got = interp.assemble_kw(inputs, bank, bank_n)
+    want = interp.assemble_parts(inputs, x_w, x_n, bank, bank_n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    del want
+    build.reset_launches()
+    wit = prog.run(x)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {**{k: 1 for k in interp.plan.parts},
+                                    "assemble": 1}
+    assert torch.equal(wit.view(torch.int32), got.view(torch.int32))
+
+
+def test_kw_on_a_second_card(card):
+    """KW on tensors of cuda:1, launched while cuda:0 is current, gives
+    the CPU's witness (the parts route of the plain executor).  Needs two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    prog, x = kw_program("comparators", "cpu", 300)
+    other = prog.for_device(torch.device("cuda", 1))
+    with torch.cuda.device(0):
+        build.reset_launches()
+        got = other.run(x)
+    torch.cuda.synchronize(torch.device("cuda", 1))
+    assert got.device == torch.device("cuda", 1)
+    assert build.LAUNCHES["assemble"] == 1
+    assert torch.equal(got.view(torch.int32).cpu(),
+                       prog.run(x).view(torch.int32))
 
 
 def test_k1a_and_k2_match_plain(card, poseidon2):
