@@ -27,14 +27,15 @@ mismatch exits non-zero.  The paths:
   the interpreter refuses: run on the segments (K4, one and four
   segments) and R1CS check;
 - bigint-div + Num2Bits(254) of the quotient over bn128, batch 8,192,
-  which both fused backends refuse: run straight-line (K5, K6 and plain
-  PyTorch) and R1CS check;
+  which both fused backends refuse: run straight-line (one launch of KS
+  a run, no K5, K6 or plain field op) and R1CS check, bit for bit against
+  the per-node path on the card (phase O);
 - 16 x Num2Bits(254) over bn128 (9,415 ops, above the unroll threshold):
   on the scan executor (one launch of KS a run) at batch 8,192, bit for
-  bit against the straight-line run of the same tape, both timed; and at
-  65,536 with 8 and 64 slots a step, every lane checked (phase QS); KS's
-  two layouts timed and held bit for bit against the step loop on the
-  card (phase KS);
+  bit against the per-node path of the same tape, both timed; and at
+  65,536 with 8 and 64 slots a step, every lane checked (phase QS); KS at
+  every width timed and held bit for bit against the step loop and the
+  per-node path on the card (phase KS);
 - MultiMiMC7(5) over bn128, batch 65,536 (K2), and MerkleInclusion(32)
   over Poseidon2/bn128, batch 16,384 (K1a and K1b in one K1 launch, KW
   for its wide rows and pathIndex bits): run and R1CS check, sampled
@@ -104,8 +105,7 @@ try:
                                                  interp_k1, launch_gather_w)
     from circom_tpu_torch.backend.interp_ref import (gather_n_rows,
                                                      gather_rows, run_plan)
-    from circom_tpu_torch.backend.scan import (KS_LAYOUTS, KS_WARPS,
-                                               launch_scan)
+    from circom_tpu_torch.backend.ks import KS_WIDTHS, launch_scan
     from circom_tpu_torch.backend.torch_backend import WitnessProgram
     from circom_tpu_torch.circuits import sha256_io
     from circom_tpu_torch.backend.segments import (SegmentedProgram,
@@ -347,7 +347,8 @@ def edge_operands(spec, dev):
 
 def phase_field(rep, dev, nnz, n_rows, lanes):
     """K5 and K6 against TorchField at the shapes of the check's plain
-    route (the per-op, scan and segment paths launch them), at
+    route (the plain versions of the per-op paths launch them on the
+    card; no main path does), at
     goldilocks, bn128 and secq256r1 (p just under R = 2^256: the edge of
     the conditional subtract): random canonical operands, the edge
     operands of mont_edge_values (every pair, and each edge as a column
@@ -411,15 +412,18 @@ def phase_field(rep, dev, nnz, n_rows, lanes):
         say(f"  K5 at {tuple(a.shape)}x{tuple(c.shape)}: {ms:.4f} ms, "
             f"{nbytes / ms / 1e6:.0f} GB/s, {ops / ms / 1e9:.2f} T lane "
             "operations/s")
+        # no main path launches K5 or K6: every per-op run is one KS
+        # launch, every check one KC launch
         rep.add("mont_mul", "circom_tpu_torch/ops/cuda/field_ops.cu",
                 "circom_tpu/ops/pallas_field.py:94", err["mont_mul"], ms,
-                time_ms(lambda: f.mont_mul(a, c), reps=2), nbytes, ops)
+                time_ms(lambda: f.mont_mul(a, c), reps=2), nbytes, ops,
+                on_path="phase 2 only")
         for name in ("add", "sub"):
             rep.add(name, "circom_tpu_torch/ops/cuda/field_ops.cu",
                     "circom_tpu/ops/pallas_field.py:140", err[name],
                     time_ms(lambda: getattr(fk, name)(f, x, y)),
                     time_ms(lambda: getattr(f, name)(x, y), reps=2),
-                    4 * 3 * e_xy * L, 0)
+                    4 * 3 * e_xy * L, 0, on_path="phase 2 only")
 
 
 # the base field of BLS12-381, 381 bits: KC's 24-limb instantiation (the
@@ -1206,12 +1210,13 @@ def phase_k4_units(progs, dev, B):
 
 
 def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
-    """Phases S, S4, U, O, Q, QS and W: Num2Bits(254) and 4 x
+    """Phases S, S4, U, O, Q, QS, KS and W: Num2Bits(254) and 4 x
     Num2Bits(254) over bn128 at batch B through the segments (K4), K4
     against its plain version on their segments and on the op circuits,
     bigint-div + Num2Bits(254) over bn128 at batch b_div straight-line
-    (K5, K6), 16 x Num2Bits(254) on the scan (scan_paths: K2, K5, K6), and
-    the entry point on a Num2Bits(254) artifact."""
+    (one KS launch, bit for bit against the per-node path on the card),
+    16 x Num2Bits(254) on the scan (scan_paths: one KS launch), and the
+    entry point on a Num2Bits(254) artifact."""
     out = {}
     bn = field_spec("bn128")
     interp = ("interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d")
@@ -1260,16 +1265,27 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
     x = to_device(prog.encode_inputs(
         [[rng.randrange(bn.p) for _ in range(b_div)],
          [rng.randrange(1, bn.p) for _ in range(b_div)]]), dev)
+    ks = prog.perop.ks
     say(f"phase O: the bigint-div + Num2Bits(254)/bn128 path (batch "
         f"{b_div}, straight-line: {prog.perop.n_live()} live of "
-        f"{len(prog.dt.ops)} nodes, unroll {prog.unroll})")
+        f"{len(prog.dt.ops)} nodes, unroll {prog.unroll}; one KS launch: "
+        f"{ks_stats(ks, ks.width(b_div))})")
     out["bigdiv_bits"] = witness_path(
-        paths, "bigdiv_bits", cc, prog, x, ("mont_mul", "sub", "r1cs_check"),
-        lambda ins: {"a": ins[0], "b": ins[1]}, never=interp + ("k4",))
-    if not rehearse:
-        # one traced run: the trace of a run holds up to ~30,000 launches
-        profile_breakdown(lambda: prog.run(x), out["bigdiv_bits"]["run_ms"],
-                          reps=1, warmup=0, aten=False)
+        paths, "bigdiv_bits", cc, prog, x, ("scan", "r1cs_check"),
+        lambda ins: {"a": ins[0], "b": ins[1]}, never=SCAN_NEVER)
+    wit = prog.run(x)
+    oracle, node_ms = wall_ms(lambda: prog.perop.run_nodes(x))
+    if not same_witness(wit, oracle):
+        raise SystemExit("FAIL bigint-div + Num2Bits(254)/bn128: KS's "
+                         "witness differs from the per-node path's")
+    del wit, oracle
+    ms = wall_ms(lambda: prog.run(x))[1]
+    idle = None if rehearse else ks_idle_share(prog, x, ms)
+    out["bigdiv_bits"].update(warm_ms=ms, idle=idle, per_node_ms=node_ms)
+    say(f"  O: the run's witness equals the per-node path's bit for bit "
+        f"(the per-node path {node_ms:.1f} ms); one-launch run "
+        f"{ms:.3f} ms, idle share "
+        + ("not measured" if idle is None else f"{idle:.3f}"))
     del prog, x
     out.update(scan_paths(paths, rep, dev, b_div, b_qs, rehearse))
 
@@ -1301,22 +1317,33 @@ def same_witness(a, b):
                for s in range(0, a.shape[0], 256))
 
 
-def idle_share(prog, x, run_ms):
-    """The device's idle share of one traced run (profile_breakdown)."""
-    busy, ms, _ = profile_breakdown(lambda: prog.run(x), run_ms, reps=1,
-                                    warmup=0, aten=False)
-    return max(0.0, 1 - busy / ms)
+def ks_of(prog):
+    """The KsProgram of a per-op program: its scan's or its straight-line
+    path's."""
+    return (prog.scan or prog.perop).ks
 
 
 def ks_idle_share(prog, x, run_ms):
-    """The device's idle share of a scan run that took run_ms by the host
-    clock.  The run is one KS launch, so the device is busy for that
+    """The device's idle share of a per-op run that took run_ms by the
+    host clock.  The run is one KS launch, so the device is busy for that
     launch alone: timed here by CUDA events around the bare launch on the
     same tables and inputs.  (Within this long process the profiler
     recorded no KS kernel, where a process of its own recorded it.)"""
-    rf, out = ks_buffers(prog.scan, x.shape[-1], x.device)
-    busy = time_ms(lambda: launch_scan(prog.scan, x, rf, out), reps=3)
+    ks = ks_of(prog)
+    d = ks.device_tables(ks.width(x.shape[-1]))
+    spill, out = ks_buffers(ks, d["t"], x.shape[-1], x.device)
+    busy = time_ms(lambda: launch_scan(ks.field, d, x, spill, out), reps=3)
     return max(0.0, 1 - busy / run_ms)
+
+
+def ks_stats(ks, warps):
+    """A line of KS's tables at `warps` a block: live registers, shared
+    bytes a block, spilled registers, steps."""
+    t = ks.tables(warps)
+    return (f"{warps} warps a block, {t.n_regs} registers ("
+            f"{t.smem_bytes(ks.field.L)} shared bytes a block, "
+            f"{t.n_spill} spilled), {t.n_steps} steps, {len(t.ent)} "
+            "entries")
 
 
 def phase_scan_kernels(rep, prog, B, key):
@@ -1380,11 +1407,12 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
     the scan executor, as in the JAX package: one KS launch a run, never
     K1, K4 or the step loop's kernels (K2, K5, K6).  Q: at batch b_q,
     every lane through the R1CS check and 8 against the host calculator;
-    its witness bit for bit against the straight-line run of the same
-    tape and inputs (unroll_threshold 2^30), both timed, with
-    their launches and idle shares; K2, K5 and K6 at a loop step's shape
-    against their plain versions.  QS: at batch b_qs with 8 and 64 slots
-    a step, every lane checked, the two witnesses equal bit for bit, 4
+    its witness bit for bit against the per-node path of the same tape
+    and inputs on the card (the straight-line program's plain version at
+    unroll_threshold 2^30), both timed, with their launches, the scan's
+    idle share; K2, K5 and K6 at a loop step's shape against their plain
+    versions.  QS: at batch b_qs with 8 and 64 slots a step (the same KS
+    tables), every lane checked, the two witnesses equal bit for bit, 4
     lanes against the host; run ms, witnesses/s, launches, idle share and
     peak memory.  KS: phase_ks."""
     bn = field_spec("bn128")
@@ -1399,9 +1427,10 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
     sched = prog.scan.sched
     x = edge_inputs(bn, prog.n_inputs, b_q, SEED + 15, dev)
     say(f"phase Q: the 16 x Num2Bits(254)/bn128 path (batch {b_q}, scan: "
-        f"{len(prog.dt.ops)} nodes in {sched.n_steps} steps of "
-        f"{sched.slots} slots, {sched.n_regs} registers, "
-        f"{sched.n_witness} witness rows; unroll {prog.unroll})")
+        f"{len(prog.dt.ops)} nodes, {sched.n_witness} witness rows; KS "
+        f"{ks_stats(prog.scan.ks, prog.scan.ks.width(b_q))}; the step loop "
+        f"{sched.n_steps} steps of {sched.slots} slots, {sched.n_regs} "
+        f"registers; unroll {prog.unroll})")
     out = {"n2b254x16": witness_path(paths, "n2b254x16", cc, prog, x, must,
                                      host_map, never=never, n_lanes=8)}
     phase_scan_kernels(rep, prog, b_q, "q_step")
@@ -1410,24 +1439,26 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
         raise SystemExit("FAIL 16 x Num2Bits(254)/bn128: no straight-line "
                          "program at unroll_threshold 2^30")
     wit, n_scan = run_launches(prog, x)
-    wit_line, n_line = run_launches(line, x)
+    sync_all()
+    build.reset_launches()
+    wit_line, node_ms = wall_ms(lambda: line.perop.run_nodes(x))
+    n_line = dict(build.LAUNCHES)
     if not same_witness(wit, wit_line):
         raise SystemExit("FAIL 16 x Num2Bits(254)/bn128: the scan's witness "
-                         "differs from the straight-line run's")
+                         "differs from the per-node path's")
     del wit, wit_line
-    q = {}
-    for label, p, n in (("scan", prog, n_scan), ("straight-line", line,
-                                                 n_line)):
-        ms = wall_ms(lambda: p.run(x))[1]     # the witness not kept
-        idle = (None if rehearse else ks_idle_share(p, x, ms) if p is prog
-                else idle_share(p, x, ms))
-        q[label] = {"run_ms": ms, "launches": n, "idle": idle}
-        say(f"  Q {label}: run {ms:.1f} ms ({b_q / ms * 1e3:.0f} "
-            f"witnesses/s), launches {n}, idle share "
-            + ("not measured" if idle is None else f"{idle:.3f}"))
-    say(f"  Q: the scan's witness equals the straight-line run's bit for "
-        f"bit; scan {q['straight-line']['run_ms'] / q['scan']['run_ms']:.2f}"
-        "x as fast")
+    ms = wall_ms(lambda: prog.run(x))[1]     # the witness not kept
+    q = {"scan": {"run_ms": ms, "launches": n_scan, "idle": (
+             None if rehearse else ks_idle_share(prog, x, ms))},
+         "per-node": {"run_ms": node_ms, "launches": n_line, "idle": None}}
+    for label, t in q.items():
+        rate = b_q / t["run_ms"] * 1e3
+        say(f"  Q {label}: run {t['run_ms']:.1f} ms ({rate:.0f} "
+            f"witnesses/s), launches {t['launches']}, idle share "
+            + ("not measured" if t["idle"] is None else f"{t['idle']:.3f}"))
+    say(f"  Q: the scan's witness equals the per-node path's bit for bit; "
+        f"scan {q['per-node']['run_ms'] / q['scan']['run_ms']:.2f}x as "
+        "fast")
     out["q_compare"] = q
     del prog, line, x
     if dev.type == "cuda":
@@ -1440,12 +1471,13 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
     for slots in (8, 64):
         name = f"n2b254x16_s{slots}"
         prog = WitnessProgram(tape, bn, device=dev, slots=slots)
-        sched = prog.scan.sched
+        sched, ks = prog.scan.sched, prog.scan.ks
+        warps = ks.width(b_qs)
+        spill_gb = ks.tables(warps).n_spill * 32 * b_qs / 1e9
         say(f"phase QS: the 16 x Num2Bits(254)/bn128 scan at batch {b_qs}, "
-            f"{slots} slots ({sched.n_steps} steps, {sched.n_regs} "
-            f"registers: KS's {sched.n_regs * 32 * b_qs / 1e9:.1f} GB "
-            f"register file beside a {sched.n_witness * 64 * b_qs / 1e9:.1f} "
-            "GB witness)")
+            f"{slots} slots (the loop's {sched.n_steps} steps; KS "
+            f"{ks_stats(ks, warps)}: a spilled file of {spill_gb:.1f} GB "
+            f"beside a {sched.n_witness * 64 * b_qs / 1e9:.1f} GB witness)")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1492,73 +1524,101 @@ def scan_paths(paths, rep, dev, b_q, b_qs, rehearse):
     del prog
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    out["ks"] = phase_ks(rep, tape, dev, b_q, b_qs, rehearse)
+    out["ks"] = phase_ks(rep, tape, dev, b_q, b_qs, b_q, rehearse)
     return out
 
 
-def ks_buffers(scan, B, dev):
-    """KS's register file (n_regs, L/2, B) and witness (n_witness, L, B),
-    uint32, as ScanProgram.run_ks allocates them."""
-    L = scan.field.L
-    return (torch.empty((scan.sched.n_regs, L // 2, B), dtype=torch.int32,
-                        device=dev).view(torch.uint32),
-            torch.empty((scan.n_witness, L, B), dtype=torch.int32,
-                        device=dev))
+def ks_buffers(ks, t, B, dev):
+    """KS's spilled file (n_spill, L/2, B), None when nothing spills, and
+    witness (n_witness, L, B), uint32, as KsProgram.run allocates them."""
+    L = ks.field.L
+    spill = (torch.empty((t.n_spill, L // 2, B), dtype=torch.int32,
+                         device=dev).view(torch.uint32) if t.n_spill
+             else None)
+    return spill, torch.empty((ks.n_witness, L, B), dtype=torch.int32,
+                              device=dev)
 
 
-def phase_ks(rep, tape, dev, b_q, b_qs, rehearse):
-    """Phase KS: kernel KS on 16 x Num2Bits(254)/bn128's tables, Q's (8
-    slots) at b_q and b_qs lanes and QS's 64 slots at b_qs.  Each layout
-    of KS_LAYOUTS (a thread a lane, a warp a slot) is timed around its
-    bare launch and held bit for bit against the step loop on the card
-    (K2, K5, K6 and plain PyTorch; timed once a batch at 8 slots: KS's
-    plain ms; at 64 slots the witness is the same).  Then the kept
-    layout's run (WitnessProgram.run) at each shape: launches, ms, idle
-    share, and the device memory it allocates beyond its inputs.  KS's
-    row: ms at Q with KS_WARPS, the compulsory bytes' and the operations'
-    bounds (ks_bytes, ks_ops), the register file's traffic beside, every
-    shape and layout."""
+def phase_ks(rep, tape, dev, b_q, b_qs, b_div, rehearse):
+    """Phase KS: kernel KS on 16 x Num2Bits(254)/bn128 (Q's scan at b_q
+    lanes, QS's at b_qs with 8 and 64 slots: the same KS tables) and on
+    bigint-div + Num2Bits(254)/bn128 (O's straight-line path at b_div).
+    At each width of KS_WIDTHS: the tables' live registers, shared bytes
+    a block, spilled registers and steps; KS's bare launch timed and held
+    bit for bit against the plain version on the card (the step loop, K2,
+    K5, K6 and plain PyTorch, for Q and QS; the per-node path for O; each
+    timed once a shape: KS's plain ms), against the compulsory bytes
+    (ks_bytes: the inputs read once, the witness written once, and any
+    spilled register's traffic) and the operations (ks_ops), the shared
+    file's traffic beside.  Then the kept width's run
+    (WitnessProgram.run) at each shape: launches, ms, idle share, and
+    the device memory it allocates beyond its inputs.  KS's row: ms at Q
+    with the kept width, every shape and width."""
     bn = field_spec("bn128")
     progs = {s: WitnessProgram(tape, bn, device=dev, slots=s) for s in (8, 64)}
-    sched = progs[8].scan.sched
-    say(f"phase KS: KS on Q's tables ({sched.n_steps} steps of "
-        f"{sched.slots} slots, {len(progs[8].scan.ks['ent'])} "
-        f"entries) at {b_q} and {b_qs} lanes and on QS's 64 slots; layouts "
-        f"{KS_LAYOUTS} warps a block, {KS_WARPS} kept")
-    reg_b, comp_b = ks_bytes(sched, bn.n_limbs)
-    ops = ks_ops(sched, bn.p)
+    cc = compile_source(bigdiv_num2bits_source())
+    progs["o"] = WitnessProgram(cc.build_tape()[0], bn, device=dev)
+    say(f"phase KS: KS on Q's tape at {b_q} and {b_qs} lanes (8 and 64 "
+        f"slots) and O's at {b_div}; widths {KS_WIDTHS} warps a block, "
+        f"{ks_of(progs[8]).width(b_q)} kept on Q, "
+        f"{ks_of(progs[8]).width(b_qs)} on QS, "
+        f"{ks_of(progs['o']).width(b_div)} on O")
     cuda = dev.type == "cuda"
     res, want = {}, None
-    for label, slots, B in (("q", 8, b_q), ("qs8", 8, b_qs),
-                            ("qs64", 64, b_qs)):
-        prog = progs[slots]
-        x = edge_inputs(bn, prog.n_inputs, B, SEED + 21, dev)
-        row = res[label] = {"lanes": B, "slots": slots}
-        if slots == 8:
-            # the loop's second run is timed: its first loads K2, K5 and K6
+    for label, key, B in (("q", 8, b_q), ("qs8", 8, b_qs),
+                          ("qs64", 64, b_qs), ("o", "o", b_div)):
+        prog = progs[key]
+        ks = ks_of(prog)
+        if key == "o":
+            rng = random.Random(5)
+            x = to_device(prog.encode_inputs(
+                [[rng.randrange(bn.p) for _ in range(B)],
+                 [rng.randrange(1, bn.p) for _ in range(B)]]), dev)
+        else:
+            x = edge_inputs(bn, prog.n_inputs, B, SEED + 21, dev)
+        row = res[label] = {"lanes": B, "kept_warps": ks.width(B)}
+        if key != 64:
+            # the plain version's second run is timed: its first loads
+            # K2, K5 and K6
             want = None
             if cuda:
                 torch.cuda.empty_cache()
-            want = prog.scan.run_loop(x)
-            want, row["plain_ms"] = wall_ms(lambda: prog.scan.run_loop(x))
-        for warps in KS_LAYOUTS:
+            plain = (prog.perop.run_nodes if key == "o"
+                     else prog.scan.run_loop)
+            want = plain(x)
+            want, row["plain_ms"] = wall_ms(lambda: plain(x))
+        for warps in KS_WIDTHS:
+            t = ks.tables(warps)
+            by = ks_bytes(t, bn.n_limbs)
+            ops = ks_ops(t, bn.p)
+            bound_b = (by["compulsory"] + by["spill"]) * B
+            t_bytes, t_ops = bounds(bound_b, ops * B)
+            w = row[f"w{warps}"] = {
+                "registers": t.n_regs, "smem_bytes": t.smem_bytes(bn.n_limbs),
+                "spilled": t.n_spill, "steps": t.n_steps,
+                "entries": len(t.ent), "bytes_bound_ms": t_bytes,
+                "ops_bound_ms": t_ops,
+                "shared_gb": by["shared"] * B / 1e9}
             if cuda:
-                rf, got = ks_buffers(prog.scan, B, dev)
-                ms = time_ms(lambda: launch_scan(prog.scan, x, rf, got,
-                                                 warps),
-                             reps=5 if B == b_q else 3)
-                del rf
+                d = ks.device_tables(warps)
+                spill, got = ks_buffers(ks, t, B, dev)
+                w["ms"] = time_ms(lambda: launch_scan(ks.field, d, x, spill,
+                                                      got),
+                                  reps=5 if B <= b_q else 3)
+                del spill
             else:
-                ms = time_ms(lambda: prog.run(x), reps=1)
+                w["ms"] = time_ms(lambda: prog.run(x), reps=1)
                 got = prog.run(x)
             err = max_abs_err(got.view(torch.uint32), want)
-            row[f"w{warps}_ms"] = ms
-            say(f"  KS {label} ({B} lanes, {slots} slots), {warps} warps a "
-                f"block: {ms:.4f} ms, " + (f"max abs err {err}" if err else
-                                          "bit-exact against the step loop"))
+            say(f"  KS {label} ({B} lanes), {ks_stats(ks, warps)}: "
+                f"{w['ms']:.4f} ms, " + (f"max abs err {err}" if err else
+                                         "bit-exact against the plain "
+                                         "version")
+                + f"; bounds: compulsory {t_bytes:.4f} ms, operations "
+                f"{t_ops:.4f} ms; shared file {w['shared_gb']:.2f} GB")
             if err:
                 raise SystemExit(f"FAIL KS on {label} at {warps} warps: "
-                                 f"differs from the step loop")
+                                 f"differs from its plain version")
             del got
             if cuda:
                 torch.cuda.empty_cache()
@@ -1573,27 +1633,30 @@ def phase_ks(rep, tape, dev, b_q, b_qs, rehearse):
         row["launches"] = n
         row["idle"] = (None if rehearse else
                        ks_idle_share(prog, x, row["run_ms"]))
-        t_reg, t_ops = bounds(reg_b * B, ops * B)
-        row.update(reg_bound_ms=t_reg, comp_bound_ms=bounds(comp_b * B, 0)[0],
-                   ops_bound_ms=t_ops)
-        say(f"  KS {label}: run {row['run_ms']:.3f} ms, launches {n}, idle "
-            "share " + ("not measured" if row["idle"] is None
-                        else f"{row['idle']:.3f}")
+        kept = row[f"w{row['kept_warps']}"]
+        row.update(ms=kept["ms"], comp_bound_ms=kept["bytes_bound_ms"],
+                   ops_bound_ms=kept["ops_bound_ms"])
+        say(f"  KS {label}: run {row['run_ms']:.3f} ms at {row['kept_warps']} "
+            "warps, "
+            f"launches {n}, idle share "
+            + ("not measured" if row["idle"] is None
+               else f"{row['idle']:.3f}")
             + ", allocates " + ("not measured" if row["alloc_gib"] is None
                                 else f"{row['alloc_gib']:.2f} GiB")
-            + f"; bounds: register traffic {t_reg:.3f} ms, compulsory "
-            f"{row['comp_bound_ms']:.3f} ms, operations {t_ops:.4f} ms"
-            + (f"; the step loop {row['plain_ms']:.1f} ms"
+            + (f"; the plain version {row['plain_ms']:.1f} ms"
                if "plain_ms" in row else ""))
         del x
     del want
     if cuda:
         torch.cuda.empty_cache()
     q = res["q"]
-    rep.add("scan", KS_SOURCE, KS_REPLACES, 0, q[f"w{KS_WARPS}_ms"],
-            q["plain_ms"], comp_b * b_q, ops * b_q,
-            reg_bound_ms=q["reg_bound_ms"], layouts=list(KS_LAYOUTS),
-            kept_warps=KS_WARPS, shapes=res)
+    t = ks_of(progs[8]).tables(q["kept_warps"])
+    by = ks_bytes(t, bn.n_limbs)
+    rep.add("scan", KS_SOURCE, KS_REPLACES, 0, q["ms"], q["plain_ms"],
+            (by["compulsory"] + by["spill"]) * b_q, ks_ops(t, bn.p) * b_q,
+            shared_gb=by["shared"] * b_q / 1e9, widths=list(KS_WIDTHS),
+            kept_warps=q["kept_warps"], shapes=res,
+            on_path="Q, QS8, QS64, O, CL, MH")
     return res
 
 
@@ -2531,11 +2594,14 @@ def main():
             f"{t['check_ms']:.1f} ms R1CS check (batch {b})"
             + (f"; K4 {seg['k4'][name]:.4f} ms" if name in seg["k4"]
                else ""))
-    q = seg["q_compare"]
+    q, o = seg["q_compare"], seg["bigdiv_bits"]
     say("16 x Num2Bits(254)/bn128 at batch %d: scan %.1f ms (idle %s), "
-        "straight-line %.1f ms (idle %s)" % (
+        "the per-node path %.1f ms" % (
             b_div, q["scan"]["run_ms"], q["scan"]["idle"],
-            q["straight-line"]["run_ms"], q["straight-line"]["idle"]))
+            q["per-node"]["run_ms"]))
+    say("bigint-div + Num2Bits(254)/bn128 at batch %d: one KS launch, run "
+        "%.3f ms warm (idle %s), the per-node path %.1f ms" % (
+            b_div, o["warm_ms"], o["idle"], o["per_node_ms"]))
     for slots in (8, 64):
         t = seg[f"n2b254x16_s{slots}"]
         say(f"16 x Num2Bits(254)/bn128 scan, {slots} slots: "

@@ -1,18 +1,23 @@
-"""The per-op backend: one field-library call per node of the tape.
+"""The per-op backend: the straight-line path over a tape's live nodes.
 
 The port of the JAX package's straight-line per-op path
 (backend/jax_backend.py `WitnessProgram._run_ssa`) for the tapes that
-both fused backends refuse.  Each node of the DomainTape is one call of
-the per-op library (ops/field.py `TorchField`): Montgomery products, adds
-and subtracts are kernels K5 and K6 on the card, the rest plain PyTorch
-over whole limb tensors.  Eager PyTorch does what jax.jit does for the
-JAX package: only the nodes that reach a witness output run, each value
-is freed after its last use, and an output row is written into the
-witness as soon as it is computed.
+both fused backends refuse.  On the card a run is one launch of kernel
+KS (ops/cuda/scan.cu) over the tables backend/ks.py builds from the
+DomainTape's live nodes, as the scan executor's is: no field op runs in
+plain PyTorch there, and no node is a launch of its own.
+
+On the CPU a run takes KS's plain version, the per-node path
+(`run_nodes`): each node that reaches a witness output is one call of
+the per-op library (ops/field.py `TorchField`), each value freed after
+its last use, an output row written into the witness as soon as it is
+computed.  It runs on any device when it is called by name (on the card
+its products, adds and subtracts are K5 and K6, the rest plain PyTorch):
+the tests and chip_smoke.py hold KS against it.
 
 Longer tapes (above WitnessProgram's `unroll_threshold`) go to the scan
 executor (backend/scan.py), as the JAX package sends them to its scan;
-both executors compute a node with `node_value`.
+both plain versions compute a node with `node_value`.
 """
 
 import copy
@@ -26,14 +31,17 @@ from ..ops import field_kernels as fk
 from ..ops.field import TorchField
 from ..ops.limbs import int_to_limbs
 from .domain import MONT
+from .ks import KsProgram
 
 
 class PerOpProgram:
-    """Executable per-op form of a DomainTape on one field's device."""
+    """Executable per-op form of a DomainTape on one field's device: KS
+    on the card (`ks`, a KsProgram), the per-node path on the CPU."""
 
     def __init__(self, dt, field: TorchField):
         self.dt = dt
         self.field = field
+        self.ks = KsProgram(dt, field)
         self.L = field.L
         self.n_witness = len(dt.outputs)
         n = len(dt.ops)
@@ -72,6 +80,7 @@ class PerOpProgram:
         twin.field = field
         twin.consts = {i: move(c, field.device)
                        for i, c in self.consts.items()}
+        twin.ks = self.ks.for_field(field)
         return twin
 
     def n_live(self):
@@ -79,7 +88,15 @@ class PerOpProgram:
 
     def _run(self, inputs):
         """uint32 (n_inputs, L, B), an array or a tensor -> witness uint32
-        (n_witness, L, B) on the field's device."""
+        (n_witness, L, B) on the field's device: KS on the card, the
+        per-node path on the CPU."""
+        if self.field.device.type == "cpu":
+            return self.run_nodes(inputs)
+        return self.ks.run(inputs)
+
+    def run_nodes(self, inputs):
+        """KS's plain version: a library call a live node, on the field's
+        device."""
         dt = self.dt
         x = u32_on(inputs, self.field.device).view(torch.int32)
         B = x.shape[-1]

@@ -8,17 +8,14 @@ into steps of up to `slots` slots and gives each value a register by
 linear-scan liveness, with the same tables, element for element, as the
 JAX package.  `ScanProgram` runs them.
 
-On the card a run is one launch of kernel KS (ops/cuda/scan.cu): the
-constants' and inputs' loads, every step's gathers and field op, its
-register and witness writes, and the witness rows that copy another, over
-KS's own register file of 32-bit words.  `ks_tables` packs the schedule
-into KS's entries once a program and checks there what KS then need not:
-no register read before it is written, no step reading what it writes,
-every witness row written once.
+On the card a run is one launch of kernel KS (ops/cuda/scan.cu) over
+tables that backend/ks.py builds from the same DomainTape: KS's own
+schedule of the live nodes, not JAX's, since a witness does not depend on
+the order its nodes run in.
 
-On the CPU a run takes KS's plain version, the step loop (`run_loop`):
-the register file (n_regs, L, B) and a witness buffer (n_witness + 1, L,
-B); a step gathers its operands (S, L, B), computes them with one call of
+On the CPU a run takes KS's plain version, the step loop (`run_loop`)
+over JAX's schedule: the register file (n_regs, L, B) and a witness
+buffer (n_witness + 1, L, B); a step gathers its operands (S, L, B), computes them with one call of
 the per-op library (ops/field.py `TorchField`), and writes the S results
 into their registers and witness rows.  Padding slots read register 0 and
 write the trash register and the trash row.  The loop runs on any device
@@ -35,31 +32,13 @@ import torch
 
 from ..convert import to_device, u32_on
 from ..field.primes import LIMB_BITS
-from ..ops import build
 from ..ops.field import TorchField
 from ..ops.limbs import int_to_limbs
 from .domain import MONT
 from .interp import launch_gather_w
 from .interp_ref import gather_rows
+from .ks import KsProgram, arity
 from .perop import node_value
-
-# the opcodes of one operand (select takes three, the others two)
-_UNARY = {"neg", "lnot", "bnot", "shl_k", "shr_k", "pow_k", "to_mont",
-          "from_mont"}
-
-# KS's opcodes in the order of ops/cuda/scan.cu's KsOp: the 27 branches of
-# the JAX package's `_branch`, then the entries of the run's first step
-# (a constant, an input) and last (a witness row copied)
-KS_OPS = ("add", "sub", "mul", "mulp", "div", "neg", "lt", "le", "gt", "ge",
-          "eq", "neq", "land", "lor", "lnot", "band", "bor", "bxor", "bnot",
-          "shl_k", "shr_k", "pow_k", "idiv", "mod", "select", "to_mont",
-          "from_mont", "const", "input", "dup")
-KS_BRANCHES = KS_OPS[:27]
-KS_LIMBS = (4, 16, 24)     # the L that scan.cu instantiates
-# warps a block of 32 lanes: 1 is a thread a lane, more spread a step's
-# slots over the warps (chip_smoke.py's phase KS times 1 and 8)
-KS_WARPS = 8
-KS_LAYOUTS = (1, 8)
 
 
 @dataclass
@@ -212,112 +191,15 @@ def check_schedule(sched: Schedule):
                                  f"{n})")
 
 
-def _arity(op):
-    return 1 if op in _UNARY else 3 if op == "select" else 2
-
-
-def _entries(op, a=0, b=0, c=0, o=-1, w=-1, imm=0):
-    """KS entries (n, 8) int32 of one opcode from columns or scalars."""
-    cols = np.broadcast_arrays(KS_OPS.index(op), a, b, c, o, w, imm, 0)
-    return np.stack(cols, -1).reshape(-1, 8).astype(np.int32)
-
-
-def ks_tables(sched: Schedule):
-    """KS's tables of a schedule: (off int32 (n_steps + 1,), entries int32
-    (off[-1], 8)), the run's steps as ops/cuda/scan.cu describes them: the
-    constants' and inputs' loads (entry imm: the constant's index in
-    `const_loads`; a: the input's index), each step's real slots, the
-    witness rows' copies.  Raises NotImplementedError for an opcode KS
-    lacks, ValueError where the tables break what KS relies on: padding
-    before a real slot or writing a witness row, a register read before a
-    constant, an input or an earlier step writes it, a step writing a
-    register twice or one that it reads, a witness row written other than
-    once."""
-    opc, a_i, b_i, c_i, o_i, w_i, imm = sched.tables
-    trash, n_w = sched.n_regs - 1, sched.n_witness
-    for op in sched.branch_ops:
-        if op not in KS_BRANCHES:
-            raise NotImplementedError(f"KS has no opcode {op!r}")
-    defined = np.zeros(sched.n_regs, bool)
-    rows = np.zeros(n_w + 1, np.int64)
-    first = []
-    for k, (reg, _v, _d) in enumerate(sched.const_loads):
-        first.append(_entries("const", o=reg, imm=k))
-        defined[reg] = True
-    for reg, idx in sched.input_loads:
-        first.append(_entries("input", a=idx, o=reg))
-        defined[reg] = True
-    load = {reg: ("const", {"imm": k})
-            for k, (reg, _v, _d) in enumerate(sched.const_loads)}
-    load.update({reg: ("input", {"a": idx}) for reg, idx in
-                 sched.input_loads})
-    for reg, ws in sched.load_outputs:
-        op, kw = load[reg]
-        first.append(_entries(op, w=np.asarray(ws), **kw))
-        np.add.at(rows, ws, 1)
-    steps = [np.concatenate(first) if first else np.zeros((0, 8), np.int32)]
-    for si in range(sched.n_steps):
-        op = sched.branch_ops[opc[si]]
-        real = o_i[si] != trash
-        n = int(real.sum())
-        if not real[:n].all() or (w_i[si, n:] != n_w).any():
-            raise ValueError(f"scan step {si}: a padding slot before a real "
-                             "slot or writing a witness row")
-        reads = np.concatenate([t[si, :n] for t in (a_i, b_i, c_i)
-                                [:_arity(op)]])
-        bad = reads[~defined[reads]]
-        if bad.size:
-            raise ValueError(f"scan step {si} reads register {bad[0]} "
-                             "before it is written")
-        o = o_i[si, :n]
-        if len(set(o.tolist())) < n or np.isin(o, reads).any():
-            raise ValueError(f"scan step {si} writes a register twice or "
-                             "one that it reads")
-        defined[o] = True
-        w = w_i[si, :n]
-        np.add.at(rows, w, 1)
-        steps.append(_entries(op, a_i[si, :n], b_i[si, :n], c_i[si, :n], o,
-                              np.where(w == n_w, -1, w), imm[si, :n]))
-    if sched.out_dups:
-        src, dst = np.asarray(sched.out_dups, np.int64).T
-        if (rows[src] != 1).any():
-            raise ValueError("a witness row copies a row no step writes")
-        np.add.at(rows, dst, 1)
-        steps.append(_entries("dup", a=src, w=dst))
-    if (rows[:n_w] != 1).any():
-        raise ValueError("scan tables write a witness row other than once")
-    off = np.cumsum([0] + [len(t) for t in steps]).astype(np.int32)
-    return off, np.concatenate(steps)
-
-
-def ks_args(scan, x, rf, out, warps, stream):
-    """ctpu_scan's arguments (ops/build.py SIGNATURES["scan"]) for one run
-    of `scan` on x uint32 (n_inputs, L, B), into rf uint32 (n_regs, L/2, B)
-    and out uint32 (n_witness, L, B), all contiguous on one device."""
-    f, t = scan.field, scan.ks
-    limbs = (f.p_list + f.r2_list + f.one_mont_list + f.half_list
-             + f.mask_list)
-    return (f.L, t["off"].data_ptr(), t["ent"].data_ptr(), t["n_steps"],
-            t["consts"].data_ptr(), x.data_ptr(), rf.data_ptr(),
-            out.data_ptr(), x.shape[-1], build.u32_array(limbs), f.n0inv32,
-            f.p.bit_length(), warps, stream)
-
-
-def launch_scan(scan, x, rf, out, warps=KS_WARPS):
-    """KS on the card: one launch, counted, for a whole run."""
-    lib = build.library("scan")
-    build.launch("scan", lib.ctpu_scan, x.device,
-                 *ks_args(scan, x, rf, out, warps, build.stream_ptr(x.device)))
-
-
 class ScanProgram:
-    """A Schedule made executable on one field's device."""
+    """A Schedule made executable on one field's device: on the card KS
+    over the DomainTape `dt` the schedule was made from (`ks`, a
+    KsProgram), on the CPU the step loop over the schedule."""
 
-    def __init__(self, sched: Schedule, field: TorchField):
+    def __init__(self, sched: Schedule, field: TorchField, dt):
         check_schedule(sched)
+        self.ks = KsProgram(dt, field)
         L = field.L
-        if L not in KS_LIMBS:
-            raise ValueError(f"KS is built for L = 4, 16 or 24, not L = {L}")
         self.sched = sched
         self.n_witness = sched.n_witness
         R = 1 << (LIMB_BITS * L)
@@ -325,9 +207,6 @@ class ScanProgram:
         for reg, value, domain in sched.const_loads:
             init[reg] = int_to_limbs(
                 value * R % field.p if domain == MONT else value, L)
-        off, ent = ks_tables(sched)
-        const_regs = [r for r, _v, _d in sched.const_loads]
-        words = init[const_regs, 0::2] | (init[const_regs, 1::2] << 16)
         self._host = {
             "init": init,
             "in_regs": [r for r, _ in sched.input_loads],
@@ -337,15 +216,12 @@ class ScanProgram:
             "dup_src": [s for s, _ in sched.out_dups],
             "dup_dst": [d for _, d in sched.out_dups],
         }
-        self._ks_host = {"off": off, "ent": ent, "consts": words}
-        self.n_inputs_read = 1 + max((i for _, i in sched.input_loads),
-                                     default=-1)
         self._place(field)
 
     def _place(self, field: TorchField):
-        """The register file's initial rows, the step tables and KS's
-        tables on field's device: an index row a step (int32 for K2's
-        gathers, int64 for the writes and the immediates)."""
+        """The register file's initial rows and the step tables on
+        field's device: an index row a step (int32 for K2's gathers, int64
+        for the writes and the immediates)."""
         self.field = field
         dev = field.device
         h = self._host
@@ -360,17 +236,15 @@ class ScanProgram:
         self.steps = []
         for si in range(self.sched.n_steps):
             op = ops[opc[si]]
-            self.steps.append((op, [g[si] for g in gath[:_arity(op)]], o[si],
+            self.steps.append((op, [g[si] for g in gath[:arity(op)]], o[si],
                                w[si], k[si]))
-        ks = self._ks_host
-        self.ks = {k: to_device(v, dev) for k, v in ks.items()}
-        self.ks["n_steps"] = len(ks["off"]) - 1
 
     def for_field(self, field: TorchField):
         """This program on field's device: the same schedule, its tables
-        copied there."""
+        copied there, KS's tables shared."""
         twin = copy.copy(self)
         twin._place(field)
+        twin.ks = self.ks.for_field(field)
         return twin
 
     def _gather(self, rf, idx):
@@ -402,22 +276,10 @@ class ScanProgram:
             return self.run_loop(inputs)
         return self.run_ks(inputs)
 
-    def run_ks(self, inputs, warps=KS_WARPS):
-        """The run as one KS launch of `warps` warps a block (KS_LAYOUTS),
-        on the field's device."""
-        dev = self.field.device
-        x = u32_on(inputs, dev).contiguous()
-        L, B = self.field.L, x.shape[-1]
-        if x.dim() != 3 or x.shape[1] != L or x.shape[0] < self.n_inputs_read:
-            raise ValueError(f"inputs of shape {tuple(x.shape)}: need "
-                             f"({self.n_inputs_read}, {L}, B)")
-        out = torch.empty((self.n_witness, L, B), dtype=torch.int32,
-                          device=dev)
-        if B:
-            rf = torch.empty((self.sched.n_regs, L // 2, B),
-                             dtype=torch.int32, device=dev)
-            launch_scan(self, x, rf.view(torch.uint32), out, warps)
-        return out.view(torch.uint32)
+    def run_ks(self, inputs, warps=None):
+        """The run as one KS launch of `warps` warps a block (by default
+        the width KsProgram picks), on the field's device."""
+        return self.ks.run(inputs, warps)
 
     def run_loop(self, inputs):
         """KS's plain version: the step loop, on the field's device."""

@@ -12,13 +12,13 @@ backends runs it, chosen as the JAX package chooses (`jax_backend.py`
 2. the segments (SegmentedProgram: kernel K4, generated per program),
    unless the tape holds a live `idiv` or its unrolled cost is above
    segments.MAX_COST;
-3. the per-op executors, whose products, adds and subtracts are kernels
-   K5 and K6: a tape of up to `unroll_threshold` ops runs straight-line
-   (PerOpProgram: a field-library call per live node, JAX's `_run_ssa`),
-   a longer one on the scan (ScanProgram: steps of same-(level, opcode)
-   nodes over a register file, the gathers on kernel K2, JAX's
-   `lax.scan` path).  The JAX entry points pass `unroll_threshold=0`, and
-   so do the port's.
+3. the per-op executors: a tape of up to `unroll_threshold` ops runs
+   straight-line (PerOpProgram, JAX's `_run_ssa`), a longer one on the
+   scan (ScanProgram, JAX's `lax.scan` path).  On the card either run is
+   one launch of kernel KS over the tape's live nodes (backend/ks.py);
+   on the CPU each runs its plain version (a field-library call a live
+   node; steps of same-(level, opcode) nodes over a register file).  The
+   JAX entry points pass `unroll_threshold=0`, and so do the port's.
 
 The choice depends on the tape and the threshold alone: it is made at
 construction from the planners' refusals (NotImplementedError /
@@ -122,7 +122,7 @@ class WitnessProgram:
             self.perop = PerOpProgram(self.dt, self.field)
         elif self.fused is None:
             self.scan = ScanProgram(schedule(self.dt, self.slots),
-                                    self.field)
+                                    self.field, self.dt)
         self.n_witness = len(self.dt.outputs)
         # trailing guard outputs from predicated while unrolling: the
         # caller must check these rows are zero (see pipeline.build_tape)

@@ -6,14 +6,14 @@ checkout.
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked with `git archive`.  Its
-circom_tpu_torch/ops/cuda/interp.cu, gather.cu and field_ops.cu are built
-beside this checkout's, with the same nvcc flags, all at once (only the
-sources of the kernels --kernels asks for: interp.cu alone takes about a
-minute of nvcc), and each library's entry point is called through
-ctypes.  K2's and K5's entry points have the same interface in both
-(the 32-bit K5's, with n0inv32); the other checkout's K1 is taken to
-have the interface of the K1 whose wide file was 16-bit limbs for K1c
-and K1d (step groups, the constant bank in limbs and in words):
+circom_tpu_torch/ops/cuda sources of the kernels --kernels asks for are
+built beside this checkout's, with the same nvcc flags, all at once
+(interp.cu alone takes about a minute of nvcc), and each library's entry
+point is called through ctypes.  K2's and K5's entry points have the same
+interface in both (the 32-bit K5's, with n0inv32).  The other K1's
+interface is read off its interp.cu: where its entry point takes the
+constant bank in limbs beside the words (`cbank`, the K1 whose wide file
+was 16-bit limbs for K1c and K1d),
 
     ctpu_interp_k1(L, B, x_w, n_win, x_n, n_nin, table, grp, r_op, r_s0,
                    rstarts, n_chunks, cbank, cbank_w, mont_tab, mat_regs,
@@ -21,9 +21,11 @@ and K1d (step groups, the constant bank in limbs and in words):
                    bank, K, rf_n, bank_n, KN, p_limbs, r2_limbs, n0inv32,
                    half_limbs, mask_limbs, q_limbs, bits, full, stream)
 
-with rf (n_regs, L, B).  Both versions run on the same inputs, must agree
-bit for bit, and are timed by CUDA events around their bare launches (no
-checks, outputs allocated before), in turns: other, this, this, other.
+with rf (n_regs, L, B), it gets those 36 arguments; otherwise this
+checkout's 35 (k1_args, the word file of k1_file_shape).  Both versions
+run on the same inputs, must agree bit for bit, and are timed by CUDA
+events around their bare launches (no checks, outputs allocated before),
+in turns: other, this, this, other.
 
 - K1 on five plans, every emitted row of both banks compared, with the
   32-bit products a lane of each: Poseidon2/bn128 (P, K1a) and
@@ -58,11 +60,22 @@ checks, outputs allocated before), in turns: other, this, this, other.
   arguments as this one.  This checkout's KC runs through its checker's
   own arguments (kc_args).  The first violated rows of both must be
   identical.
-- KS (scan.cu, the same interface in both) on 16 x Num2Bits(254)/bn128's
-  scan tables at 8 slots and batch 8,192 (Q) and 65,536 (QS8), and at 64
-  slots and 65,536 (QS64), through this checkout's ks_args, at 1, 2, 4
-  and 8 warps a block: every launch's witness equal to this checkout's
-  run, which equals the step loop's at Q.
+- KS (scan.cu) on 16 x Num2Bits(254)/bn128 at batch 8,192 (Q) and
+  65,536 (QS8, QS64: the scan's schedule at 8 and 64 slots), and on
+  bigint-div + Num2Bits(254)/bn128 at 8,192 (O), this checkout's at
+  every width of KS_WIDTHS over its own tables (backend/ks.py).  The
+  other scan.cu is taken to have the interface of the KS whose register
+  file was all in device memory, over the JAX schedule's tables (rebuilt
+  here by a frozen copy of that KS's `ks_tables`, `old_ks_tables`):
+
+    ctpu_scan(L, off, ent, n_steps, consts, x, rf, out, b, limbs,
+              n0inv32, bits, warps, stream)
+
+  with rf (n_regs, L/2, b), timed at 8 warps a block (its kept layout)
+  and 1; where the other scan.cu takes `n_smem` (a variant of this KS),
+  it gets this checkout's tables and arguments.  Every launch's witness
+  equals this checkout's run, which equals the step loop's (Q, QS) or
+  the per-node path's (O).
 
 Prints a line for each measurement, the card's name and power limit, and
 a JSON object as the last line.  Exits 1 without a card.
@@ -85,13 +98,13 @@ import numpy as np
 from .backend.checker import (R1CSChecker, kc_args, kc_products,
                               kc_rows_per_chunk)
 from .backend.interp import k1_args, k1_file_shape
-from .backend.scan import ks_args
+from .backend.ks import KS_OPS, KS_WIDTHS, const_words, ks_args
 from .backend.torch_backend import WitnessProgram
 from .circuits import sha256_io
 from .circuits.gen_poseidon import generate
-from .circuits.sources import (BIGINT_DIV_SRC, comparator_inputs,
-                               comparators_source, num2bits_source,
-                               poseidon2_source)
+from .circuits.sources import (BIGINT_DIV_SRC, bigdiv_num2bits_source,
+                               comparator_inputs, comparators_source,
+                               num2bits_source, poseidon2_source)
 from .backend.interp_plan import _NARROW_RESULT, _OPERAND_FILES
 from .convert import N_OPERANDS, OPCODES, to_device
 from .compiler.pipeline import compile_source
@@ -105,22 +118,46 @@ NAMES = ("interp", "gather", "field_ops")
 _P, _I, _LL, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_uint32)
 _PU32 = ctypes.POINTER(ctypes.c_uint32)
-# the other checkout's entry points: this checkout's, but for K1's and
-# KC's
+# the other checkout's entry points where they differ from this one's:
+# K1's with the constant bank in limbs, the CSR KC's, the KS over a
+# register file in device memory
 OTHER_SIGNATURES = dict(build.SIGNATURES, interp={"ctpu_interp_k1": (
     _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
          _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32, _PU32, _U32,
          _PU32, _PU32, _PU32, _I, _I, _P])}, check={"ctpu_r1cs_check": (
              _I, [_I, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                  _LL, _PU32, _U32, _P, _P])})
+                  _LL, _PU32, _U32, _P, _P])}, scan={"ctpu_scan": (
+                      _I, [_I, _P, _P, _I, _P, _P, _P, _P, _LL, _PU32, _U32,
+                           _I, _I, _P])})
 
+
+def _source(root, name):
+    return (Path(root) / "circom_tpu_torch" / "ops" / "cuda"
+            / f"{name}.cu").read_text()
 
 
 def streams_kc(root):
     """Whether the check.cu of the checkout at `root` takes KC's entry
     streams (this checkout's interface), not CSR columns."""
-    return "a_ent" in (Path(root) / "circom_tpu_torch" / "ops" / "cuda"
-                       / "check.cu").read_text()
+    return "a_ent" in _source(root, "check")
+
+
+def limbs_k1(root):
+    """Whether the K1 of the checkout at `root` takes the constant bank in
+    limbs beside the words (36 arguments), not this checkout's 35."""
+    head = _source(root, "interp").split('extern "C" int ctpu_interp_k1')[1]
+    return "cbank," in head.split("{")[0]
+
+
+def shared_ks(root):
+    """Whether the KS of the checkout at `root` takes this checkout's
+    tables and interface (`n_smem`), not the device-memory file's."""
+    return "n_smem" in _source(root, "scan")
+
+
+# which other interfaces are this checkout's own
+SAME_INTERFACE = {"check": streams_kc, "interp": lambda r: not limbs_k1(r),
+                  "scan": shared_ks}
 
 
 def build_libraries(other, names=NAMES):
@@ -157,8 +194,9 @@ def build_libraries(other, names=NAMES):
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {tag} {name}: {line.strip()}")
         lib = ctypes.CDLL(str(so))
-        sigs = (OTHER_SIGNATURES if tag == "other" and not (
-            name == "check" and streams_kc(root)) else build.SIGNATURES)[name]
+        same = SAME_INTERFACE.get(name, lambda r: True)
+        sigs = (OTHER_SIGNATURES if tag == "other" and not same(root)
+                else build.SIGNATURES)[name]
         for fn, (res, args) in sigs.items():
             getattr(lib, fn).restype = res
             getattr(lib, fn).argtypes = args
@@ -298,15 +336,17 @@ def other_k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n, stream):
         int(bool({"interp_k1c", "interp_k1d"} & set(plan.parts))), stream)
 
 
-def k1(libs, name, B, dev, reps):
-    """K1 on plan `name` at batch B, this checkout's and the other's,
-    every emitted row compared, then timed in turns."""
+def k1(libs, name, B, dev, reps, limbs):
+    """K1 on plan `name` at batch B, this checkout's and the other's (with
+    `limbs`, the interface that takes the constant bank in limbs), every
+    emitted row compared, then timed in turns."""
     plan, field, x_w, x_n = k1_case(name, dev, B)
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs, fns = {}, {}
+    other = ((other_k1_args, (plan.n_regs, plan.L, B)) if limbs
+             else (k1_args, k1_file_shape(plan, B)))
     for tag, make_args, rf_shape in (
-            ("other", other_k1_args, (plan.n_regs, plan.L, B)),
-            ("this", k1_args, k1_file_shape(plan, B))):
+            ("other", *other), ("this", k1_args, k1_file_shape(plan, B))):
         o = outs[tag] = {
             "rf": torch.empty(rf_shape, dtype=torch.uint32, device=dev),
             "bank": torch.empty((plan.n_bank_rows, plan.L, B),
@@ -553,37 +593,138 @@ def kc(libs, name, B, dev, reps, streams):
             "cios_products_per_lane": old_products, "ms": ms}
 
 
-KS_CASES = (("Q", 8, 8192), ("QS8", 8, 65536), ("QS64", 64, 65536))
-KS_WARPS_AB = (1, 2, 4, 8)
+# KS's cases: (name, circuit, slots of the other KS's schedule, lanes)
+KS_CASES = (("Q", "n2b254x16", 8, 8192), ("QS8", "n2b254x16", 8, 65536),
+            ("QS64", "n2b254x16", 64, 65536),
+            ("O", "bigdiv_n2b254", 8, 8192))
+# the other KS's widths: a warp a slot (its kept layout), a thread a lane
+OTHER_KS_WARPS = (8, 1)
 
 
-def ks(libs, dev, reps):
-    """KS of both checkouts on Q's tape at every KS_CASES shape and
-    KS_WARPS_AB layout, in turns; {case: {"tag w<warps>": [ms, ms]}}."""
+def old_ks_tables(sched):
+    """The tables of the KS whose register file was all in device memory,
+    a frozen copy of its builder: (off int32 (n_steps + 1,), entries
+    int32 (off[-1], 8)) from a scan Schedule; the first step
+    the constants' and inputs' loads (imm: the constant's index; a: the
+    input's), then each step's real slots, then the copied rows."""
+    opc, a_i, b_i, c_i, o_i, w_i, imm = sched.tables
+    trash, n_w = sched.n_regs - 1, sched.n_witness
+
+    def entries(op, a=0, b=0, c=0, o=-1, w=-1, k=0):
+        cols = np.broadcast_arrays(KS_OPS.index(op), a, b, c, o, w, k, 0)
+        return np.stack(cols, -1).reshape(-1, 8).astype(np.int32)
+
+    first = [entries("const", o=reg, k=k)
+             for k, (reg, _v, _d) in enumerate(sched.const_loads)]
+    first += [entries("input", a=idx, o=reg)
+              for reg, idx in sched.input_loads]
+    load = {reg: ("const", {"k": k})
+            for k, (reg, _v, _d) in enumerate(sched.const_loads)}
+    load.update({reg: ("input", {"a": idx})
+                 for reg, idx in sched.input_loads})
+    for reg, ws in sched.load_outputs:
+        op, kw = load[reg]
+        first.append(entries(op, w=np.asarray(ws), **kw))
+    steps = [np.concatenate(first) if first else np.zeros((0, 8), np.int32)]
+    for si in range(sched.n_steps):
+        op = sched.branch_ops[opc[si]]
+        n = int((o_i[si] != trash).sum())
+        w = w_i[si, :n]
+        cols = [t[si, :n] for t in (a_i, b_i, c_i)]
+        steps.append(entries(op, *cols, o_i[si, :n], np.where(w == n_w, -1, w),
+                             imm[si, :n]))
+    if sched.out_dups:
+        src, dst = np.asarray(sched.out_dups, np.int64).T
+        steps.append(entries("dup", a=src, w=dst))
+    off = np.cumsum([0] + [len(t) for t in steps]).astype(np.int32)
+    return off, np.concatenate(steps)
+
+
+def old_ks_args(scan, x, rf, out, warps, stream):
+    """The other KS's arguments (see the module's docstring) for one run
+    of ScanProgram `scan` on x into out, its register file rf; the tables
+    on x's device in scan.old_ks (old_ks_tables' and the constants'
+    words, const_loads in order)."""
+    f, d = scan.field, scan.old_ks
+    limbs = (f.p_list + f.r2_list + f.one_mont_list + f.half_list
+             + f.mask_list)
+    return (f.L, d["off"].data_ptr(), d["ent"].data_ptr(),
+            len(d["off"]) - 1, d["consts"].data_ptr(), x.data_ptr(),
+            rf.data_ptr(), out.data_ptr(), x.shape[-1],
+            build.u32_array(limbs), f.n0inv32, f.p.bit_length(), warps,
+            stream)
+
+
+def ks_program(circuit, spec, dev, slots):
+    """(a WitnessProgram of `circuit` at `slots` on the scan, and the
+    program whose KS the path runs: the scan's, or for O the
+    straight-line path's)."""
+    src = (num2bits_source(254, 16) if circuit == "n2b254x16"
+           else bigdiv_num2bits_source())
+    tape = compile_source(src).build_tape()[0]
+    scan = WitnessProgram(tape, spec, device=dev, slots=slots,
+                          mode="scan", unroll_threshold=0)
+    main = (scan if circuit == "n2b254x16"
+            else WitnessProgram(tape, spec, device=dev))
+    return scan, main
+
+
+def ks(libs, dev, reps, same):
+    """KS of both checkouts on every KS_CASES shape, this one's at every
+    width of KS_WIDTHS, the other's at OTHER_KS_WARPS (or, with `same`,
+    this one's interface, at KS_WIDTHS), in turns; {case: {"tag
+    w<warps>": [ms, ms]}}."""
     spec = field_spec("bn128")
-    tape = compile_source(num2bits_source(254, 16)).build_tape()[0]
+    L = spec.n_limbs
     gen = torch.Generator(device=dev).manual_seed(14)
     out = {}
-    for name, slots, B in KS_CASES:
-        prog = WitnessProgram(tape, spec, device=dev, slots=slots)
-        scan = prog.scan
-        x = canonical(gen, spec, (prog.n_inputs, spec.n_limbs, B), dev)
+    for name, circuit, slots, B in KS_CASES:
+        scan_prog, prog = ks_program(circuit, spec, dev, slots)
+        scan = scan_prog.scan
+        this = (prog.scan or prog.perop).ks
+        x = canonical(gen, spec, (prog.n_inputs, L, B), dev)
+        if circuit != "n2b254x16":
+            x.view(torch.int32)[1, 0] |= 1     # a nonzero divisor
         want = prog.run(x).view(torch.int32)
-        if name == "Q" and not torch.equal(
-                want, scan.run_loop(x).view(torch.int32)):
-            raise SystemExit("KS on Q differs from the step loop")
-        rf = torch.empty((scan.sched.n_regs, spec.n_limbs // 2, B),
-                         dtype=torch.int32, device=dev).view(torch.uint32)
+        plain = (scan.run_loop(x) if circuit == "n2b254x16"
+                 else prog.perop.run_nodes(x))
+        if not torch.equal(want, plain.view(torch.int32)):
+            raise SystemExit(f"KS on {name} differs from its plain version")
+        del plain
         got = torch.empty_like(want)
         stream = build.stream_ptr(dev)
-        fns = {}
+        fns, keep = {}, []
+        if not same:
+            off, ent = old_ks_tables(scan.sched)
+            words = const_words([(v, d) for _r, v, d in
+                                 scan.sched.const_loads], scan.field)
+            scan.old_ks = {"off": to_device(off, dev),
+                           "ent": to_device(ent, dev),
+                           "consts": to_device(np.ascontiguousarray(words),
+                                               dev)}
         for tag in ("other", "this"):
-            for warps in KS_WARPS_AB:
-                args = ks_args(scan, x, rf, got, warps, stream)
+            lib = libs[tag, "scan"]
+            widths = (OTHER_KS_WARPS if tag == "other" and not same
+                      else KS_WIDTHS)
+            for warps in widths:
+                if tag == "other" and not same:
+                    rf = torch.empty((scan.sched.n_regs, L // 2, B),
+                                     dtype=torch.int32, device=dev)
+                    keep.append(rf)
+                    args = old_ks_args(scan, x, rf, got, warps, stream)
+                else:
+                    d = this.device_tables(warps)
+                    t = d["t"]
+                    spill = (torch.empty((t.n_spill, L // 2, B),
+                                         dtype=torch.int32, device=dev)
+                             if t.n_spill else None)
+                    keep.append(spill)
+                    args = ks_args(this.field, d, x, spill, got, stream)
                 fns[f"{tag} w{warps}"] = (
-                    lambda lib=libs[tag, "scan"], args=args:
+                    lambda lib=lib, args=args:
                     checked(lib.ctpu_scan(*args), "KS"))
         for k, fn in fns.items():
+            got.zero_()
             fn()
             if not torch.equal(got, want):
                 raise SystemExit(f"KS {k} on {name} differs from this "
@@ -591,9 +732,9 @@ def ks(libs, dev, reps):
         t = in_turns(fns, reps if B == 8192 else max(2, reps // 4))
         out[name] = t
         for k, v in t.items():
-            print(f"  KS {name} ({B} lanes, {slots} slots) {k}: "
+            print(f"  KS {name} ({B} lanes) {k}: "
                   + ", ".join(f"{m:.4f}" for m in v) + " ms")
-        del prog, scan, x, want, rf, got
+        del scan_prog, prog, scan, this, x, want, got, keep
         torch.cuda.empty_cache()
     return out
 
@@ -629,8 +770,11 @@ def main(argv=None):
             print(f"  this checkout's kernels built in {fixed.result():.1f} s")
     result = {"card": card.strip()}
     if "k1" in kernels:
+        limbs = limbs_k1(args.other)
+        print(f"  the other K1 takes {36 if limbs else 35} arguments")
         for name, B in K1_CASES:
-            result[f"k1_{name}_{B}"] = k1(libs, name, B, dev, args.reps)
+            result[f"k1_{name}_{B}"] = k1(libs, name, B, dev, args.reps,
+                                          limbs)
             torch.cuda.empty_cache()
     if "k2" in kernels:
         result["k2"] = k2(libs, dev, args.reps)
@@ -654,7 +798,7 @@ def main(argv=None):
                             streams)
         torch.cuda.empty_cache()
     if "ks" in kernels:
-        result["ks"] = ks(libs, dev, args.reps)
+        result["ks"] = ks(libs, dev, args.reps, shared_ks(args.other))
     print(json.dumps(result))
     return 0
 

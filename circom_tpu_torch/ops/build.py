@@ -79,8 +79,8 @@ SIGNATURES = {
     },
     "scan": {
         "ctpu_scan": (
-            _I, [_I, _P, _P, _I, _P, _P, _P, _P, _LL, _PU32, _U32, _I, _I,
-                 _P]),
+            _I, [_I, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _PU32, _U32, _I,
+                 _I, _P]),
     },
 }
 

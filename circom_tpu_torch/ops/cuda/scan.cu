@@ -1,71 +1,65 @@
-// Kernel KS: the scan executor's whole run, every step of a witness tape,
-// as one launch.
+// Kernel KS: a per-op witness tape's whole run, every live node, as one
+// launch.
 //
 // It replaces the JAX package's jitted `lax.scan` over the step tables
 // (circom_tpu/backend/jax_backend.py:571-617, `WitnessProgram._run`, over
-// the 27 branches of `_branch`, :392-465), which XLA compiles into one
-// program and which no Pallas kernel computes.  Before KS the port ran it
-// as a Python loop (backend/scan.py `ScanProgram.run_loop`, kept as KS's
-// plain version): a step gathered its S operands (K2), computed them with
-// one call of the per-op library (K5, K6 or plain PyTorch) and wrote its
-// results back with `index_copy_`, some 16 launches a step, each moving a
-// whole (S, L, B) block through device memory.
+// the 27 branches of `_branch`, :392-465) and its jitted straight-line
+// `_run_ssa` (:487), which XLA compiles into one program each and which no
+// Pallas kernel computes.  Both per-op executors of the port launch it:
+// the scan (backend/scan.py) and the straight-line path (backend/perop.py),
+// each over tables that backend/ks.py builds once a width from the tape's
+// live nodes; their plain versions (the step loop, a library call a node)
+// run on the CPU and as KS's oracles.
 //
-// A lane depends on no other lane, so here a lane's registers, witness
-// rows and steps belong to the threads of one block, and nothing but the
-// block's barrier orders them.  The tables (backend/scan.py builds them
-// once a program) are one stream of entries of 8 int32s, (op, a, b, c, o,
-// w, imm, 0), cut into steps by `off`: step s is the entries [off[s],
-// off[s + 1]).  The first step loads the constants and inputs into their
-// registers and the witness rows that copy them; then one step a step of
-// the schedule, holding its real slots only (the schedule's padding slots
-// read register 0 and write the trash register and row: KS skips them);
-// the last step copies the witness rows that duplicate another.  o < 0
-// writes no register, w < 0 no witness row.  The host checks once, when
-// it builds the tables, that no entry reads a register before an earlier
-// step writes it, that a step writes no register it or another of its
-// entries reads, and that every witness row is written exactly once; so
-// the register file needs no initialisation and the witness buffer no
-// trash row, and the kernel tests nothing at run time.
+// A lane depends on no other lane, so a block owns 32 lanes: their
+// registers, witness rows and steps, ordered by nothing but the block's
+// barrier.  The tables are one stream of entries of 8 int32s, (op, a, b,
+// c, o, w, imm, 0), cut into steps by `off`: step s is the entries
+// [off[s], off[s + 1]).  A step holds up to `warps` independent entries
+// (the builder's list schedule: an entry reads only what earlier steps
+// wrote), then a last step the witness rows that copy another row and the
+// constants' rows.  An operand >= 0 is a register, < 0 the constant -1 -
+// operand, read from the constant table as any register is; o < 0 writes
+// no register, w < 0 no witness row.  The host checks once, when it
+// builds the tables, that every register is written by an earlier step
+// before it is read and holds the value read, that a step writes no
+// register twice nor one that it reads, and that every witness row is
+// written exactly once; so the register file needs no initialisation and
+// the kernel tests nothing at run time.
 //
-// The register file is KS's own: (n_regs, N, B) 32-bit words, N = L/2
-// (two 16-bit limbs a word, half the bytes of the loop's uint32 limbs),
-// lane-minor, so that a warp's 32 lanes read and write each word as one
-// 128-byte line.  The witness keeps the reference's layout, (n_witness,
-// L, B) 16-bit limbs in uint32.  Each opcode computes in words with the
-// device functions K1 and K5 are held to: field32.cuh's CIOS (mont_mul32,
-// cond_sub32), dot32.cuh's mod_add32 and mod_sub32, wide32.cuh's
-// comparisons, bit ops, shifts and long division, bit for bit the values
-// of TorchField and `perop.node_value` (the shifts and the power per slot,
-// as `shift_dyn` and `pow_dyn`).
+// Warps.  Warp k of a block takes the step's entries k, k + warps, ... on
+// its 32 lanes, so a warp never diverges on the opcode, and the block's
+// barrier follows each step (none at one warp, whose entries run in
+// order).  The width is chosen by lanes and by the tape's parallelism
+// (backend/ks.py `ks_width`); tables exist for each width used.
 //
-// Layout.  A block is 32 lanes and `warps` warps: warp k of a step takes
-// the step's entries k, k + warps, ... on its 32 lanes, and the block's
-// barrier follows each step.  warps = 1 is a thread a lane (each thread
-// walks every entry of its lane in order; no barrier); warps = 8 a warp a
-// slot, which spreads a step's slots over the SM (a step's slots are one
-// dataflow level: independent).  At 8,192 lanes a thread a lane is 256
-// warps on 132 SMs, two an SM, and each entry's dependent loads (the
-// entry, then its operands) are exposed; a warp a slot has up to eight
-// times the warps in flight on full steps.  Both are built and
-// chip_smoke.py's phase KS times both; backend/scan.py KS_WARPS is the
-// one kept.
+// The register file.  Registers 0 .. n_smem - 1 live in the block's
+// dynamic shared memory as [register][word][lane]: a warp's word is 32
+// consecutive banks, no conflict.  The builder allocates the lowest free
+// register first, so the busiest registers are the shared ones; a tape
+// whose live set exceeds the budget keeps registers n_smem .. in a file
+// in device memory, (n_regs - n_smem, N, b) words, lane-minor, each word a
+// 128-byte line for a warp.  Words are N = L/2 32-bit words (two 16-bit
+// limbs).  The constants are one table of N words each, uniform across a
+// warp: read through the read-only cache.  The witness keeps the
+// reference's layout, (n_witness, L, b) 16-bit limbs in uint32, 64-bit
+// offsets.  Each opcode computes in words with the device functions K1
+// and K5 are held to: field32.cuh's CIOS (mont_mul32, cond_sub32),
+// dot32.cuh's mod_add32 and mod_sub32, wide32.cuh's comparisons, bit ops,
+// shifts and long division, bit for bit the values of TorchField and
+// `perop.node_value` (the shifts and the power per entry, as `shift_dyn`
+// and `pow_dyn`).
 //
-// Bound: the bytes of the register file.  An entry reads its operands'
-// N words a lane, writes N and, for a witness row, L 16-bit limbs: about
-// 1.0 MB a lane on 16 x Num2Bits(254)/bn128 (utils/roofline.ks_bytes),
-// 2.5 ms at 8,192 lanes and 20 ms at 65,536 if every access reached
-// device memory; the compulsory bytes (inputs read once, the witness
-// written once) are 0.64 and 5.1 ms.  The registers live at once are a
-// small part of the file, so most of the traffic stays in the 50 MB L2;
-// the design keeps every access a coalesced line and nothing of a step in
-// device memory between steps.  The operations (utils/roofline.ks_ops)
-// are far below: shifts and ands are N words each, products 2 N^2
-// 32x32->64-bit products.
+// Bound: the compulsory bytes, the inputs read once and the witness
+// written once (utils/roofline.ks_bytes), plus a spilled register's
+// traffic; the shared file's traffic stays on the SM.  The operations
+// (utils/roofline.ks_ops) are below them on the tapes measured: shifts
+// and ands are N words each, products 2 N^2 32x32->64-bit products.
 //
-// Plain C++ apart from the launch and the barrier, so that g++ builds it
-// for the host (tests/test_torch_scan_kernel.py, with a thread a CUDA
-// thread and a host barrier).
+// Plain C++ apart from the launch, the barrier and the shared buffer, so
+// that g++ builds it for the host (tests/test_torch_scan_kernel.py: a host
+// thread a CUDA thread, a host barrier, one buffer a block, blocks in
+// turn).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -78,15 +72,15 @@
 namespace ctpu {
 
 constexpr int KS_LANES = 32;      // lanes a block: a thread of each warp
-constexpr int KS_MAX_WARPS = 8;
+constexpr int KS_MAX_WARPS = 16;
 
-// KS's opcodes: backend/scan.py KS_OPS in this order
+// KS's opcodes: backend/ks.py KS_OPS in this order
 enum KsOp {
   KS_ADD, KS_SUB, KS_MUL, KS_MULP, KS_DIV, KS_NEG, KS_LT, KS_LE, KS_GT,
   KS_GE, KS_EQ, KS_NEQ, KS_LAND, KS_LOR, KS_LNOT, KS_BAND, KS_BOR, KS_BXOR,
   KS_BNOT, KS_SHL, KS_SHR, KS_POW, KS_IDIV, KS_MOD, KS_SELECT, KS_TO_MONT,
   KS_FROM_MONT,
-  // the run's first and last steps
+  // an input's load, a constant's witness row, a witness row's copy
   KS_CONST, KS_INPUT, KS_DUP
 };
 
@@ -94,11 +88,12 @@ struct KsArgs {
   const int* off;          // (n_steps + 1,)
   const int4* ent;         // two int4 an entry
   int n_steps;
-  const uint32_t* consts;  // (n_consts, N) words: const imm's value
+  const uint32_t* consts;  // (n_consts, N) words
   const uint32_t* x;       // (n_inputs, L, b) 16-bit limbs
-  uint32_t* rf;            // (n_regs, N, b) words
+  uint32_t* spill;         // (n_regs - n_smem, N, b) words
   uint32_t* out;           // (n_witness, L, b) 16-bit limbs
   long long b;             // lanes
+  int n_smem;              // registers in shared memory
 };
 
 template <int N>
@@ -109,13 +104,41 @@ struct KsConsts {
   int pm2_bits;      // (p - 2).bit_length(): the inversion's exponent
 };
 
+// Where the N words of an operand or a register are for one lane: word i
+// at p[i * s].  sm is the block's shared file offset by the lane's column.
+struct KsWords {
+  const uint32_t* p;
+  long long s;
+};
+
 template <int N>
-__device__ __forceinline__ void load_reg(const uint32_t* rf, int r,
-                                         long long b, long long lane,
-                                         uint32_t (&v)[N]) {
-  const uint32_t* s = rf + (long long)r * N * b + lane;
+__device__ __forceinline__ KsWords words_at(const KsArgs& a,
+                                            const uint32_t* sm,
+                                            long long lane, int r) {
+  if (r < 0) return {a.consts + (long long)(-1 - r) * N, 1};
+  if (r < a.n_smem) return {sm + r * N * KS_LANES, KS_LANES};
+  return {a.spill + (long long)(r - a.n_smem) * N * a.b + lane, a.b};
+}
+
+template <int N>
+__device__ __forceinline__ void load(KsWords w, uint32_t (&v)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = s[i * b];
+  for (int i = 0; i < N; ++i) v[i] = w.p[i * w.s];
+}
+
+template <int N>
+__device__ __forceinline__ void store(const KsArgs& a, uint32_t* sm,
+                                      long long lane, int r,
+                                      const uint32_t (&v)[N]) {
+  if (r < a.n_smem) {
+    uint32_t* d = sm + r * N * KS_LANES;
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i * KS_LANES] = v[i];
+  } else {
+    uint32_t* d = a.spill + (long long)(r - a.n_smem) * N * a.b + lane;
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i * a.b] = v[i];
+  }
 }
 
 template <int N>
@@ -189,7 +212,8 @@ __device__ __forceinline__ void cmp_bit(const uint32_t (&x)[N],
 // One entry on one lane.
 template <int L>
 __device__ __forceinline__ void ks_entry(const KsArgs& a,
-                                         const KsConsts<L / 2>& kc, int e,
+                                         const KsConsts<L / 2>& kc,
+                                         uint32_t* sm, int e,
                                          long long lane) {
   constexpr int N = L / 2;
   const int4 h0 = __ldg(a.ent + 2 * e);
@@ -198,14 +222,9 @@ __device__ __forceinline__ void ks_entry(const KsArgs& a,
   const int ro = h1.x, rw = h1.y, imm = h1.z;
   const long long b = a.b;
   uint32_t x[N], y[N], r[N];
-  // the shifts and the long division read a's words in place, an index
-  // that depends on the slot's count
-  const uint32_t* ap = a.rf + (long long)ra * N * b + lane;
-  auto word = [ap, b](int i) { return ap[i * b]; };
   switch (op) {
     case KS_CONST:
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[i] = __ldg(a.consts + imm * N + i);
+      load<N>(words_at<N>(a, sm, lane, -1 - imm), r);
       break;
     case KS_INPUT:
       pack32<L>(a.x + (long long)ra * L * b + lane, b, r);
@@ -218,23 +237,30 @@ __device__ __forceinline__ void ks_entry(const KsArgs& a,
       return;
     }
     case KS_SHL:
-      shift32<N, true>(word, imm, kc.p, kc.mask, r);
-      break;
     case KS_SHR:
-      shift32<N, false>(word, imm, kc.p, kc.mask, r);
-      break;
     case KS_IDIV:
-    case KS_MOD:
-      load_reg<N>(a.rf, rb, b, lane, y);
-      idiv32<N>(word, y, kc.bits, r);
-      if (op == KS_MOD) {  // a - mul_norm(a // b, b)
-        mul_norm<N>(r, y, kc, r);
-        load_reg<N>(a.rf, ra, b, lane, x);
-        mod_sub32<N>(x, r, kc.p, r);
+    case KS_MOD: {
+      // the shifts and the long division read a's words in place, an
+      // index that depends on the entry's count
+      const KsWords wa = words_at<N>(a, sm, lane, ra);
+      auto word = [wa](int i) { return wa.p[i * wa.s]; };
+      if (op == KS_SHL) {
+        shift32<N, true>(word, imm, kc.p, kc.mask, r);
+      } else if (op == KS_SHR) {
+        shift32<N, false>(word, imm, kc.p, kc.mask, r);
+      } else {
+        load<N>(words_at<N>(a, sm, lane, rb), y);
+        idiv32<N>(word, y, kc.bits, r);
+        if (op == KS_MOD) {  // a - mul_norm(a // b, b)
+          mul_norm<N>(r, y, kc, r);
+          load<N>(wa, x);
+          mod_sub32<N>(x, r, kc.p, r);
+        }
       }
       break;
+    }
     default:
-      load_reg<N>(a.rf, ra, b, lane, x);
+      load<N>(words_at<N>(a, sm, lane, ra), x);
       switch (op) {
         case KS_NEG: {
           uint32_t z[N];
@@ -258,13 +284,11 @@ __device__ __forceinline__ void ks_entry(const KsArgs& a,
           mont<N>(x, one, kc, r);
           break;
         }
-        case KS_SELECT: {
-          const int src = nonzero32<N>(x) ? rb : rc;
-          load_reg<N>(a.rf, src, b, lane, r);
+        case KS_SELECT:
+          load<N>(words_at<N>(a, sm, lane, nonzero32<N>(x) ? rb : rc), r);
           break;
-        }
         default:
-          load_reg<N>(a.rf, rb, b, lane, y);
+          load<N>(words_at<N>(a, sm, lane, rb), y);
           switch (op) {
             case KS_ADD: mod_add32<N>(x, y, kc.p, r); break;
             case KS_SUB: mod_sub32<N>(x, y, kc.p, r); break;
@@ -285,11 +309,7 @@ __device__ __forceinline__ void ks_entry(const KsArgs& a,
           }
       }
   }
-  if (ro >= 0) {
-    uint32_t* d = a.rf + (long long)ro * N * b + lane;
-#pragma unroll
-    for (int i = 0; i < N; ++i) d[i * b] = r[i];
-  }
+  if (ro >= 0) store<N>(a, sm, lane, ro, r);
   if (rw >= 0) unpack32<L>(r, a.out + (long long)rw * L * b + lane, b);
 }
 
@@ -297,16 +317,19 @@ template <int L>
 __global__ void __launch_bounds__(KS_LANES * KS_MAX_WARPS)
     scan_kernel(const __grid_constant__ KsArgs a,
                 const __grid_constant__ KsConsts<L / 2> kc) {
+  extern __shared__ uint32_t ks_smem[];
   const int warps = blockDim.x / KS_LANES;
   const int warp = threadIdx.x / KS_LANES;
-  const long long lane =
-      (long long)blockIdx.x * KS_LANES + threadIdx.x % KS_LANES;
+  const int col = threadIdx.x % KS_LANES;
+  const long long lane = (long long)blockIdx.x * KS_LANES + col;
   const bool live = lane < a.b;
+  uint32_t* sm = ks_smem + col;
   int e0 = __ldg(a.off);
   for (int s = 0; s < a.n_steps; ++s) {
     const int e1 = __ldg(a.off + s + 1);
     if (live)
-      for (int e = e0 + warp; e < e1; e += warps) ks_entry<L>(a, kc, e, lane);
+      for (int e = e0 + warp; e < e1; e += warps)
+        ks_entry<L>(a, kc, sm, e, lane);
     e0 = e1;
     // the step's writes before the next step's reads, across the warps
     if (warps > 1) __syncthreads();
@@ -320,8 +343,8 @@ void words_of(const uint32_t* limbs, uint32_t (&w)[N]) {
 }
 
 template <int L>
-void launch(const KsArgs& a, const uint32_t* limbs, uint32_t n0inv32,
-            int bits, int warps, cudaStream_t s) {
+int launch(const KsArgs& a, const uint32_t* limbs, uint32_t n0inv32,
+           int bits, int warps, cudaStream_t s) {
   constexpr int N = L / 2;
   KsConsts<N> kc = {};
   words_of<N>(limbs, kc.p);
@@ -341,35 +364,44 @@ void launch(const KsArgs& a, const uint32_t* limbs, uint32_t n0inv32,
     if ((kc.pm2[i >> 5] >> (i & 31)) & 1u) kc.pm2_bits = i + 1;
   kc.n0inv32 = n0inv32;
   kc.bits = bits;
+  const int smem = a.n_smem * N * KS_LANES * (int)sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const long long blocks = (a.b + KS_LANES - 1) / KS_LANES;
-  scan_kernel<L><<<(unsigned)blocks, KS_LANES * warps, 0, s>>>(a, kc);
+  scan_kernel<L><<<(unsigned)blocks, KS_LANES * warps, smem, s>>>(a, kc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace ctpu
 
 // off: int32 (n_steps + 1); ent: int32 (off[n_steps], 8), the entries
 // above; consts: uint32 (n_consts, L/2) words; x: uint32 (n_inputs, L, b)
-// 16-bit limbs; rf: uint32 (n_regs, L/2, b), written before it is read;
-// out: uint32 (n_witness, L, b), every row written.  limbs: 5 L host
-// words, the 16-bit limbs of p, R^2 mod p, R mod p, p // 2 and 2^bits - 1;
-// n0inv32 = -p^-1 mod 2^32; bits = p.bit_length().  L is 4, 16 or 24,
-// warps 1 to 8, b > 0 (else cudaErrorInvalidValue).  Returns the launch's
-// cudaError_t (0 on success).
+// 16-bit limbs; spill: uint32 (n_regs - n_smem, L/2, b), written before
+// it is read (null when nothing spills); out: uint32 (n_witness, L, b),
+// every row written; n_smem: the registers in shared memory, n_smem x L/2
+// x 128 bytes a block.  limbs: 5 L host words, the 16-bit limbs of p,
+// R^2 mod p, R mod p, p // 2 and 2^bits - 1; n0inv32 = -p^-1 mod 2^32;
+// bits = p.bit_length().  L is 4, 16 or 24, warps 1 to 16, b > 0, n_smem
+// >= 0 (else cudaErrorInvalidValue).  Returns the launch's cudaError_t (0
+// on success).
 extern "C" int ctpu_scan(int L, const int* off, const int* ent, int n_steps,
                          const uint32_t* consts, const uint32_t* x,
-                         uint32_t* rf, uint32_t* out, long long b,
-                         const uint32_t* limbs, uint32_t n0inv32, int bits,
-                         int warps, void* stream) {
-  if (b <= 0 || n_steps < 0 || warps < 1 || warps > ctpu::KS_MAX_WARPS)
+                         uint32_t* spill, uint32_t* out, long long b,
+                         int n_smem, const uint32_t* limbs, uint32_t n0inv32,
+                         int bits, int warps, void* stream) {
+  if (b <= 0 || n_steps < 0 || n_smem < 0 || warps < 1 ||
+      warps > ctpu::KS_MAX_WARPS)
     return (int)cudaErrorInvalidValue;
   const ctpu::KsArgs a = {off, reinterpret_cast<const int4*>(ent), n_steps,
-                          consts, x, rf, out, b};
+                          consts, x, spill, out, b, n_smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (L) {
-    case 4: ctpu::launch<4>(a, limbs, n0inv32, bits, warps, s); break;
-    case 16: ctpu::launch<16>(a, limbs, n0inv32, bits, warps, s); break;
-    case 24: ctpu::launch<24>(a, limbs, n0inv32, bits, warps, s); break;
+    case 4: return ctpu::launch<4>(a, limbs, n0inv32, bits, warps, s);
+    case 16: return ctpu::launch<16>(a, limbs, n0inv32, bits, warps, s);
+    case 24: return ctpu::launch<24>(a, limbs, n0inv32, bits, warps, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

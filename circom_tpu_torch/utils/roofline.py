@@ -4,8 +4,8 @@ One count for `chip_smoke.py` and `bench_gpu.py`: the bytes a second of
 HBM3 and the 32-bit integer instructions a second of the card, what the
 interpreter kernel K1 and the witness gathers need a lane (a witness),
 counted from the plan, what the assembly kernel KW moves, counted from
-its table, and what the scan kernel KS needs a lane, counted from its
-schedule.
+its table, and what the per-op kernel KS needs a lane, counted from its
+tables.
 """
 
 import subprocess
@@ -16,7 +16,7 @@ import torch
 from ..backend.interp import (KW_BANK, KW_CONST, KW_INPUT, KW_NARROW,
                               kw_table)
 from ..backend.interp_plan import _NARROW_RESULT as NARROW_RESULT
-from ..backend.scan import KS_OPS, ks_tables
+from ..backend.ks import KS_OPS, arity
 from ..convert import OPCODES
 
 # H100 SXM peak HBM3 bandwidth (NVIDIA data sheet), and the peak rate of
@@ -100,42 +100,44 @@ def kw_bytes(plan, B):
     return 4 * (B * per_lane + consts)
 
 
-# KS's opcodes by the operands they read a lane (the rest read two)
-_KS_READS = {"neg": 1, "lnot": 1, "bnot": 1, "shl_k": 1, "shr_k": 1,
-             "pow_k": 1, "to_mont": 1, "from_mont": 1, "select": 2,
-             "const": 0, "input": 0, "dup": 0}
-
-
-def ks_bytes(sched, L):
-    """KS's bytes a lane: (the register file's traffic, the compulsory
-    bytes).  The traffic counts one access to device memory for each
-    entry's operand words (N = L/2 a register; a shift or a long division
-    reads its operand's N words in place; select reads its condition and
-    one of its two values), its register write (N words), its witness
-    row (L 16-bit limbs), an input's L limbs and a copied row's L read
-    and L written; L2 hits are not told apart.  The compulsory bytes are
-    the inputs read once and the witness written once.  4 bytes a word and
-    a limb."""
+def ks_bytes(t, L):
+    """KS's bytes a lane from its tables t (backend/ks.KsTables), 4 bytes
+    a word and a limb: {"compulsory": the inputs read once (L 16-bit
+    limbs each) and the witness written once (L a row); "spill": the
+    accesses to spilled registers, which reach device memory (N = L/2
+    words an operand read, a register written); "shared": the same
+    accesses to the registers in shared memory, which stay on the SM}.
+    The bound is compulsory + spill.  A shift or a long division reads its
+    operand's N words in place; select its condition and one of its two
+    values, counted as the first; constants (read-only cache) and a copied
+    row's read are not counted."""
     N = L // 2
-    _off, ent = ks_tables(sched)
-    op = np.asarray(KS_OPS)[ent[:, 0]]
-    reads = np.asarray([_KS_READS.get(o, 2) for o in op]) * N
-    reads += np.where((op == "input") | (op == "dup"), L, 0)
-    writes = np.where(ent[:, 4] >= 0, N, 0) + np.where(ent[:, 5] >= 0, L, 0)
-    n_inputs = 1 + max((i for _, i in sched.input_loads), default=-1)
-    return (4 * int(reads.sum() + writes.sum()),
-            4 * L * (n_inputs + sched.n_witness))
+    op = np.asarray(KS_OPS)[t.ent[:, 0]]
+    words = {"spill": 0, "shared": 0}
+
+    def count(regs):
+        regs = regs[regs >= 0]
+        words["shared"] += N * int((regs < t.n_smem).sum())
+        words["spill"] += N * int((regs >= t.n_smem).sum())
+
+    for o in set(op.tolist()) - {"const", "input", "dup"}:
+        e = t.ent[op == o]
+        count(e[:, 1:1 + min(arity(o), 2)].reshape(-1))
+    count(t.ent[:, 4])
+    n_inputs = int((op == "input").sum())
+    return {"compulsory": 4 * L * (n_inputs + t.n_witness),
+            "spill": 4 * words["spill"], "shared": 4 * words["shared"]}
 
 
-def ks_ops(sched, p):
-    """KS's 32-bit integer instructions a lane, counted low: two a
-    32x32->64-bit product, 2 N^2 products a Montgomery product (N = L/2
-    words): one for mul, to_mont and from_mont, two for mulp, 32 squares
-    and a product a set exponent bit for pow_k, p - 2's bits below its
-    top (a square each, a product where set) and the last product for
+def ks_ops(t, p):
+    """KS's 32-bit integer instructions a lane from its tables, counted
+    low: two a 32x32->64-bit product, 2 N^2 products a Montgomery product
+    (N = L/2 words): one for mul, to_mont and from_mont, two for mulp, 32
+    squares and a product a set exponent bit for pow_k, p - 2's bits below
+    its top (a square each, a product where set) and the last product for
     div; 4 N a bit of p for the long division of idiv and mod (mod adds
-    two products and N); N for every other opcode, none for a load or a
-    copied row."""
+    two products and N); N for every other opcode, none for a load, a
+    constant's row or a copied row."""
     bits = p.bit_length()
     N = -(-bits // 16) // 2
     mont = 4 * N * N
@@ -145,12 +147,11 @@ def ks_ops(sched, p):
              "mulp": 2 * mont, "div": div, "idiv": 4 * N * bits,
              "mod": 4 * N * bits + 2 * mont + N,
              "const": 0, "input": 0, "dup": 0}
-    _off, ent = ks_tables(sched)
     ops = 0
-    for code, imm in zip(ent[:, 0].tolist(), ent[:, 6].tolist()):
+    for code, imm in zip(t.ent[:, 0].tolist(), t.ent[:, 6].tolist()):
         o = KS_OPS[code]
         if o == "pow_k":
-            ops += (32 + bin(imm).count("1")) * mont
+            ops += (32 + bin(imm & 0xFFFFFFFF).count("1")) * mont
         else:
             ops += fixed.get(o, N)
     return ops

@@ -22,6 +22,7 @@ from circom_tpu_torch.backend.checker import R1CSChecker
 from circom_tpu_torch.backend import interp
 from circom_tpu_torch.backend.interp import (gather_n, gather_w, interp_k1,
                                              launch_gather_w)
+from circom_tpu_torch.backend.ks import KsProgram
 from circom_tpu_torch.backend.interp_ref import (gather_n_rows, gather_rows,
                                                  run_plan)
 from circom_tpu_torch.backend.segments import (SegmentedProgram, segment_k4,
@@ -596,23 +597,25 @@ def test_k4_num2bits254_matches_plain_host_and_r1cs(card, copies):
 
 
 def test_perop_bigdiv_num2bits_matches_host_and_r1cs(card):
-    """The per-op path on the card: the products, adds and subtracts on
-    K5 and K6, no interpreter and no K4."""
+    """The straight-line path on the card: one KS launch a run, no K5, no
+    K6, no interpreter and no K4; bit for bit the per-node path on the
+    card (K5, K6 and plain PyTorch)."""
     cc = compile_source(bigdiv_num2bits_source())
     spec = field_spec("bn128")
     prog = WitnessProgram(cc.build_tape()[0], spec, device=card)
-    assert prog.fused is None
+    assert prog.fused is None and prog.perop is not None
     rng = random.Random(5)
     B = 512
     cols = [[rng.randrange(spec.p) for _ in range(B)],
             [rng.randrange(1, spec.p) for _ in range(B)]]
     cols[0][0], cols[1][1] = spec.p - 1, 1
+    x = prog.encode_inputs(cols)
     build.reset_launches()
-    wit = prog.run(prog.encode_inputs(cols))
+    wit = prog.run(x)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["mont_mul"] and build.LAUNCHES["sub"]
-    assert not any(k.startswith("interp") or k == "k4"
-                   for k in build.LAUNCHES)
+    assert dict(build.LAUNCHES) == {"scan": 1}
+    assert torch.equal(wit.view(torch.int32),
+                       prog.perop.run_nodes(x).view(torch.int32))
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
                           device=card, lanes=256)
     assert bool(checker.check(wit).all())
@@ -674,12 +677,13 @@ def test_scan_steps_match_plain(card, circuit, slots):
         plain.run(x).view(torch.int32).numpy())
 
 
-@pytest.mark.parametrize("warps", (1, 8))
+@pytest.mark.parametrize("warps", (1, 4, 8, 16))
 def test_ks_matches_loop_on_q(card, warps):
-    """KS at a thread a lane and at a warp a slot against the step loop on
-    the card (K2, K5, K6), on 16 x Num2Bits(254)/bn128's tables (Q's: 1,366
+    """KS at 1, 4, 8 and 16 warps a block against the step loop on the
+    card (K2, K5, K6), on 16 x Num2Bits(254)/bn128 (the loop over Q's 1,366
     steps of 8 slots) at 300 lanes, the edges 0, 1, p - 1 and 2^253 in the
-    first lanes; a run (KS_WARPS) launches KS once and no step kernel."""
+    first lanes; then with a shared file of 1 register, the rest spilled;
+    a run launches KS once and no step kernel."""
     cc = compile_source(num2bits_source(254, 16))
     spec = field_spec("bn128")
     prog = WitnessProgram(cc.build_tape()[0], spec, device=card)
@@ -694,7 +698,12 @@ def test_ks_matches_loop_on_q(card, warps):
     x = to_device(prog.encode_inputs(cols), card)
     want = prog.scan.run_loop(x)
     got = prog.scan.run_ks(x, warps)
+    assert prog.scan.ks.tables(warps).n_spill == 0
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    spilled = KsProgram(prog.dt, prog.field, budget=8 * 4 * 32)
+    assert spilled.tables(warps).n_spill > 0
+    assert torch.equal(spilled.run(x, warps).view(torch.int32),
+                       want.view(torch.int32))
     build.reset_launches()
     prog.run(x)
     torch.cuda.synchronize()
