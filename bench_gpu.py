@@ -450,7 +450,7 @@ class Bench:
             return None
         with contextlib.redirect_stdout(sys.stderr):
             say(f"# {key}: where a warm run's device time goes")
-            busy, _ms, n = profile_breakdown(
+            busy, _ms, n, _ = profile_breakdown(
                 run, wall_s * 1e3, reps=3, aten=False,
                 runs=self.sizes.profile_runs)
         if keep:

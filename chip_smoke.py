@@ -25,7 +25,10 @@ mismatch exits non-zero.  The paths:
   K1c, K1d, KW);
 - Num2Bits(254) and 4 x Num2Bits(254) over bn128, batch 65,536, which
   the interpreter refuses: run on the segments (K4, one and four
-  segments) and R1CS check;
+  segments, each writing its rows of the witness in place) and R1CS
+  check; a run's median ms, its peak allocation, and its device
+  operations from the profiler, which must be each of K4's kernels once
+  a run and nothing else;
 - bigint-div + Num2Bits(254) of the quotient over bn128, batch 8,192,
   which both fused backends refuse: run straight-line (one launch of KS
   a run, no K5, K6 or plain field op) and R1CS check, bit for bit against
@@ -84,6 +87,7 @@ import argparse
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -108,8 +112,10 @@ try:
     from circom_tpu_torch.backend.ks import KS_WIDTHS, launch_scan
     from circom_tpu_torch.backend.torch_backend import WitnessProgram
     from circom_tpu_torch.circuits import sha256_io
-    from circom_tpu_torch.backend.segments import (SegmentedProgram,
-                                                   segment_k4, segment_ref)
+    from circom_tpu_torch.backend.segments import (UNWRITTEN,
+                                                   SegmentedProgram,
+                                                   launch_k4, segment_k4,
+                                                   segment_ref)
     from circom_tpu_torch.circuits.gen_poseidon import generate
     from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
                                                    bigdiv_num2bits_source,
@@ -675,8 +681,8 @@ def phase_gather(rep, plan, B, dev):
 
 def idle_of(profile):
     """The device's idle share of a run from profile_breakdown's (busy ms,
-    wall ms, kernels)."""
-    busy, ms, _ = profile
+    wall ms, kernels, kernels by name)."""
+    busy, ms, *_ = profile
     return round(max(0.0, 1 - busy / ms), 3)
 
 
@@ -1135,36 +1141,91 @@ def k4_ops(seg, L):
     return ops
 
 
+def k4_rows(sp):
+    """(rows K4 must move for a program: each input row it reads once and
+    each witness row written once; rows its kernels move: each kernel's
+    distinct rows read, its operands' and those its fill copies, and every
+    row it stores; of these, crossing rows).  The rows moved beyond the
+    first are the segments' own: an input or witness row read again by a
+    later kernel, crossing rows written and read."""
+    inputs, moved, cross = set(), 0, 0
+    for kn in sp.kernels:
+        reads = set(kn.src) | {r for r, _rows in kn.fill if r[0] == "x"}
+        stores = [r for d in kn.dst for r in d] + [
+            r for _v, rows in kn.fill for r in rows]
+        inputs |= {r for r in reads if r[0] == "x"}
+        moved += len(reads) + len(stores)
+        cross += sum(1 for r in list(reads) + stores if r[0] == "c")
+    return len(inputs) + sp.n_witness, moved, cross
+
+
 def phase_k4_program(prog, x, label):
-    """K4 against its plain version on every segment of a program at the
-    path's batch, every output row; K4's time (its segments' sum), the
-    plain version's, the bytes and operations."""
-    sp = prog.fused
-    xt, L = sp.xt, sp.L
-    xi = x.view(torch.int32)
-    B = x.shape[-1]
-    vals = {}
-    err, ms, plain_ms, nbytes, ops = 0, 0.0, 0.0, 0, 0
-    for s, seg in enumerate(sp.segments):
-        xin = torch.stack([xi[xt.iidx[a]] if xt.kind[a] == "input"
-                           else vals[a] for a in seg.in_nodes]) \
-            .view(torch.uint32)
-        got = segment_k4(sp, s, xin)
-        want, t = wall_ms(lambda: segment_ref(sp.field, seg, xin))
-        err = max(err, max_abs_err(got, want))
-        del want
-        ms += time_ms(lambda: segment_k4(sp, s, xin))
-        plain_ms += t
-        nbytes += 4 * L * B * (len(seg.in_nodes) + len(seg.out_nodes))
+    """K4 against its plain version on every kernel of a program at the
+    path's batch, in place: each segment launched on the inputs x and its
+    own witness and crossing buffer (filled with UNWRITTEN), its plain
+    version on another pair from the same history, every witness and
+    crossing row compared after each segment, and no witness row left
+    unwritten at the end; K4's time (the sum of its segments' bare
+    launches on those buffers), the plain version's, the bytes the
+    program must move (k4_rows: each input row read once, each witness row
+    written once), the bytes its kernels move and the crossing rows'
+    among them, and the operations."""
+    sp, dev = prog.fused, prog.device
+    x = x.contiguous()
+    L, B = sp.L, x.shape[-1]
+    got, want = sp.buffers(B, UNWRITTEN), sp.buffers(B, UNWRITTEN)
+    err, ms, plain_ms, ops = 0, 0.0, 0.0, 0
+    for s, seg in enumerate(sp.kernels):
+        k4 = bare(dev, lambda: launch_k4(sp, s, x, *got),
+                  lambda: segment_k4(sp, s, x, *got))
+        k4()
+        plain_ms += wall_ms(lambda: segment_ref(sp.field, seg, x, *want))[1]
+        err = max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        ms += time_ms(k4)
         ops += k4_ops(seg, L) * B
-        for row, a in enumerate(seg.out_nodes):
-            vals[a] = got.view(torch.int32)[row]
+    if bool((got[0].view(torch.int32) == UNWRITTEN).any()):
+        raise SystemExit(f"FAIL K4 on {label}: a witness row was not "
+                         "written")
+    del got, want
+    nbytes, moved, cross_bytes = (4 * L * B * n for n in k4_rows(sp))
     b_ms, b_by = bound(nbytes, ops)
-    say(f"  K4 on {label} ({len(sp.segments)} segments, "
-        f"{sp.stats()['nodes']} ops) at batch {B}: every output row, max "
-        f"abs err {err}; {ms:.4f} ms (plain {plain_ms:.1f} ms; bound "
-        f"{b_ms:.4f} ms by {b_by})")
-    return err, ms, plain_ms, nbytes, ops
+    say(f"  K4 on {label} ({len(sp.kernels)} kernels, "
+        f"{sp.stats()['nodes']} ops, {sp.n_cross} crossing rows) at batch "
+        f"{B}, in place: every witness and crossing row, max abs err {err}; "
+        f"{ms:.4f} ms (plain {plain_ms:.1f} ms; must move "
+        f"{nbytes / 1e9:.4f} GB, its kernels move {moved / 1e9:.4f} GB, of "
+        f"them {cross_bytes / 1e9:.4f} GB crossing rows; bound {b_ms:.4f} "
+        f"ms by {b_by})")
+    return err, ms, plain_ms, nbytes, ops, cross_bytes, moved
+
+
+def segment_run(prog, x, label, rehearse, runs=10):
+    """A segmented path's run: its median ms over `runs` runs a run at a
+    time, the memory it allocates at its peak beyond what was allocated
+    before, and its device operations from one profiler step of 20 runs
+    (profile_breakdown, after its traced warm-up step), which must be each
+    of K4's kernels once a run and nothing else, so that a trace that
+    missed a kernel fails too; with the device's idle share."""
+    dev = prog.device
+    ms = sorted(wall_ms(lambda: prog.run(x))[1] for _ in range(runs))
+    median = ms[len(ms) // 2]
+    _, _, gib = run_peak(dev, lambda: prog.run(x))
+    say(f"  {label} run: median {median:.3f} ms of {runs} "
+        f"({ms[0]:.3f}-{ms[-1]:.3f}), {gib:.3f} GiB allocated at its peak")
+    out = {"median_ms": median, "peak_gib": gib}
+    if rehearse:
+        return out
+    profile = profile_breakdown(lambda: prog.run(x), median, reps=1,
+                                runs=20)
+    ops = {k: n for k, (n, _t) in profile[3].items()}
+    want = {f"k4_seg{s}": 1.0 for s in range(len(prog.fused.kernels))}
+    got = {f"k4_seg{m.group(1)}" if m else k: n for k, n in ops.items()
+           for m in [re.search(r"k4_seg(\d+)", k)]}
+    if got != want:
+        raise SystemExit(f"FAIL {label}: a run's device operations are "
+                         f"{ops}, not each of K4's kernels once: {want}")
+    out.update(idle=idle_of(profile), device_ops=got)
+    return out
 
 
 def unit_columns(spec, n_inputs, hints, B, seed):
@@ -1231,14 +1292,15 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
             f"(batch {B}, {prog.fused.stats()})")
         out[name] = witness_path(paths, name, cc, prog, x,
                                  ("k4", "r1cs_check"), lambda ins: {"a": ins},
-                                 never=interp + K5_K6)
-        if not rehearse:
-            profile_breakdown(lambda: prog.run(x), out[name]["run_ms"])
+                                 never=interp + K5_K6 + KW_NEVER
+                                 + ("assemble", "scan"))
+        out[name].update(segment_run(prog, x, label, rehearse))
         k4[name] = phase_k4_program(prog, x, label)
         del x
     say("phase U: K4 against its plain version on the op circuits")
     unit_err = phase_k4_units(progs, dev, 400 if rehearse else 4096)
-    (err, ms, plain_ms, nbytes, ops), s4 = k4["n2b254"], k4["n2b254x4"]
+    (err, ms, plain_ms, nbytes, ops, cross_bytes, moved), s4 = (
+        k4["n2b254"], k4["n2b254x4"])
     # nvcc's seconds a program: its segments' libraries, built in
     # parallel (the longest) and in all; null when a library was found
     # built in _build/ and not compiled in this run
@@ -1246,14 +1308,21 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
     for name, (_cc, prog) in progs.items():
         lib = build.generated_name(prog.fused.source())
         t = [build.BUILD_SECONDS.get(f"{lib}-s{s}")
-             for s in range(len(prog.fused.segments))]
+             for s in range(len(prog.fused.kernels))]
         nvcc[name] = None if None in t else {"max_s": max(t),
                                              "sum_s": sum(t)}
     rep.add("k4", K4_SOURCE, K4_REPLACES, max(err, s4[0], unit_err), ms,
             plain_ms, nbytes, ops, plan="Num2Bits(254)/bn128", s4_ms=s4[1],
             s4_plain_ms=s4[2], s4_bound_ms=bound(s4[3], s4[4])[0],
             s4_bound_by=bound(s4[3], s4[4])[1],
-            s4_ops_bound_ms=bounds(s4[3], s4[4])[1], nvcc_s=nvcc)
+            s4_ops_bound_ms=bounds(s4[3], s4[4])[1], nvcc_s=nvcc,
+            on_path="S, S4",
+            cross_bytes=cross_bytes, s4_cross_bytes=s4[5],
+            moved_bytes=moved, s4_moved_bytes=s4[6],
+            run_median_ms=out["n2b254"]["median_ms"],
+            run_peak_gib=out["n2b254"]["peak_gib"],
+            s4_run_median_ms=out["n2b254x4"]["median_ms"],
+            s4_run_peak_gib=out["n2b254x4"]["peak_gib"])
     out["k4"] = {"n2b254": ms, "n2b254x4": s4[1]}
 
     cc = compile_source(bigdiv_num2bits_source())
@@ -2094,7 +2163,7 @@ def phase_mesh(paths, mk, lanes, rehearse):
                 say(f"  one shard's check alone on {mesh.devices[k]}: "
                     f"{ms:.1f} ms")
         del shards
-        busy, ms, _ = profile_breakdown(lambda: step(x), warm_ms, reps=1,
+        busy, ms, *_ = profile_breakdown(lambda: step(x), warm_ms, reps=1,
                                         aten=False)
         idle = round(max(0.0, 1 - busy / ms), 3) if len(cards) == 1 \
             else None
@@ -2435,14 +2504,14 @@ def main():
         with ThreadPoolExecutor(1) as pool:
             gxx = pool.submit(native.build)
             secs = build.build_all(generated=[
-                (prog.fused.source(), len(prog.fused.segments))
+                (prog.fused.source(), len(prog.fused.kernels))
                 for _cc, prog in progs.values()])
             gxx_s = gxx.result()
         say(f"kernels built in {secs:.1f} s, in parallel; g++ of the native "
             f"calculator {gxx_s:.1f} s beside them")
         names = {f"{build.generated_name(prog.fused.source())}-s{s}":
                  f"{name} segment {s}" for name, (_cc, prog) in progs.items()
-                 for s in range(len(prog.fused.segments))}
+                 for s in range(len(prog.fused.kernels))}
         for lib, t in build.BUILD_SECONDS.items():
             say(f"  nvcc {names.get(lib, lib)} ({lib}): {t:.1f} s")
         for lib, log in build.BUILD_LOG.items():
@@ -2592,8 +2661,9 @@ def main():
         say(f"{label} path: {t['run_ms']:.1f} ms witness run "
             f"({b / t['run_ms'] * 1e3:.0f} witnesses/s), "
             f"{t['check_ms']:.1f} ms R1CS check (batch {b})"
-            + (f"; K4 {seg['k4'][name]:.4f} ms" if name in seg["k4"]
-               else ""))
+            + (f"; K4 {seg['k4'][name]:.4f} ms, a run's median "
+               f"{t['median_ms']:.3f} ms, peak {t['peak_gib']:.3f} GiB"
+               if name in seg["k4"] else ""))
     q, o = seg["q_compare"], seg["bigdiv_bits"]
     say("16 x Num2Bits(254)/bn128 at batch %d: scan %.1f ms (idle %s), "
         "the per-node path %.1f ms" % (

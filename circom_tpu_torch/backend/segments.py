@@ -12,19 +12,29 @@ straight-line code) and a total cost above MAX_COST (the JAX package
 bounds Mosaic's compile time with it; nvcc's compile time grows with the
 unrolled code the same way).
 
-Values that cross a segment boundary travel as one stacked tensor
-(n_in, L, B) per segment; the layout is (n, L, B) throughout, batch-minor,
-one lane a thread in the kernel.  The TPU's (8, B/8) retiling and its
-padding of the batch to whole (8, 128) tiles are not carried over.
+Nothing is assembled on the host.  A run allocates the witness
+(n_witness, L, B) and one crossing buffer (n_cross, L, B), and each
+segment's kernel reads its operands where they lie and writes its results
+in place: an operand is a row of the program's inputs, a witness row an
+earlier segment wrote, or a crossing row, which holds a value that a
+later segment reads and that no witness row holds; a result goes to every
+witness row that names it, or to its crossing row.  The witness rows that
+are inputs are written by the first kernel that reads the input (else the
+first), those that are constants by the first.  `_place` plans those rows
+once, at construction, as compile-time constants of the generated source:
+`kernels`, one a segment (one with nothing to compute where the tape has
+no segment), is what a run launches.  The layout is (n, L, B)
+throughout, batch-minor, one lane a thread in the kernel.  The TPU's
+(8, B/8) retiling, its padding of the batch to whole (8, 128) tiles and
+its stacked segment inputs and outputs are not carried over.
 
-`segment_k4` launches a segment's kernel on a CUDA tensor and runs the
+`segment_k4` launches a segment's kernel on CUDA tensors and runs the
 plain version `segment_ref` (ops/wide.py, TorchField: the plain functions
-K1 is held against) on a CPU tensor.
+K1 is held against) on CPU tensors, with the same in-place contract.
 """
 
 import copy
 
-import numpy as np
 import torch
 
 from ..convert import u32_on
@@ -47,6 +57,9 @@ BUDGET = 24_000
 # the largest total cost the segments take, the JAX package's: a longer
 # tape goes to the per-op backend
 MAX_COST = 300_000
+# a word no 16-bit limb holds: the oracles fill buffers with it, so that a
+# witness row that no kernel wrote shows
+UNWRITTEN = -0x21524111      # 0xdeadbeef as int32
 
 
 def _op_cost(op, nz_b, L):
@@ -77,12 +90,33 @@ class _Seg:
         self.cost = 0
 
 
+class _Kernel:
+    """One K4 kernel: a segment's instructions and where it reads and
+    writes (SegmentedProgram._place).  src[k] is the row of operand
+    ("in", k), ("x" | "w" | "c", row) in the inputs, the witness or the
+    crossing buffer; dst[k] the rows output k is stored to; fill the
+    witness rows it writes from a constant or an input,
+    (("const", limbs) | ("x", row), (("w", row), ...))."""
+
+    __slots__ = ("instrs", "n_rf", "src", "dst", "fill")
+
+    def __init__(self, instrs=(), n_rf=0, src=(), dst=(), fill=()):
+        self.instrs = instrs
+        self.n_rf = n_rf
+        self.src = src
+        self.dst = dst
+        self.fill = fill
+
+
 class SegmentedProgram:
     """Executable segmented form of a DomainTape for one field on one
     device.
 
     ``_run(inputs)`` maps uint32 (n_inputs, L, B) to the witness
-    (n_witness, L, B), outputs canonical (non-Montgomery)."""
+    (n_witness, L, B), outputs canonical (non-Montgomery).  `segments`
+    are the planner's (the JAX package's); `kernels` the K4 kernels a run
+    launches in order, one a segment placed, or one that only writes the
+    constant and input rows of a tape with nothing to compute."""
 
     def __init__(self, dtape, spec: FieldSpec, device="cuda", *,
                  budget=BUDGET):
@@ -108,6 +142,7 @@ class SegmentedProgram:
                 f"tape too large for unrolled segments "
                 f"({self.total_cost} > {MAX_COST} cost units)")
         self.n_witness = len(self.xt.out_ids)
+        self._place()
         self._lib = None     # the generated kernels, built at first launch
 
     def for_field(self, field: TorchField):
@@ -217,6 +252,51 @@ class SegmentedProgram:
             seg.cost = sum(node_cost[i] for i in nodes)
             self.segments.append(seg)
 
+    def _place(self):
+        """`kernels`, each segment placed: its operand rows (`src`), its
+        result rows (`dst`) and the witness rows it copies from a constant
+        or an input (`fill`).  A result that is a witness value goes to
+        every witness row that names it and is read back from the first;
+        any other result that a later segment reads gets a crossing row of
+        its own.  An input's witness rows go to the first kernel that reads
+        the input, which then loads it once for both; the constants' and
+        any other input's to the first kernel."""
+        xt = self.xt
+        rows = {}
+        for r, nid in enumerate(xt.out_ids):
+            rows.setdefault(nid, []).append(("w", r))
+        home, n_cross = {}, 0
+        self.kernels = []
+        for seg in self.segments:
+            dst = []
+            for a in seg.out_nodes:
+                if a in rows:
+                    dst.append(tuple(rows[a]))
+                else:
+                    dst.append((("c", n_cross),))
+                    n_cross += 1
+                home[a] = dst[-1][0]
+            src = tuple(("x", xt.iidx[a]) if xt.kind[a] == "input"
+                        else home[a] for a in seg.in_nodes)
+            self.kernels.append(_Kernel(seg.instrs, seg.n_rf, src,
+                                        tuple(dst)))
+        self.n_cross = n_cross
+        if not self.kernels:
+            self.kernels.append(_Kernel())
+        fill = [[] for _ in self.kernels]
+        for nid, rs in rows.items():
+            if xt.kind[nid] == "const":
+                fill[0].append((("const", tuple(
+                    int(v) for v in int_to_limbs(xt.cval[nid], self.L))),
+                    tuple(rs)))
+            elif xt.kind[nid] == "input":
+                x = ("x", xt.iidx[nid])
+                k = next((k for k, kn in enumerate(self.kernels)
+                          if x in kn.src), 0)
+                fill[k].append((x, tuple(rs)))
+        for kn, f in zip(self.kernels, fill):
+            kn.fill = tuple(f)
+
     # ------------------------------------------------------------------
     # execution
     # ------------------------------------------------------------------
@@ -224,53 +304,39 @@ class SegmentedProgram:
         """The CUDA C++ source of this program's K4 kernels."""
         from ..ops.segment_gen import generate
 
-        return generate(self.segments, self.field)
+        return generate(self.kernels, self.field)
 
     def library(self):
         """The built K4 entry points (nvcc at first use, cached by the
         source's hash in the build directory of utils/cache.py)."""
         if self._lib is None:
-            self._lib = build_generated(self.source(), len(self.segments))
+            self._lib = build_generated(self.source(), len(self.kernels))
         return self._lib
 
     def _run(self, inputs):
-        """uint32 (n_inputs, L, B) -> (n_witness, L, B)."""
-        L = self.L
-        xt = self.xt
-        x = u32_on(inputs, self.device).view(torch.int32)
-        B = x.shape[-1]
-        vals = {}
-        for s, seg in enumerate(self.segments):
-            parts = []
-            for a in seg.in_nodes:
-                if xt.kind[a] == "input":
-                    parts.append(x[xt.iidx[a]])
-                else:
-                    arr, row = vals[a]
-                    parts.append(arr[row])
-            xin = torch.stack(parts) if parts else torch.zeros(
-                (1, L, B), dtype=torch.int32, device=x.device)
-            out = segment_k4(self, s, xin.view(torch.uint32))
-            for row, a in enumerate(seg.out_nodes):
-                vals[a] = (out.view(torch.int32), row)
+        """uint32 (n_inputs, L, B) -> (n_witness, L, B): the witness and
+        the crossing buffer allocated, then one K4 launch a kernel of
+        `kernels`, in order, each writing its rows in place."""
+        x = u32_on(inputs, self.device).contiguous()
+        if x.dim() != 3 or tuple(x.shape[:2]) != (self.n_inputs, self.L):
+            raise ValueError(f"the segments take uint32 ({self.n_inputs}, "
+                             f"{self.L}, B) inputs, got {tuple(x.shape)}")
+        wit, cross = self.buffers(x.shape[-1])
+        if wit.numel():
+            for s in range(len(self.kernels)):
+                segment_k4(self, s, x, wit, cross)
+        return wit
 
-        rows = []
-        for nid in xt.out_ids:
-            k = xt.kind[nid]
-            if k == "const":
-                limb = torch.as_tensor(
-                    int_to_limbs(xt.cval[nid], L).astype(np.int32),
-                    device=x.device)
-                rows.append(limb[:, None].expand(L, B))
-            elif k == "input":
-                rows.append(x[xt.iidx[nid]])
-            else:
-                arr, row = vals[nid]
-                rows.append(arr[row])
-        if not rows:
-            return torch.empty((0, L, B), dtype=torch.uint32,
-                               device=x.device)
-        return torch.stack(rows).view(torch.uint32)
+    def buffers(self, B, fill=None):
+        """(the witness (n_witness, L, B), the crossing buffer
+        (n_cross, L, B)), uint32 on the program's device: uninitialised,
+        or every word `fill`, an int32 (UNWRITTEN for an oracle)."""
+        return tuple(
+            (torch.empty((n, self.L, B), dtype=torch.int32,
+                         device=self.device) if fill is None else
+             torch.full((n, self.L, B), fill, dtype=torch.int32,
+                        device=self.device)).view(torch.uint32)
+            for n in (self.n_witness, self.n_cross))
 
     def stats(self):
         return {
@@ -285,57 +351,70 @@ class SegmentedProgram:
         }
 
 
-def segment_k4(prog: SegmentedProgram, s, xin):
-    """Segment s of prog on its inputs uint32 (n_in, L, B) -> its outputs
-    uint32 (n_out, L, B): kernel K4 on a CUDA tensor, the plain version
-    on a CPU tensor."""
-    seg = prog.segments[s]
-    if xin.device.type == "cpu":
-        return segment_ref(prog.field, seg, xin)
-    L = prog.L
-    if xin.dtype != torch.uint32 or xin.dim() != 3 or xin.shape[1] != L \
-            or xin.shape[0] != max(len(seg.in_nodes), 1):
-        raise ValueError(f"K4 segment {s} takes uint32 "
-                         f"({max(len(seg.in_nodes), 1)}, {L}, B), got "
-                         f"{xin.dtype} {tuple(xin.shape)}")
-    xin = xin.contiguous()
-    B = xin.shape[-1]
-    out = torch.empty((len(seg.out_nodes), L, B), dtype=torch.uint32,
-                      device=xin.device)
-    if out.numel():
-        launch_k4(prog, s, xin, out)
-    return out
+def segment_k4(prog: SegmentedProgram, s, x, wit, cross):
+    """Kernel s of prog.kernels on the inputs x (n_inputs, L, B), writing
+    its rows of the witness wit (n_witness, L, B) and of the crossing
+    buffer cross (n_cross, L, B) in place, all uint32: K4 on CUDA
+    tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return segment_ref(prog.field, prog.kernels[s], x, wit, cross)
+    L, B = prog.L, x.shape[-1]
+    for t, n, what in ((x, prog.n_inputs, "inputs"),
+                       (wit, prog.n_witness, "witness"),
+                       (cross, prog.n_cross, "crossing buffer")):
+        if t.dtype != torch.uint32 or tuple(t.shape) != (n, L, B) \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"K4 takes contiguous uint32 {what} ({n}, {L}, "
+                             f"{B}) on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if B:
+        launch_k4(prog, s, x, wit, cross)
 
 
-def launch_k4(prog: SegmentedProgram, s, xin, out):
-    """Launch segment s's K4 without checks: contiguous uint32 xin
-    (n_in, L, B) and out (n_out, L, B) on the card, n_out and B > 0."""
-    launch("k4", getattr(prog.library(), f"ctpu_k4_seg{s}"), xin.device,
-           xin.data_ptr(), out.data_ptr(), xin.shape[-1],
-           stream_ptr(xin.device))
+def launch_k4(prog: SegmentedProgram, s, x, wit, cross):
+    """Launch kernel s of prog.kernels without checks: contiguous uint32
+    x (n_inputs, L, B), wit (n_witness, L, B) and cross (n_cross, L, B)
+    on one card, B > 0."""
+    launch("k4", getattr(prog.library(), f"ctpu_k4_seg{s}"), x.device,
+           x.data_ptr(), wit.data_ptr(), cross.data_ptr(), x.shape[-1],
+           stream_ptr(x.device))
 
 
-def segment_ref(field: TorchField, seg, xin):
-    """The plain version of K4: one segment's instructions on int64 limb
+def segment_ref(field: TorchField, seg, x, wit, cross):
+    """The plain version of K4: one kernel's (a _Kernel's) instructions on int64 limb
     tensors, each op by the plain function K1 is held against (ops/wide.py
     `emit` and `shift_w`, TorchField's Montgomery product, `gl_mul64`);
     operands ("const", limbs), ("in", k), ("out", k), ("rf", k) read as
-    the Pallas kernel reads them.  uint32 (n_in, L, B) -> (n_out, L, B)."""
-    x = as_i64(xin)
-    L, B = x.shape[1], x.shape[2]
-    out = torch.zeros((len(seg.out_nodes), L, B), dtype=torch.int64,
-                      device=x.device)
-    rf = [None] * seg.n_rf
+    the Pallas kernel reads them, ("in", k) from its row seg.src[k] of x,
+    wit or cross.  Writes each output to its rows seg.dst[k] and the
+    witness rows of seg.fill, in place, as K4 does: uint32 x
+    (n_inputs, L, B), wit (n_witness, L, B), cross (n_cross, L, B)."""
+    bufs = {"x": x, "w": wit, "c": cross}
+    L, B = wit.shape[1], wit.shape[2]
+    dev = wit.device
     r2 = torch.as_tensor(field.r2_list, dtype=torch.int64,
-                         device=x.device)[:, None]
+                         device=dev)[:, None]
+
+    def const(limbs):
+        return torch.as_tensor(limbs, dtype=torch.int64, device=dev)[:, None]
+
+    def store(rows, r):
+        r = as_u32(r.expand(L, B)).view(torch.int32)
+        for buf, row in rows:
+            bufs[buf].view(torch.int32)[row] = r
+
+    for (tag, v), rows in seg.fill:
+        store(rows, const(v) if tag == "const" else as_i64(x[v]))
+    out = [None] * len(seg.dst)
+    rf = [None] * seg.n_rf
 
     def rd(d):
         tag, v = d
         if tag == "const":
-            return torch.as_tensor(v, dtype=torch.int64,
-                                   device=x.device)[:, None]
+            return const(v)
         if tag == "in":
-            return x[v]
+            buf, row = seg.src[v]
+            return as_i64(bufs[buf][row])
         if tag == "out":
             return out[v]
         return rf[v]
@@ -354,6 +433,6 @@ def segment_ref(field: TorchField, seg, xin):
         r = r.expand(L, B)
         if out_row is not None:
             out[out_row] = r
+            store(seg.dst[out_row], r)
         if rf_slot is not None:
             rf[rf_slot] = r
-    return as_u32(out)

@@ -1,8 +1,8 @@
-"""Time K1, K2, K5, KC and KS against the same kernels built from another
-checkout.
+"""Time K1, K2, K5, KC, KS and K4 against the same kernels built from
+another checkout.
 
     python -m circom_tpu_torch.kernel_ab --other DIR [--reps N]
-        [--kernels k1,k2,k5,kc,ks]
+        [--kernels k1,k2,k5,kc,ks,k4]
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked with `git archive`.  Its
@@ -76,6 +76,20 @@ in turns: other, this, this, other.
   it gets this checkout's tables and arguments.  Every launch's witness
   equals this checkout's run, which equals the step loop's (Q, QS) or
   the per-node path's (O).
+- K4 (generated per program) on the segmented paths Num2Bits(254)/bn128
+  (S) and 4 x Num2Bits(254)/bn128 (S4) at batch 65,536: each checkout's
+  own generator writes its source (a child process with only that
+  checkout on its path), and nvcc builds a library a segment of both at
+  once.  The other K4's interface is read off its source: the stacked
+  one, `ctpu_k4_seg<s>(xin, xout, B, stream)` with xin (n_in, L, B) and
+  xout (n_out, L, B), which runs the route it had (a frozen copy:
+  `stacked_run`, each segment's inputs and then the witness assembled by
+  torch.stack), or this checkout's in place,
+  `ctpu_k4_seg<s>(x, w, c, B, stream)` over the inputs, the witness and
+  the crossing buffer, which runs this checkout's route (a variant of
+  this K4).  Both runs' witnesses must be equal bit for bit; the bare K4
+  launches (all segments, buffers allocated before) and the whole runs
+  are timed in turns, and each run's peak allocation read.
 
 Prints a line for each measurement, the card's name and power limit, and
 a JSON object as the last line.  Exits 1 without a card.
@@ -84,6 +98,8 @@ a JSON object as the last line.  Exits 1 without a card.
 import argparse
 import ctypes
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -111,7 +127,7 @@ from .compiler.pipeline import compile_source
 from .field.primes import LIMB_BITS, field_spec
 from .ops import build
 from .ops.field import TorchField
-from .ops.limbs import ints_to_limbs
+from .ops.limbs import int_to_limbs, ints_to_limbs
 
 ROOT = Path(__file__).resolve().parents[1]
 NAMES = ("interp", "gather", "field_ops")
@@ -739,14 +755,241 @@ def ks(libs, dev, reps, same):
     return out
 
 
+# K4's cases: (name, copies of Num2Bits(254)/bn128, batch)
+K4_CASES = (("S", 1, 65536), ("S4", 4, 65536))
+
+# run in a child process with one checkout on its path: that checkout's
+# K4 source for argv[1] x Num2Bits(254)/bn128, written to argv[2]
+K4_SOURCE = """
+import sys
+from circom_tpu_torch.backend.torch_backend import WitnessProgram
+from circom_tpu_torch.circuits.sources import num2bits_source
+from circom_tpu_torch.compiler.pipeline import compile_source
+from circom_tpu_torch.field.primes import field_spec
+cc = compile_source(num2bits_source(254, int(sys.argv[1])))
+prog = WitnessProgram(cc.build_tape()[0], field_spec("bn128"), device="cpu")
+open(sys.argv[2], "w").write(prog.fused.source())
+"""
+
+
+def k4_source(root, copies, path):
+    """The K4 source that the checkout at `root` generates for `copies` x
+    Num2Bits(254)/bn128, written to `path` by its own generator."""
+    r = subprocess.run([sys.executable, "-c", K4_SOURCE, str(copies),
+                        str(path)], cwd=root, capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=str(root)))
+    if r.returncode:
+        raise SystemExit(f"K4 source of {root}: {r.stderr[-2000:]}")
+    return Path(path).read_text()
+
+
+def k4_stacked(text):
+    """Whether a generated K4 source has the stacked interface (two
+    buffers: the segment's inputs and its outputs), not this checkout's
+    in-place one (three: inputs, witness, crossing buffer)."""
+    head = text.split('extern "C" int ctpu_k4_seg0(')[1].split(")")[0]
+    return head.count("uint32_t*") == 2
+
+
+def k4_segments(text):
+    """[(ops, inputs, outputs)] of each segment, from a generated source's
+    comments."""
+    return [tuple(map(int, m)) for m in re.findall(
+        r"// segment \d+: (\d+) ops, (\d+) inputs, (\d+) outputs", text)]
+
+
+def build_k4(root, text, tag):
+    """The entry points of a generated K4 source, built by nvcc against
+    the headers of the checkout at `root`, a library a segment in
+    parallel (-DK4_SEG=s), into ab/ of the build directory."""
+    out_dir = build.build_dir() / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / f"{tag}.cu"
+    src.write_text(text)
+    n = len(re.findall(r'extern "C" int ctpu_k4_seg\d+\(', text))
+    nvcc = build.nvcc_path()
+    inc = Path(root) / "circom_tpu_torch" / "ops" / "cuda"
+
+    def one(s):
+        so = out_dir / f"{tag}-s{s}.so"
+        r = subprocess.run([nvcc, *build.NVCC_FLAGS, f"-DK4_SEG={s}", "-I",
+                            str(inc), "-o", str(so), str(src)],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+        if r.returncode:
+            raise SystemExit(f"nvcc failed on {tag} segment {s}:\n{r.stdout}")
+        return so
+
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        sos = list(pool.map(one, range(n)))
+    n_ptr = 2 if k4_stacked(text) else 3
+    fns = []
+    for s, so in enumerate(sos):
+        fn = getattr(ctypes.CDLL(str(so)), f"ctpu_k4_seg{s}")
+        fn.restype = _I
+        fn.argtypes = [_P] * n_ptr + [_LL, _P]
+        fns.append(fn)
+    return fns
+
+
+def stacked_run(sp, launch, x):
+    """The segments' run over the stacked K4 interface, a frozen copy of
+    the route it had: each segment's inputs stacked from input rows and
+    earlier segments' outputs, a fresh output tensor a segment (launch(s,
+    xin, out) runs segment s), then the witness stacked from the outputs,
+    constant rows and input rows.  Returns (the witness, each segment's
+    (inputs, outputs))."""
+    xt, L = sp.xt, sp.L
+    xi = x.view(torch.int32)
+    B = x.shape[-1]
+    vals, bufs = {}, []
+    for s, seg in enumerate(sp.segments):
+        parts = [xi[xt.iidx[a]] if xt.kind[a] == "input" else vals[a]
+                 for a in seg.in_nodes]
+        xin = torch.stack(parts) if parts else torch.zeros(
+            (1, L, B), dtype=torch.int32, device=x.device)
+        out = torch.empty((len(seg.out_nodes), L, B), dtype=torch.int32,
+                          device=x.device)
+        launch(s, xin, out)
+        bufs.append((xin, out))
+        for row, a in enumerate(seg.out_nodes):
+            vals[a] = out[row]
+    rows = []
+    for nid in xt.out_ids:
+        if xt.kind[nid] == "const":
+            limb = torch.as_tensor(int_to_limbs(xt.cval[nid], L)
+                                   .astype(np.int32), device=x.device)
+            rows.append(limb[:, None].expand(L, B))
+        elif xt.kind[nid] == "input":
+            rows.append(xi[xt.iidx[nid]])
+        else:
+            rows.append(vals[nid])
+    return torch.stack(rows).view(torch.uint32), bufs
+
+
+def peak_gib(dev, fn):
+    """GiB that fn() allocates at its peak beyond what was allocated
+    before it."""
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+
+
+def k4(other, dev, reps):
+    """K4 of both checkouts on every K4_CASES program: both runs bit for
+    bit, then in turns the bare K4 launches of a run (every segment, its
+    buffers allocated before) and the whole runs, and each run's peak
+    allocation; {case: {...}}."""
+    from .backend.segments import launch_k4
+
+    spec = field_spec("bn128")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    stream = build.stream_ptr(dev)
+    out_dir = build.build_dir() / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    progs, jobs = {}, []
+    for name, copies, _B in K4_CASES:
+        tape = compile_source(num2bits_source(254, copies)).build_tape()[0]
+        prog = progs[name] = WitnessProgram(tape, spec, device=dev)
+        text = k4_source(Path(other).resolve(), copies,
+                         out_dir / f"other-{name}.txt")
+        if k4_segments(text) != [(len(g.instrs), len(g.src),
+                                  len(g.dst))
+                                 for g in prog.fused.kernels]:
+            raise SystemExit(f"K4 on {name}: the other checkout cuts "
+                             "other segments")
+        jobs.append((name, text))
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        mine = pool.submit(build.build_all, [
+            (p.fused.source(), len(p.fused.kernels)) for p in progs.values()])
+        theirs = {name: pool.submit(build_k4, other, text, f"k4-{name}")
+                  for name, text in jobs}
+        print(f"  this checkout's K4 built in {mine.result():.1f} s")
+        theirs = {k: f.result() for k, f in theirs.items()}
+    result = {}
+    for (name, copies, B), (_n, text) in zip(K4_CASES, jobs):
+        prog, fns = progs[name], theirs[name]
+        sp = prog.fused
+        stacked = k4_stacked(text)
+        x = canonical(gen, spec, (copies, spec.n_limbs, B), dev)
+        want = prog.run(x)
+        if stacked:
+            def launch(s, xin, o, fns=fns, B=B):
+                checked(fns[s](xin.data_ptr(), o.data_ptr(), B, stream),
+                        "K4")
+            got, bufs = stacked_run(sp, launch, x)
+
+            def other_run():
+                return stacked_run(sp, launch, x)[0]
+
+            def other_bare():
+                for s, (xin, o) in enumerate(bufs):
+                    launch(s, xin, o)
+        else:
+            wit_o = torch.empty_like(want)
+            cross_o = torch.empty((sp.n_cross, sp.L, B), dtype=torch.uint32,
+                                  device=dev)
+
+            def other_bare():
+                for s in range(len(fns)):
+                    checked(fns[s](x.data_ptr(), wit_o.data_ptr(),
+                                   cross_o.data_ptr(), B, stream), "K4")
+
+            def other_run():
+                wit = torch.empty_like(want)
+                cross = torch.empty_like(cross_o)
+                for s in range(len(fns)):
+                    checked(fns[s](x.data_ptr(), wit.data_ptr(),
+                                   cross.data_ptr(), B, stream), "K4")
+                return wit
+            got = other_run()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise SystemExit(f"K4 on {name}: the other checkout's witness "
+                             "differs from this one's")
+        del got
+        wit, cross = torch.empty_like(want), torch.empty(
+            (sp.n_cross, sp.L, B), dtype=torch.uint32, device=dev)
+
+        def this_bare():
+            for s in range(len(sp.kernels)):
+                launch_k4(sp, s, x, wit, cross)
+        this_bare()
+        if not torch.equal(wit.view(torch.int32), want.view(torch.int32)):
+            raise SystemExit(f"K4 on {name}: bare launches differ from the "
+                             "run")
+        del want
+        bare = in_turns({"other": other_bare, "this": this_bare}, reps)
+        runs = in_turns({"other": other_run, "this": lambda: prog.run(x)},
+                        reps)
+        peaks = {"other": peak_gib(dev, other_run),
+                 "this": peak_gib(dev, lambda: prog.run(x))}
+        result[name] = {"interface": "stacked" if stacked else "in place",
+                        "segments": len(sp.kernels), "bare_ms": bare,
+                        "run_ms": runs, "peak_gib": peaks}
+        for what, t in (("bare K4", bare), ("run", runs)):
+            for k, v in t.items():
+                print(f"  K4 {name} ({B} lanes) {what} {k}: "
+                      + ", ".join(f"{m:.4f}" for m in v) + " ms")
+        print(f"  K4 {name} peak allocation of a run: other "
+              f"{peaks['other']:.3f} GiB, this {peaks['this']:.3f} GiB")
+        del x, wit, cross
+        if stacked:
+            del bufs
+        torch.cuda.empty_cache()
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", default="k1,k2,k5,kc,ks",
+    ap.add_argument("--kernels", default="k1,k2,k5,kc,ks,k4",
                     help="which comparisons to run, and so which sources "
-                         "to build (default: all five)")
+                         "to build (default: all six)")
     args = ap.parse_args(argv)
     kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -765,7 +1008,7 @@ def main(argv=None):
         # built beside
         fixed = (pool.submit(build.build_all) if kernels & {"kc", "ks"}
                  else None)
-        libs = build_libraries(args.other, names)
+        libs = build_libraries(args.other, names) if names else {}
         if fixed is not None:
             print(f"  this checkout's kernels built in {fixed.result():.1f} s")
     result = {"card": card.strip()}
@@ -799,6 +1042,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "ks" in kernels:
         result["ks"] = ks(libs, dev, args.reps, shared_ks(args.other))
+    if "k4" in kernels:
+        result["k4"] = k4(args.other, dev, args.reps)
     print(json.dumps(result))
     return 0
 

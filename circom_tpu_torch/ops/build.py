@@ -217,8 +217,9 @@ def library(name):
 
 def build_generated(source, n_segments):
     """The entry points ctpu_k4_seg0 .. ctpu_k4_seg<n_segments - 1> of a
-    generated K4 source, each (const uint32_t* in, uint32_t* out,
-    long long B, void* stream) -> int, as attributes of one namespace:
+    generated K4 source, each (const uint32_t* x, uint32_t* w,
+    uint32_t* c, long long B, void* stream) -> int (the inputs, the
+    witness and the crossing buffer), as attributes of one namespace:
     built by nvcc on first use, a library a segment in parallel (build_all
     builds several sources at once), then cached on disk and in this
     process."""
@@ -232,7 +233,7 @@ def build_generated(source, n_segments):
                 fn = getattr(ctypes.CDLL(str(segment_library(name, s))),
                              f"ctpu_k4_seg{s}")
                 fn.restype = _I
-                fn.argtypes = [_P, _P, _LL, _P]
+                fn.argtypes = [_P, _P, _P, _LL, _P]
                 setattr(lib, f"ctpu_k4_seg{s}", fn)
             _libs[name] = lib
         return lib

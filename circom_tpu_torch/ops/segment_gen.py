@@ -9,11 +9,15 @@ Each kernel is the segment's straight-line instructions for one lane a
 thread: operands are `Fe` values (L limbs in registers, indexed only by
 compile-time constants), constants are literals, and nothing dispatches
 on an opcode or indexes a register file at run time, which is what K4
-offers over the interpreter K1.  The device arithmetic is field.cuh's and
-wide.cuh's, called as limb_emit's LimbEmitter.emit would compute each op;
-the results equal the plain version (backend/segments.py `segment_ref`)
-bit for bit.  The generator handles every op of backend/plan.KERNEL_OPS
-but `idiv`, which the segmented backend refuses.
+offers over the interpreter K1.  Every kernel takes the base pointers of
+the program's inputs, the witness and the crossing buffer; the row of
+each operand it loads and of each result it stores is a literal
+(SegmentedProgram._place: `src`, `dst`, `fill`).  The device arithmetic
+is field.cuh's and wide.cuh's, called as limb_emit's LimbEmitter.emit
+would compute each op; the results equal the plain version
+(backend/segments.py `segment_ref`) bit for bit.  The generator handles
+every op of backend/plan.KERNEL_OPS but `idiv`, which the segmented
+backend refuses.
 """
 
 import re
@@ -35,23 +39,29 @@ HEADER = """\
 //
 // Replaces the JAX package's Pallas kernel SegmentedProgram._call_segment
 // (circom_tpu/backend/segments.py:242, body _make_kernel).  One thread
-// takes one lane of the batch: it loads the segment's inputs
-// (n_in, L, B), runs the segment's field ops straight through with every
-// temporary in registers (`Fe`, indexed by compile-time constants only)
-// and constants as literals, and writes the outputs (n_out, L, B).
+// takes one lane of the batch: it loads the segment's operands where they
+// lie (rows of the inputs x, of the witness w that an earlier segment
+// wrote, or of the crossing buffer c, all (n, L, B)), runs the segment's
+// field ops straight through with every temporary in registers (`Fe`,
+// indexed by compile-time constants only) and constants as literals, and
+// stores each result to every witness row that names it, or to its
+// crossing row; the first kernel also writes the witness rows that are
+// constants or inputs.  Every row is a literal, so the host assembles
+// nothing: no stacked inputs or outputs, no copy of the witness.
 // Neighbouring threads take neighbouring lanes, so every limb row is one
 // coalesced line a warp.
 //
 // Bound on the card: a segment of shifts and bit ops (Num2Bits) does a
-// few 32-bit operations a limb and writes n_out * L * 4 bytes a lane, so
-// it is bound by device-memory bytes (inputs read once, outputs written
-// once); a segment of products does 2L^2 32-bit multiplies a `mul` and is
-// bound by the integer lane rate.  The design keeps the bytes at that
-// minimum (no register file in memory, unlike K1) and keeps nvcc's time
-// and the code small: the CIOS product, goldilocks' folded product and
-// the conditional subtract are __noinline__ functions called per use,
-// one product function per distinct constant multiplicand (the compiler
-// drops the constant's zero limbs), the cheap ops inline.
+// few 32-bit operations a limb and writes L * 4 bytes a stored row a
+// lane, so it is bound by device-memory bytes (operands read once, results
+// written once to each of their rows); a segment of products does 2L^2
+// 32-bit multiplies a `mul` and is bound by the integer lane rate.  The
+// design keeps the bytes at that minimum (no register file in memory,
+// unlike K1, and no stacked copy of a segment's inputs or outputs) and
+// keeps nvcc's time and the code small: the CIOS product, goldilocks'
+// folded product and the conditional subtract are __noinline__ functions
+// called per use, one product function per distinct constant multiplicand
+// (the compiler drops the constant's zero limbs), the cheap ops inline.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -133,24 +143,25 @@ __device__ __noinline__ F %(name)s(F a) {
 KERNEL = """
 #if !defined(K4_SEG) || K4_SEG == %(s)d
 __global__ void __launch_bounds__(THREADS)
-k4_seg%(s)d(const uint32_t* __restrict__ xin, uint32_t* __restrict__ xout,
-           long long B) {
+k4_seg%(s)d(const uint32_t* __restrict__ x, uint32_t* __restrict__ w,
+           uint32_t* __restrict__ c, long long B) {
   const long long lane = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (lane >= B) return;
-  const uint32_t* xi = xin + lane;
-  uint32_t* xo = xout + lane;
+  x += lane;
+  w += lane;
+  c += lane;
 %(body)s
 }
 """
 
 ENTRY = """
 // segment %(s)d: %(n_instr)d ops, %(n_in)d inputs, %(n_out)d outputs
-extern "C" int ctpu_k4_seg%(s)d(const uint32_t* xin, uint32_t* xout,
+extern "C" int ctpu_k4_seg%(s)d(const uint32_t* x, uint32_t* w, uint32_t* c,
                                long long B, void* stream) {
   if (B <= 0) return 0;
   const long long blocks = (B + THREADS - 1) / THREADS;
   k4_seg%(s)d<<<(unsigned)blocks, THREADS, 0,
-               static_cast<cudaStream_t>(stream)>>>(xin, xout, B);
+               static_cast<cudaStream_t>(stream)>>>(x, w, c, B);
   return (int)cudaGetLastError();
 }
 #endif
@@ -204,8 +215,15 @@ class _Gen:
         f = self.field
         body = []
         out_var, rf_var = {}, {}
-        loaded, consts = set(), {}
+        loads, consts = {}, {}
         need = _needed_limbs(seg, L)
+
+        def load(buf, row):
+            """The variable that holds a row of x, w or c, loaded once."""
+            if (buf, row) not in loads:
+                loads[buf, row] = f"l{buf}{row}"
+                body.append(f"const F l{buf}{row} = ld({buf}, {row}, B);")
+            return loads[buf, row]
 
         def operand(d):
             """(C++ expression of an Fe, constant limbs or None)."""
@@ -215,14 +233,15 @@ class _Gen:
                     consts[v] = f"k{len(consts)}"
                 return consts[v], v
             if tag == "in":
-                name = f"i{v}"
-                if v not in loaded:
-                    loaded.add(v)
-                    body.append(f"const F {name} = ld(xi, {v}, B);")
-                return name, None
+                return load(*seg.src[v]), None
             if tag == "out":
                 return out_var[v], None
             return rf_var[v], None
+
+        for (tag, v), rows in seg.fill:
+            value = operand(("const", v))[0] if tag == "const" \
+                else load("x", v)
+            body.extend(f"st(%s, %d, B, {value});" % r for r in rows)
 
         for j, (op, descs, imm, out_row, rf_slot) in enumerate(seg.instrs):
             if op not in OPS:
@@ -295,7 +314,8 @@ class _Gen:
                             f"{v}.v, FC, WC);")
             if out_row is not None:
                 out_var[out_row] = v
-                body.append(f"st(xo, {out_row}, B, {v});")
+                body.extend(f"st({buf}, {row}, B, {v});"
+                            for buf, row in seg.dst[out_row])
             if rf_slot is not None:
                 rf_var[rf_slot] = v
         used = set(re.findall(r"\bk\d+\b", "\n".join(body)))
@@ -305,8 +325,8 @@ class _Gen:
                          for line in decls + body)
         return (KERNEL % {"s": s, "body": text}
                 + ENTRY % {"s": s, "n_instr": len(seg.instrs),
-                           "n_in": len(seg.in_nodes),
-                           "n_out": len(seg.out_nodes)})
+                           "n_in": len(seg.src),
+                           "n_out": len(seg.dst)})
 
 
 def _needed_limbs(seg, L):
@@ -349,8 +369,9 @@ def _needed_limbs(seg, L):
 
 
 def generate(segments, field):
-    """CUDA C++ source of K4 for a program's segments over one field
-    (TorchField): one kernel and one entry point ctpu_k4_seg<s> each."""
+    """CUDA C++ source of K4 for a program's placed segments
+    (SegmentedProgram.kernels) over one field (TorchField): one kernel and
+    one entry point ctpu_k4_seg<s> each."""
     if field.L > 16:
         raise ValueError(f"K4 takes fields of at most 16 limbs (wide.cuh's "
                          f"MAX_L), not {field.L}")

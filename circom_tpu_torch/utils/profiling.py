@@ -133,7 +133,8 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
     out of the host times (a per-op run records some 180,000, slow to
     summarise); the CUDA runtime's calls stay.  Kernels whose names hold
     a string of `show` are printed beside the eight longest.  Returns
-    (device busy ms, wall ms, kernels and copies) a run; the busy time
+    (device busy ms, wall ms, kernels and copies, {name: (count, device
+    ms)} of the kernels and copies) a run; the busy time
     sums every card's kernels, so on several cards it exceeds the wall
     time where their work overlaps (on one card's stream the kernels run
     one at a time, and the sum is the time the card was busy)."""
@@ -179,4 +180,6 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
     _say("  host time a run by op: " + ", ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3 / reps:.3f} ms "
         f"x{e.count / reps:g}" for e in host[:6]))
-    return busy, ms, n_kernels
+    return busy, ms, n_kernels, {
+        e.key: (e.count / reps, e.self_device_time_total / 1e3 / reps)
+        for e in events}

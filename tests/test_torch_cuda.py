@@ -25,8 +25,8 @@ from circom_tpu_torch.backend.interp import (gather_n, gather_w, interp_k1,
 from circom_tpu_torch.backend.ks import KsProgram
 from circom_tpu_torch.backend.interp_ref import (gather_n_rows, gather_rows,
                                                  run_plan)
-from circom_tpu_torch.backend.segments import (SegmentedProgram, segment_k4,
-                                               segment_ref)
+from circom_tpu_torch.backend.segments import (UNWRITTEN, SegmentedProgram,
+                                               segment_k4, segment_ref)
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits import sha256_io
 from circom_tpu_torch.circuits.gen_poseidon import generate
@@ -525,21 +525,21 @@ def test_k1cd_path_matches_plain_host_and_r1cs(card, name):
 
 
 def k4_against_plain(prog, x):
-    """Every segment of a segmented program through K4 and its plain
-    version on the same inputs: every output row bit for bit."""
+    """Every kernel of a segmented program through K4 and through its plain
+    version, in place, each on its own witness and crossing buffer, from
+    the same inputs: after each segment every witness and crossing row
+    bit for bit; at the end no witness row left unwritten."""
     sp = prog.fused
-    xi = x.view(torch.int32)
-    vals = {}
-    for s, seg in enumerate(sp.segments):
-        xin = torch.stack([xi[sp.xt.iidx[a]] if sp.xt.kind[a] == "input"
-                           else vals[a] for a in seg.in_nodes]) \
-            .view(torch.uint32)
-        got = segment_k4(sp, s, xin)
-        want = segment_ref(sp.field, seg, xin)
+    B = x.shape[-1]
+    got, want = sp.buffers(B, UNWRITTEN), sp.buffers(B, UNWRITTEN)
+    for s, seg in enumerate(sp.kernels):
+        segment_k4(sp, s, x, *got)
+        segment_ref(sp.field, seg, x, *want)
         torch.cuda.synchronize()
-        assert torch.equal(as_i64(got), as_i64(want)), f"segment {s}"
-        for row, a in enumerate(seg.out_nodes):
-            vals[a] = got.view(torch.int32)[row]
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), \
+                f"segment {s}"
+    assert not bool((got[0].view(torch.int32) == UNWRITTEN).any())
 
 
 @pytest.mark.parametrize("prime", ["bn128", "goldilocks"])
@@ -584,7 +584,9 @@ def test_k4_num2bits254_matches_plain_host_and_r1cs(card, copies):
     k4_against_plain(prog, to_device(x, card))
     build.reset_launches()
     wit = prog.run(x)
-    assert build.LAUNCHES["k4"] == len(prog.fused.segments)
+    torch.cuda.synchronize()
+    # the run is K4 alone: one launch a segment, no copy or gather kernel
+    assert dict(build.LAUNCHES) == {"k4": len(prog.fused.kernels)}
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
                           device=card, lanes=256)
     assert bool(checker.check(wit).all())

@@ -429,7 +429,8 @@ def test_every_launch_enters_its_tensors_device(chain3, launches):
                          mode="segments").fused.for_field(
                              TorchField(spec, meta))
     seg._lib = launches.lib
-    segments_mod.launch_k4(seg, 0, u32(1, 16, B), u32(1, 16, B))
+    segments_mod.launch_k4(seg, 0, u32(seg.n_inputs, 16, B),
+                           u32(seg.n_witness, 16, B), u32(seg.n_cross, 16, B))
     assert [name for name, _ in launches.seen] == [
         "ctpu_interp_k1", "ctpu_gather_rows", "ctpu_gather_n",
         "ctpu_field_elementwise", "ctpu_k4_seg0"]

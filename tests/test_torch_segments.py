@@ -32,7 +32,8 @@ from circom_tpu.backend.jax_backend import WitnessProgram as JaxProgram
 from circom_tpu.compiler.pipeline import compile_source as jax_compile
 from circom_tpu.field.primes import field_spec as jax_field_spec
 from circom_tpu_torch.backend.plan import KERNEL_OPS
-from circom_tpu_torch.backend.segments import SegmentedProgram, segment_ref
+from circom_tpu_torch.backend.segments import (UNWRITTEN, SegmentedProgram,
+                                               segment_ref)
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits.sources import (lessthan_source,
                                                num2bits_source,
@@ -248,11 +249,11 @@ def host_library(text, n_segments, tmp_path):
     text = re.sub(r'extern "C" int ctpu_k4_seg\d+\(.*?\n}\n', "", text,
                   flags=re.S)
     for s in range(n_segments):
-        text += (f'extern "C" void host_seg{s}(const uint32_t* xin, '
-                 f'uint32_t* xout, long long B) {{\n'
+        text += (f'extern "C" void host_seg{s}(const uint32_t* x, '
+                 f'uint32_t* w, uint32_t* c, long long B) {{\n'
                  f'  for (long long l = 0; l < B; ++l) {{\n'
                  f'    blockIdx.x = l / THREADS; threadIdx.x = l % THREADS;'
-                 f'\n    k4_seg{s}(xin, xout, B);\n  }}\n}}\n')
+                 f'\n    k4_seg{s}(x, w, c, B);\n  }}\n}}\n')
     (tmp_path / "cuda_runtime.h").write_text(SHIM)
     (tmp_path / "k4.cpp").write_text(text)
     so = tmp_path / "k4.so"
@@ -262,31 +263,38 @@ def host_library(text, n_segments, tmp_path):
          "-o", str(so), str(tmp_path / "k4.cpp")],
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    for s in range(n_segments):
+        getattr(lib, f"host_seg{s}").argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong]
+    return lib
+
+
+def ptr(t):
+    return t.view(torch.int32).numpy().ctypes.data
 
 
 @pytest.mark.parametrize("name, prime", [
     ("ops", "bn128"), ("ops", "goldilocks"), ("n2b254x4", "bn128"),
     ("cross", "goldilocks")])
 def test_generated_source_on_the_host_matches_plain(name, prime, tmp_path):
+    """Each segment's generated kernel, built by g++, against the plain
+    version on the same buffers: the inputs, and the witness and crossing
+    rows the earlier segments wrote; every witness and crossing row equal
+    after each segment."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the generated source for the host")
     _, seg, cc = programs(name, prime)
-    lib = host_library(seg.source(), len(seg.segments), tmp_path)
+    lib = host_library(seg.source(), len(seg.kernels), tmp_path)
     B = 48
     cols = edge_columns(prime, seg.n_inputs, cc.input_range_hints(), B, 43)
-    x = torch.from_numpy(limbs(cols, seg.L).view(np.int32))
-    vals = {}
-    for s, sg in enumerate(seg.segments):
-        parts = [x[seg.xt.iidx[a]] if seg.xt.kind[a] == "input"
-                 else vals[a] for a in sg.in_nodes]
-        xin = torch.stack(parts).contiguous()
-        want = segment_ref(seg.field, sg, xin.view(torch.uint32)) \
-            .view(torch.int32)
-        got = np.zeros((len(sg.out_nodes), seg.L, B), np.int32)
-        fn = getattr(lib, f"host_seg{s}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-        fn(xin.numpy().ctypes.data, got.ctypes.data, B)
-        np.testing.assert_array_equal(got, want.numpy(), err_msg=f"seg {s}")
-        for row, a in enumerate(sg.out_nodes):
-            vals[a] = want[row]
+    x = torch.from_numpy(limbs(cols, seg.L).view(np.int32)) \
+        .view(torch.uint32)
+    got, want = seg.buffers(B, UNWRITTEN), seg.buffers(B, UNWRITTEN)
+    for s, sg in enumerate(seg.kernels):
+        segment_ref(seg.field, sg, x, *want)
+        getattr(lib, f"host_seg{s}")(ptr(x), ptr(got[0]), ptr(got[1]), B)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.view(torch.int32).numpy(),
+                                          w.view(torch.int32).numpy(),
+                                          err_msg=f"seg {s}")
