@@ -23,6 +23,10 @@ mismatch exits non-zero.  The paths:
 - the stdlib comparators over bn128 (LessThan(64), LessEqThan(64),
   IsEqual() and Num2Bits(64)), batch 65,536: run and R1CS check (K1a,
   K1c, K1d, KW);
+- the same comparators at each of the eight --prime fields, batch 65,536
+  (phase P8): run (K1, KW), R1CS check of every lane, the edge lanes 0,
+  1, p - 1 and p // 2 and random ones against the host calculator, K1
+  against its plain executor on a slice;
 - Num2Bits(254) and 4 x Num2Bits(254) over bn128, batch 65,536, which
   the interpreter refuses: run on the segments (K4, one and four
   segments, each writing its rows of the witness in place) and R1CS
@@ -61,19 +65,25 @@ mismatch exits non-zero.  The paths:
 
 Unit plans hold every K1b, K1c and K1d opcode at the edge operands
 against its plain version, and K1 is held against the plain executor on
-every path's full plan; K4 is held against its plain version on every
-segment of the segmented paths and on two op circuits that reach every
-op a segment can hold.  KC, the R1CS check of every path, is held against
-the check's plain route on Poseidon2's 65,536 lanes and SHA256's 8,192 in
-one launch each, a SHA256 window read in place, random constraint systems
-at five fields and the accumulators' worst-case rows (phase KC); every
-checked path's check is one KC launch a batch (one a shard on the mesh)
-that copies nothing of z.  KW, the full-limb witness's assembly, is held
-against its plain version (the parts route: K2, K3, the plain widening,
-index_put) on the full-limb SHA256, comparators and MerkleInclusion(32)
-witnesses, and timed against its byte bound beside that route (phase
-KW); a run of those paths launches K1 and KW and neither K2 nor K3.
-Every path's sampled lanes equal the host calculator.
+every path's full plan, K1 and K3 reading the caller's input rows where
+they lie and their plain versions the split of the same rows (K3 also on
+rows of 1, 2 and 16 limbs); each interpreter path (P, M, F, G, D, C, MM,
+MK) prints a run's median ms, its peak allocation and its profiled
+device operations, which must be its own kernels once a run (K1, then KW
+or K2; M: K1 and K3) and nothing else; K4 is held against its plain
+version on every segment of the segmented paths and on two op circuits
+that reach every op a segment can hold. KC, the R1CS check of every
+path, is held against the check's plain route on Poseidon2's 65,536
+lanes and SHA256's 8,192 in one launch each, a SHA256 window read in
+place, random constraint systems at five fields and the accumulators'
+worst-case rows (phase KC); every checked path's check is one KC launch
+a batch (one a shard on the mesh) that copies nothing of z. KW, the
+full-limb witness's assembly, is held against its plain version (the
+parts route: K2, K3, the plain widening, index_put) on the full-limb
+SHA256, comparators and MerkleInclusion(32) witnesses, and timed against
+its byte bound beside that route (phase KW); a run of those paths
+launches K1 and KW and neither K2 nor K3. Every path's sampled lanes
+equal the host calculator.
 
     python3 chip_smoke.py            # needs a CUDA card
     python3 chip_smoke.py --rehearse # CPU, small batch, plain versions only;
@@ -92,6 +102,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -106,9 +117,11 @@ try:
                                                   kc_products,
                                                   kc_rows_per_chunk)
     from circom_tpu_torch.backend.interp import (gather_n, gather_w,
-                                                 interp_k1, launch_gather_w)
-    from circom_tpu_torch.backend.interp_ref import (gather_n_rows,
-                                                     gather_rows, run_plan)
+                                                 interp_k1, k1_plain,
+                                                 launch_gather_n,
+                                                 launch_gather_w,
+                                                 narrow_inputs, split_inputs)
+    from circom_tpu_torch.backend.interp_ref import gather_n_rows, gather_rows
     from circom_tpu_torch.backend.ks import KS_WIDTHS, launch_scan
     from circom_tpu_torch.backend.torch_backend import WitnessProgram
     from circom_tpu_torch.circuits import sha256_io
@@ -129,7 +142,8 @@ try:
                                                    segment_ops_source)
     from circom_tpu_torch.compiler.pipeline import compile_source
     from circom_tpu_torch.convert import (K1B_OPCODES, K1C_OPCODES,
-                                          K1D_OPCODES, narrow_unit_arrays,
+                                          K1D_OPCODES, input_rows,
+                                          narrow_unit_arrays,
                                           plan_from_arrays, to_device,
                                           unit_arrays, unit_inputs,
                                           unit_shifts)
@@ -172,6 +186,7 @@ SHA_FULL_BATCH = 8192   # the full-limb SHA256 witness: 14.3 GB at 8,192
 SHA_PLAIN_BATCH = 4096  # K1b and K3 against the plain versions, all rows
 CHECK_LANES = 8192      # the plain route's window of Poseidon2's check
 SAMPLE_LANES = 64
+CHECK_RUNS = 7          # a check's host-clock median: of this many checks
 SHA_HOST_LANES = 4      # the host calculator takes ~4 s a SHA256 lane
 MM_BATCH = 65536
 MK_BATCH = 16384        # a Merkle(32) lane holds ~1.4 MB: bank and witness
@@ -709,12 +724,12 @@ def phase_kw(prog, x, label):
     followed by the parts route, each from the inputs: its ms and the
     memory it allocated at its peak.  Returns the numbers."""
     interp, dev, plan = prog.interp, prog.device, prog.interp.plan
-    inputs, x_w, x_n = interp._inputs(x)
+    inputs, x_w, _ = interp._inputs(x)
     B = inputs.shape[-1]
-    bank, bank_n = interp_k1(plan, prog.field, x_w, x_n)
+    bank, bank_n = interp_k1(plan, prog.field, inputs)
 
     def parts():
-        return interp.assemble_parts(inputs, x_w, x_n, bank, bank_n)
+        return interp.assemble_parts(inputs, x_w, bank, bank_n)
 
     got = bare(dev, lambda: interp.assemble_kw(inputs, bank, bank_n),
                parts)()
@@ -739,17 +754,16 @@ def phase_kw(prog, x, label):
         f" of {W} bank rows into the same output {sel_ms:.4f} ms")
 
     def parts_run():
-        i, w, n = interp._inputs(x)
-        return interp.assemble_parts(i, w, n, *interp_k1(plan, prog.field,
-                                                         w, n))
+        i, w, _ = interp._inputs(x)
+        return interp.assemble_parts(i, w, *interp_k1(plan, prog.field, i))
 
     prog.run(x)
     _, run_ms, run_gib = run_peak(dev, lambda: prog.run(x))
     parts_run()
     _, old_ms, old_gib = run_peak(dev, parts_run)
     say(f"  {label} run: K1 + KW {run_ms:.2f} ms, allocating {run_gib:.2f} "
-        f"GiB at its peak; K1 + the parts route {old_ms:.2f} ms, "
-        f"{old_gib:.2f} GiB")
+        f"GiB at its peak; the input split, K1 and the parts route "
+        f"{old_ms:.2f} ms, {old_gib:.2f} GiB")
     return {"err": err, "ms": kw_ms, "plain_ms": parts_ms, "bytes": nbytes,
             "index_select_ms": sel_ms, "rows": W, "B": B, "run_ms": run_ms,
             "run_gib": run_gib, "parts_run_ms": old_ms,
@@ -771,38 +785,55 @@ def add_kw_row(rep, kw):
             index_select_ms=f["index_select_ms"], **extra)
 
 
-def phase_interp(rep, prog, x_w):
-    """K1a against the plain executor on the Poseidon2 plan, emitted bank
-    rows compared bit for bit after the trailing REDC."""
+def k1_input_words(plan, lin):
+    """The 32-bit words of input a lane that K1 must read: L a wide input,
+    limbs 0 and 1 (limb 0 where Lin = 1) a narrow one."""
+    return plan.L * len(plan.win_order) + min(lin, 2) * len(plan.nin_order)
+
+
+def phase_interp(rep, prog, x):
+    """K1a against the plain executor on the Poseidon2 plan, K1 reading
+    the input rows x where they lie, the plain executor their split;
+    emitted bank rows compared bit for bit after the trailing REDC."""
     plan, f = prog.interp.plan, prog.field
-    B = x_w.shape[-1]
-    x_n = torch.zeros((0, B), dtype=torch.int32, device=x_w.device)
-    got, _ = interp_k1(plan, f, x_w, x_n)
+    B = x.shape[-1]
+    got, _ = interp_k1(plan, f, x)
     (want, _), plain_ms = wall_ms(
-        lambda: run_plan(plan, f, as_i64(x_w), as_i64(x_n)))
-    rows = torch.as_tensor(plan.emitted_rows(), device=x_w.device)
+        lambda: k1_plain(plan, f, *split_inputs(plan, x)))
+    rows = torch.as_tensor(plan.emitted_rows(), device=x.device)
     err = max_abs_err(got.view(torch.int32).index_select(0, rows)
-                      .view(torch.uint32), want.index_select(0, rows))
+                      .view(torch.uint32), want.view(torch.int32)
+                      .index_select(0, rows).view(torch.uint32))
     del want
-    nbytes = 4 * plan.L * B * (x_w.shape[0] + len(rows))
+    nbytes = 4 * B * (k1_input_words(plan, x.shape[1]) + plan.L * len(rows))
     rep.add("interp_k1a", "circom_tpu_torch/ops/cuda/interp.cu",
             "circom_tpu/backend/interp.py:2462", err,
-            time_ms(lambda: interp_k1(plan, f, x_w, x_n), reps=3), plain_ms,
+            time_ms(lambda: interp_k1(plan, f, x), reps=3), plain_ms,
             nbytes, k1_ops(plan, f.p.bit_length()) * B,
             plan="Poseidon2/bn128")
     return got
 
 
+def median_ms(fn, runs=CHECK_RUNS):
+    """(median, least, most) ms of `runs` calls of fn by the host clock,
+    one at a time."""
+    ms = sorted(wall_ms(fn)[1] for _ in range(runs))
+    return ms[len(ms) // 2], ms[0], ms[-1]
+
+
 def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
                  never=(), n_lanes=SAMPLE_LANES, profile_check=False,
-                 native=None):
+                 native=None, trace=None, rehearse=False):
     """One witness path: WitnessProgram.run at the inputs' batch, then the
     R1CS check of every lane (launch counts read around exactly this;
-    kernels in `never` must not launch), a warm timed repeat, and n_lanes
-    sampled lanes against the host calculator (host_map: the lane's input
-    ints -> the input map) and, given the circuit's NativeCalculator
-    `native`, SAMPLE_LANES against it; with profile_check, where the
-    check's device time goes (KC's share)."""
+    kernels in `never` must not launch), a warm timed repeat, the check's
+    median of CHECK_RUNS, and n_lanes sampled lanes against the host
+    calculator (host_map: the lane's input ints -> the input map) and,
+    given the circuit's NativeCalculator `native`, SAMPLE_LANES against
+    it; with profile_check, where the check's device time goes (KC's
+    share).  With `trace` (an interpreter path's label), interp_run's
+    numbers ("trace"), then the check's median again: a profiler pass
+    before a host-clock reading is seen in the two medians."""
     dev, spec = prog.device, prog.spec
     B = inputs.shape[-1]
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
@@ -828,13 +859,23 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
     one_launch(paths, name, dev, 1)
     wit, run_ms, check_ms, seg = run_and_check()
     again = sorted(wall_ms(lambda: prog.run(inputs))[1] for _ in range(5))
+    check = median_ms(lambda: checker.check_detailed(wit))
     say(f"  witnesses: {tuple(wit.shape)} in {run_ms:.1f} ms "
         f"({B / run_ms * 1e3:.0f} witnesses/s, one run after a check; "
         f"{seg} device memory segments allocated in it); R1CS check of all "
-        f"{B} lanes in {check_ms:.1f} ms; then a run at a time "
+        f"{B} lanes in {check_ms:.1f} ms, then {check[0]:.3f} ms (median of "
+        f"{CHECK_RUNS}, {check[1]:.3f}-{check[2]:.3f}); then a run at a time "
         f"{again[2]:.3f} ms (median of 5, {again[0]:.3f}-{again[-1]:.3f})")
+    out = {"run_ms": run_ms, "check_ms": check[0], "check_one_ms": check_ms}
     if profile_check and dev.type == "cuda":
         profile_check_breakdown(checker, wit, check_ms)
+    if trace:
+        out["trace"] = interp_run(prog, inputs, trace, rehearse)
+        after = median_ms(lambda: checker.check_detailed(wit))
+        say(f"  {trace}: R1CS check after the run's profiler pass "
+            f"{after[0]:.3f} ms (median of {CHECK_RUNS}, "
+            f"{after[1]:.3f}-{after[2]:.3f}), {check[0]:.3f} before it")
+        out["check_after_trace_ms"] = after[0]
     native_lanes = SAMPLE_LANES if native else 0
     lanes = random.Random(SEED).sample(range(B),
                                        min(max(n_lanes, native_lanes), B))
@@ -847,7 +888,7 @@ def witness_path(paths, name, cc, prog, inputs, must_launch, host_map,
                 raise SystemExit(f"FAIL {name} lane {lane}: witness differs "
                                  "from the native calculator")
         say(f"  {len(want)} sampled lanes equal the native calculator")
-    return {"run_ms": run_ms, "check_ms": check_ms}
+    return out
 
 
 def poseidon2_path(paths, cc, spec, dev, B):
@@ -859,7 +900,8 @@ def poseidon2_path(paths, cc, spec, dev, B):
     times = witness_path(paths, "poseidon2", cc, prog, inputs,
                          ("interp_k1a", "gather_w", "r1cs_check"),
                          lambda ins: {"inputs": ins}, never=K5_K6,
-                         profile_check=True)
+                         profile_check=True, trace="P",
+                         rehearse=paths.rehearse)
     return prog, inputs, times
 
 
@@ -895,15 +937,18 @@ def phase_entry_point(cc, device, name, batch):
 
 def phase_narrow_units(dev, B):
     """Phase A: every K1b opcode at the edge shift counts (a unit plan,
-    one step each) and K3 on random int32 values, against ops/narrow.py
-    and the plain gather, bit for bit."""
+    one step each, its narrow inputs read in two-limb input rows) and K3
+    on random int32 values and on narrow inputs read in input rows of 1,
+    2 and 16 limbs (limbs above 1 not zero), against ops/narrow.py, the
+    plain split and the plain gather, bit for bit."""
     rng = np.random.default_rng(SEED + 4)
     arrays, cases = narrow_unit_arrays(16, EDGE_COUNTS)
     plan = plan_from_arrays(arrays, dev)
     f = TorchField(field_spec("bn128"), dev)
     x_n = random_int32(rng, (2, B), dev)
-    x_w = torch.zeros((0, 16, B), dtype=torch.uint32, device=dev)
-    _, got = interp_k1(plan, f, x_w, x_n)
+    x = to_device(input_rows(plan, np.zeros((0, 16, B), np.uint32),
+                             x_n.cpu().numpy())[:, :2].copy(), dev)
+    _, got = interp_k1(plan, f, x)
     a, b = as_i64(x_n)
     for t, (op, s) in enumerate(cases):
         want = NARROW_OPS[op](a, b, s)
@@ -913,17 +958,23 @@ def phase_narrow_units(dev, B):
     say(f"  K1b: {len(K1B_OPCODES)} opcodes x shift counts {EDGE_COUNTS} "
         f"at batch {B} bit-exact")
     for b_ in (B, B + 3):   # vector and scalar paths of K3
-        bank_n = random_int32(rng, (300, b_), dev)
-        xs = random_int32(rng, (40, b_), dev)
-        src = to_device(rng.integers(0, 340, size=2000).astype(np.int32), dev)
-        shift = to_device(np.resize(np.asarray(EDGE_COUNTS, np.int32), 2000),
-                          dev)
-        if not torch.equal(gather_n(bank_n, xs, src, shift),
-                           gather_n_rows(bank_n, xs, src, shift)):
-            raise SystemExit(f"FAIL K3 at batch {b_}: differs from the "
-                             "plain gather")
-    say(f"  K3: 2,000 rows from bank and inputs, shifts {EDGE_COUNTS}, "
-        f"batch {B} and {B + 3} bit-exact")
+        for lin in (2, 16, 1):
+            bank_n = random_int32(rng, (300, b_), dev)
+            xs = to_device(rng.integers(0, 1 << 16, size=(50, lin, b_),
+                                        dtype=np.uint32), dev)
+            order = to_device(rng.permutation(50)[:40].astype(np.int32), dev)
+            src = to_device(rng.integers(0, 340, size=2000).astype(np.int32),
+                            dev)
+            shift = to_device(np.resize(np.asarray(EDGE_COUNTS, np.int32),
+                                        2000), dev)
+            x_n = narrow_inputs(xs, order)
+            if not torch.equal(gather_n(bank_n, xs, order, src, shift),
+                               gather_n_rows(bank_n, x_n, src, shift)):
+                raise SystemExit(f"FAIL K3 at batch {b_}, {lin}-limb input "
+                                 "rows: differs from the plain gather")
+    say(f"  K3: 2,000 rows from bank and 40 narrow inputs read in input "
+        f"rows of 2, 16 and 1 limbs, shifts {EDGE_COUNTS}, batch {B} and "
+        f"{B + 3} bit-exact")
 
 
 def phase_k1cd_units(dev, B):
@@ -940,10 +991,10 @@ def phase_k1cd_units(dev, B):
         arrays, cases = unit_arrays(spec.p, L, ops)
         plan = plan_from_arrays(arrays, dev)
         f = TorchField(spec, dev)
-        x_w, x_n = (to_device(a, dev)
-                    for a in unit_inputs(spec.p, L, B, SEED + 8))
-        got_w, got_n = interp_k1(plan, f, x_w, x_n)
-        want_w, want_n = run_plan(plan, f, as_i64(x_w), as_i64(x_n))
+        x = to_device(input_rows(plan, *unit_inputs(spec.p, L, B, SEED + 8)),
+                      dev)
+        got_w, got_n = interp_k1(plan, f, x)
+        want_w, want_n = k1_plain(plan, f, *split_inputs(plan, x))
         n_idx, w_idx = plan.nw_idx.tolist(), plan.wd_idx.tolist()
         for t, (op, aux) in enumerate(cases):
             if t in n_idx:
@@ -968,11 +1019,11 @@ def phase_k1_path(prog, x, label):
     operations at the path's batch."""
     plan, f = prog.interp.plan, prog.field
     dev = prog.device
-    _, x_w, x_n = prog.interp._inputs(x)
-    B = x_w.shape[-1]
-    got_w, got_n = interp_k1(plan, f, x_w, x_n)
+    x, x_w, x_n = prog.interp._inputs(x)
+    B = x.shape[-1]
+    got_w, got_n = interp_k1(plan, f, x)
     (want_w, want_n), plain_ms = wall_ms(
-        lambda: run_plan(plan, f, as_i64(x_w), as_i64(x_n)))
+        lambda: k1_plain(plan, f, x_w, x_n))
     rows = torch.as_tensor(plan.emitted_rows(), device=dev)
     rows_n = torch.as_tensor(plan.emitted_rows(narrow=True), device=dev)
     err = max(max_abs_err(got_w.view(torch.int32).index_select(0, rows)
@@ -980,9 +1031,9 @@ def phase_k1_path(prog, x, label):
               max_abs_err(got_n.index_select(0, rows_n),
                           want_n.index_select(0, rows_n)))
     del got_w, got_n, want_w, want_n
-    ms = time_ms(lambda: interp_k1(plan, f, x_w, x_n), reps=3)
-    nbytes = 4 * B * (plan.L * (x_w.shape[0] + len(rows))
-                      + x_n.shape[0] + len(rows_n))
+    ms = time_ms(lambda: interp_k1(plan, f, x), reps=3)
+    nbytes = 4 * B * (k1_input_words(plan, x.shape[1]) + plan.L * len(rows)
+                      + len(rows_n))
     ops = k1_ops(plan, f.p.bit_length()) * B
     say(f"  K1 on the {label} plan ({plan.n_steps} steps, parts "
         f"{', '.join(plan.parts)}): {len(rows)} wide and {len(rows_n)} "
@@ -991,6 +1042,93 @@ def phase_k1_path(prog, x, label):
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operation bound "
         f"{ops / LANE_OPS_PER_S * 1e3:.4f} ms)")
     return err, ms, plain_ms, nbytes, ops
+
+
+# phase P8: the eight fields that --prime takes
+P8_PRIMES = ("bn128", "bls12381", "bls12377", "goldilocks", "grumpkin",
+             "pallas", "vesta", "secq256r1")
+P8_HOST_LANES = 16      # the edge lanes and random ones, against the host
+P8_K1_LANES = 256       # K1 against the plain executor
+
+
+def prime_inputs(spec, B, seed, dev):
+    """The comparators' inputs a, b as uint32 limbs (2, L, B) on dev:
+    edge pairs in the first lanes (0, 1, p - 1 and p // 2 on both inputs,
+    each pair's sum and differences inside the gadgets' bits: p - 1 with
+    1, p // 2 with p // 2 + 1), then random a, b below 2^63."""
+    p, L = spec.p, spec.n_limbs
+    ab = np.random.default_rng(seed).integers(0, 2 ** 63, size=(2, B),
+                                              dtype=np.uint64)
+    x = np.zeros((2, L, B), np.uint32)
+    for i in range(4):
+        x[:, i] = (ab >> np.uint64(16 * i)) & np.uint64(0xFFFF)
+    pairs = [(0, 0), (1, p - 1), (p - 1, 1), (p // 2, p // 2 + 1),
+             (p // 2 + 1, p // 2), (1, 0)]
+    for j, pair in enumerate(pairs[:B]):
+        for i, v in enumerate(pair):
+            x[i, :, j] = int_to_limbs(v, L)
+    return to_device(x, dev)
+
+
+def phase_primes(paths, dev, B, b_k1):
+    """Phase P8: the interpreter at each of the eight --prime fields.  The
+    stdlib comparators (C's circuit) compiled at the field run at B lanes
+    through WitnessProgram.run, K1 then KW, and the R1CS check (KC), the
+    launches counted around exactly that (path p8_<field>); every lane
+    passes the check; the edge lanes (0, 1, p - 1, p // 2) and random ones
+    equal the host calculator; K1 equals its plain executor on every
+    emitted row of a slice of b_k1 lanes.  Returns each field's run and
+    check ms: the counted (first) ones, and each warm, the median of
+    CHECK_RUNS."""
+    out = {}
+    for k, prime in enumerate(P8_PRIMES):
+        spec = field_spec(prime)
+        cc = compile_source(comparators_source(), prime=prime)
+        prog = WitnessProgram(cc.build_tape()[0], spec, device=dev,
+                              input_ranges=cc.input_range_hints())
+        if prog.interp is None:
+            raise SystemExit(f"FAIL P8 {prime}: the interpreter planner "
+                             "refused the comparators")
+        x = prime_inputs(spec, B, SEED + 40 + k, dev)
+        checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
+                              device=dev)
+
+        def run_and_check():
+            wit, run_ms = wall_ms(lambda: prog.run(x))
+            ok, check_ms = wall_ms(lambda: checker.check(wit))
+            return wit, int((~ok).sum()), run_ms, check_ms
+
+        wit, n_bad, run_ms, check_ms = paths.run(
+            f"p8_{prime}", run_and_check, must_launch(prog),
+            never_launch(prog))
+        one_launch(paths, f"p8_{prime}", dev, 1)
+        if n_bad:
+            raise SystemExit(f"FAIL P8 {prime}: {n_bad} of {B} lanes violate "
+                             "a constraint")
+        lanes = list(range(min(6, B))) + random.Random(SEED + k).sample(
+            range(6, B), min(P8_HOST_LANES, B) - min(6, B))
+        ins, got = lane_values(wit, x, lanes)
+        warm_run = median_ms(lambda: prog.run(x))
+        warm_check = median_ms(lambda: checker.check(wit))
+        del wit
+        check_host_lanes(cc, ins, got, lanes,
+                         lambda v: {"a": v[0], "b": v[1]}, f"P8 {prime}")
+        err = phase_k1_path(prog, x[..., :b_k1].contiguous(),
+                            f"comparators/{prime}")[0]
+        if err:
+            raise SystemExit(f"FAIL P8 {prime}: K1 differs from its plain "
+                             f"executor (max abs err {err})")
+        say(f"  {prime} (L = {spec.n_limbs}, parts "
+            f"{', '.join(prog.interp.plan.parts)}): {B} lanes in "
+            f"{run_ms:.2f} ms, every lane passes its check "
+            f"({check_ms:.2f} ms); warm, medians of {CHECK_RUNS}: run "
+            f"{warm_run[0]:.3f} ms ({warm_run[1]:.3f}-{warm_run[2]:.3f}), "
+            f"check {warm_check[0]:.3f} ms ({warm_check[1]:.3f}-"
+            f"{warm_check[2]:.3f})")
+        out[prime] = {"first_run_ms": run_ms, "first_check_ms": check_ms,
+                      "run_ms": warm_run[0], "check_ms": warm_check[0]}
+        del prog, x
+    return out
 
 
 def new_paths(paths, rep, dev, B, b_div, rehearse):
@@ -1008,10 +1146,8 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     out["poseidon2_gl"] = witness_path(
         paths, "poseidon2_gl", cc_gl, prog_gl, x_gl,
         ("interp_k1c", "interp_k1a", "gather_w", "r1cs_check"),
-        lambda ins: {"inputs": ins}, never=K5_K6)
-    if not rehearse:
-        profile_breakdown(lambda: prog_gl.run(x_gl),
-                          out["poseidon2_gl"]["run_ms"], runs=20)
+        lambda ins: {"inputs": ins}, never=K5_K6, trace="G",
+        rehearse=rehearse)
 
     bn = field_spec("bn128")
     cc_bd = compile_source(BIGINT_DIV_SRC)
@@ -1024,10 +1160,8 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     out["bigdiv"] = witness_path(
         paths, "bigdiv", cc_bd, prog_bd, x_bd,
         ("interp_k1d", "interp_k1a", "gather_w", "r1cs_check"),
-        lambda ins: {"a": ins[0], "b": ins[1]}, never=K5_K6)
-    if not rehearse:
-        profile_breakdown(lambda: prog_bd.run(x_bd), out["bigdiv"]["run_ms"],
-                          runs=20)
+        lambda ins: {"a": ins[0], "b": ins[1]}, never=K5_K6, trace="D",
+        rehearse=rehearse)
 
     cc_cmp = compile_source(comparators_source())
     prog_cmp = WitnessProgram(cc_cmp.build_tape()[0], bn, device=dev)
@@ -1036,13 +1170,8 @@ def new_paths(paths, rep, dev, B, b_div, rehearse):
     out["comparators"] = witness_path(
         paths, "comparators", cc_cmp, prog_cmp, x_cmp,
         ("interp_k1d", "interp_k1c", "interp_k1a", "assemble", "r1cs_check"),
-        lambda ins: {"a": ins[0], "b": ins[1]}, never=K5_K6 + KW_NEVER)
-    if not rehearse:
-        # K1 and KW alone: traced one run at a time, such a run's kernels
-        # go unrecorded
-        out["comparators"]["idle"] = idle_of(profile_breakdown(
-            lambda: prog_cmp.run(x_cmp), out["comparators"]["run_ms"],
-            runs=10))
+        lambda ins: {"a": ins[0], "b": ins[1]}, never=K5_K6 + KW_NEVER,
+        trace="C", rehearse=rehearse)
     say("phase KW: KW against the parts route on C's witness")
     out["comparators"]["kw"] = phase_kw(prog_cmp, x_cmp, "comparators/bn128")
 
@@ -1202,10 +1331,9 @@ def phase_k4_program(prog, x, label):
 def segment_run(prog, x, label, rehearse, runs=10):
     """A segmented path's run: its median ms over `runs` runs a run at a
     time, the memory it allocates at its peak beyond what was allocated
-    before, and its device operations from one profiler step of 20 runs
-    (profile_breakdown, after its traced warm-up step), which must be each
-    of K4's kernels once a run and nothing else, so that a trace that
-    missed a kernel fails too; with the device's idle share."""
+    before, and its device operations (traced_ops), which must be each of
+    K4's kernels once a run and nothing else, so that a trace that missed
+    a kernel fails too; with the device's idle share."""
     dev = prog.device
     ms = sorted(wall_ms(lambda: prog.run(x))[1] for _ in range(runs))
     median = ms[len(ms) // 2]
@@ -1215,17 +1343,142 @@ def segment_run(prog, x, label, rehearse, runs=10):
     out = {"median_ms": median, "peak_gib": gib}
     if rehearse:
         return out
-    profile = profile_breakdown(lambda: prog.run(x), median, reps=1,
-                                runs=20)
-    ops = {k: n for k, (n, _t) in profile[3].items()}
-    want = {f"k4_seg{s}": 1.0 for s in range(len(prog.fused.kernels))}
-    got = {f"k4_seg{m.group(1)}" if m else k: n for k, n in ops.items()
-           for m in [re.search(r"k4_seg(\d+)", k)]}
-    if got != want:
-        raise SystemExit(f"FAIL {label}: a run's device operations are "
-                         f"{ops}, not each of K4's kernels once: {want}")
+    n_k4 = len(prog.fused.kernels)
+    profile, got = traced_ops(
+        lambda: prog.run(x), median, label,
+        {f"k4_seg{s}": 1.0 for s in range(n_k4)},
+        lambda k: (lambda m: f"k4_seg{m.group(1)}" if m else k)(
+            re.search(r"k4_seg(\d+)", k)),
+        {"k4": n_k4})
     out.update(idle=idle_of(profile), device_ops=got)
     return out
+
+
+# profile_breakdown's passes in traced_ops: a traced warm-up step and one
+# step of TRACED_RUNS runs, TRACE_PAD s of host time around each step's
+# runs, each pass at most TRACE_TRIES times
+TRACED_RUNS = 20
+TRACE_PAD = 0.01
+TRACE_TRIES = 5
+
+
+def traced_ops(fn, median, label, want, short, launches):
+    """A run's device operations from one profiler step of TRACED_RUNS
+    runs of fn (profile_breakdown, after its traced warm-up step), by
+    short(kernel name): (the profile, {short name: count a run}).  They
+    must be `want` exactly, each kernel of the path once a run and nothing
+    else, or the phase fails.  The launch counts of the same pass must be
+    `launches` ({LAUNCHES name: launches a run}) times its runs exactly.
+    The profiler drops a kernel record now and then (on an H100: 3 of
+    S's 20 K4 records in one pass; 1 of MK's 20 K1 and then of its 20 KW
+    in two passes running); so where the launch counts are exact and
+    the trace holds only the path's kernels but fewer of them than were
+    launched, the pass is made again, up to TRACE_TRIES passes, and fails
+    if none records every launch.  A foreign operation, a kernel recorded
+    more often than launched, or launch counts off their mark fail at
+    once."""
+    for attempt in range(1, TRACE_TRIES + 1):
+        sync_all()
+        before = Counter(build.LAUNCHES)
+        profile = profile_breakdown(fn, median, reps=1, runs=TRACED_RUNS,
+                                    pad=TRACE_PAD)
+        launched = dict(Counter(build.LAUNCHES) - before)
+        got = {}
+        for k, (n, _t) in profile[3].items():
+            got[short(k)] = got.get(short(k), 0) + n
+        if got == want:
+            return profile, got
+        passes = 2 * TRACED_RUNS      # the warm-up step's and the traced
+        exact = launched == {k: n * passes for k, n in launches.items()}
+        dropped = (exact and set(got) <= set(want)
+                   and all(n <= want[k] for k, n in got.items()))
+        if not dropped or attempt == TRACE_TRIES:
+            raise SystemExit(
+                f"FAIL {label}: a run's device operations are {got}, not "
+                f"its kernels once each: {want} (launch counts of "
+                f"{passes} runs: {launched}; pass {attempt} of "
+                f"{TRACE_TRIES})")
+        say(f"  {label}: the profiler recorded {got} a run of the {want} "
+            f"that the launch counts show ({launched} in {passes} runs); "
+            "tracing again")
+
+
+# K1, KW, K2 and K3 by the names of their kernels in a profiler trace
+INTERP_TRACE_NAMES = (("interp_k1_kernel", "interp_k1"),
+                      ("assemble_kernel", "assemble"),
+                      ("gather_rows_kernel", "gather_w"),
+                      ("gather_n_kernel", "gather_n"))
+
+
+def interp_kernels(prog, mixed):
+    """The kernels an interpreter run launches, each once, and nothing
+    else: K1, then K2 where the witness is the wide bank's rows in witness
+    order, else KW (run); K1, K3, and K2 or KW for the wide rows, each
+    where it has rows (run_mixed)."""
+    interp, plan = prog.interp, prog.interp.plan
+    if not mixed:
+        return {"interp_k1": 1.0,
+                "gather_w" if interp._k2_whole else "assemble": 1.0}
+    want = {"interp_k1": 1.0}
+    if len(plan.nw_src):
+        want["gather_n"] = 1.0
+    if len(plan.wd_src):
+        want["gather_w" if interp._bank_only else "assemble"] = 1.0
+    return want
+
+
+def interp_run(prog, x, label, rehearse, mixed=False, runs=10):
+    """An interpreter path's run (run_mixed where `mixed`) from input rows
+    already on the device: its median ms over `runs` runs a run at a
+    time, the memory it allocates at its peak beyond what was allocated
+    before, and its device operations (traced_ops), which must be the
+    path's own kernels once a run and nothing else (interp_kernels): no
+    split of the inputs, copy or cast runs before K1 or between the
+    kernels, and a trace that missed a kernel fails too; with the
+    device's idle share.  A rehearsal runs once: its times are the plain
+    versions' on the CPU."""
+    dev = prog.device
+
+    def fn():
+        return prog.run_mixed(x) if mixed else prog.run(x)
+
+    runs = 1 if rehearse else runs
+    ms = sorted(wall_ms(fn)[1] for _ in range(runs))
+    median = ms[len(ms) // 2]
+    _, _, gib = run_peak(dev, fn)
+    say(f"  {label} {'run_mixed' if mixed else 'run'}: median {median:.3f} "
+        f"ms of {runs} ({ms[0]:.3f}-{ms[-1]:.3f}), {gib:.3f} GiB "
+        "allocated at its peak")
+    out = {"median_ms": median, "peak_gib": gib}
+    if rehearse:
+        return out
+    plan = prog.interp.plan
+    want = interp_kernels(prog, mixed)
+    launches = {k: 1 for k in want if k != "interp_k1"}
+    launches.update({p: 1 for p in plan.parts or ("interp_k1a",)})
+    profile, got = traced_ops(
+        fn, median, label, want,
+        lambda k: next((s for pat, s in INTERP_TRACE_NAMES if pat in k), k),
+        launches)
+    say(f"  {label}: a run's device operations are its kernels alone, "
+        f"{got}")
+    out.update(idle=idle_of(profile), device_ops=got)
+    return out
+
+
+def check_summary(t):
+    """witness_path's check numbers for a path's summary line."""
+    return (f"{t['check_ms']:.3f} ms R1CS check (median of {CHECK_RUNS}; "
+            f"{t['check_after_trace_ms']:.3f} after the run's profiler "
+            "pass)")
+
+
+def run_summary(trace):
+    """interp_run's numbers for a path's summary line."""
+    return (f"; a run's median {trace['median_ms']:.3f} ms, peak "
+            f"{trace['peak_gib']:.3f} GiB"
+            + (f", idle {trace['idle']}, device operations "
+               f"{trace['device_ops']}" if "idle" in trace else ""))
 
 
 def unit_columns(spec, n_inputs, hints, B, seed):
@@ -1820,12 +2073,8 @@ def mimc_merkle_paths(paths, dev, b_mm, b_mk, b_k1, rehearse):
         t = witness_path(paths, name, cc, prog, x, must_launch(prog),
                          input_map(layout), never=never_launch(prog),
                          n_lanes=n_host, native=calc,
-                         profile_check=name == "merkle")
-        if not rehearse:
-            # traced one at a time, the kernels of MM's 3-launch run went
-            # unrecorded: ten runs a profiler step
-            t["idle"] = idle_of(profile_breakdown(
-                lambda: prog.run(x), t["run_ms"], runs=10))
+                         profile_check=name == "merkle", trace=phase,
+                         rehearse=rehearse)
         if name == "merkle":
             say("phase KW: KW against the parts route on MK's witness")
             t["kw"] = phase_kw(prog, x, label)
@@ -2303,8 +2552,7 @@ def sha256_path(paths, cc, prog, dev, B):
     run_ms = min(wall_ms(lambda: prog.run_mixed(x))[1] for _ in range(3))
     say(f"  mixed witnesses: {tuple(narrow.shape)} int32 in {run_ms:.1f} ms "
         f"({B / run_ms * 1e3:.0f} mixed witnesses/s, best of 3 warm runs)")
-    if dev.type == "cuda":
-        profile_breakdown(lambda: prog.run_mixed(x), run_ms)
+    trace = interp_run(prog, x, "M", dev.type != "cuda", mixed=True)
     lanes = random.Random(SEED).sample(range(B), min(SHA_HOST_LANES, B))
     rows = narrow[:, torch.as_tensor(lanes, device=dev)].cpu().numpy()
     n_idx = layout[0]
@@ -2317,7 +2565,7 @@ def sha256_path(paths, cc, prog, dev, B):
                              "from the host calculator")
     say(f"  {len(lanes)} sampled lanes equal the host calculator")
     del narrow
-    return x, run_ms
+    return x, run_ms, trace
 
 
 def phase_sha_kernels(rep, prog, x, dev, B_cmp):
@@ -2325,35 +2573,42 @@ def phase_sha_kernels(rep, prog, x, dev, B_cmp):
     plan: every emitted narrow bank row and every gathered row at batch
     B_cmp, and the times of both at the main path's batch."""
     plan, f = prog.interp.plan, prog.field
-    _, x_w, x_n = prog.interp._inputs(x)
-    B = x_n.shape[1]
+    x, x_w, x_n = prog.interp._inputs(x)
+    B = x.shape[-1]
     src, shift = plan.dev["nw_src"], plan.dev["nw_shift"]
+    order = plan.dev["nin_order"]
     rows_n = torch.as_tensor(plan.emitted_rows(narrow=True), device=dev)
-    # bit for bit on every emitted row, at B_cmp lanes
-    xs_w, xs_n = x_w[..., :B_cmp].contiguous(), x_n[:, :B_cmp].contiguous()
-    _, bank_n = interp_k1(plan, f, xs_w, xs_n)
-    _, want_n = run_plan(plan, f, as_i64(xs_w), as_i64(xs_n))
+    # bit for bit on every emitted row, at B_cmp lanes: K1 and K3 on the
+    # input rows, their plain versions on the split
+    xs = x[..., :B_cmp].contiguous()
+    xs_w, xs_n = split_inputs(plan, xs)
+    _, bank_n = interp_k1(plan, f, xs)
+    _, want_n = k1_plain(plan, f, xs_w, xs_n)
     err_k1 = max_abs_err(bank_n[rows_n], want_n[rows_n])
-    err_k3 = max_abs_err(gather_n(bank_n, xs_n, src, shift),
+    err_k3 = max_abs_err(gather_n(bank_n, xs, order, src, shift),
                          gather_n_rows(bank_n, xs_n, src, shift))
     say(f"  K1b: {len(rows_n)} emitted narrow bank rows at batch {B_cmp}, "
         f"max abs err {err_k1}; K3: {len(src)} rows, max abs err {err_k3}")
     del bank_n, want_n
     # times at the main path's batch; the plain versions run once
-    _, bank_n = interp_k1(plan, f, x_w, x_n)
-    k1_ms = time_ms(lambda: interp_k1(plan, f, x_w, x_n), reps=3)
-    (_, plain_n), k1_plain_ms = wall_ms(
-        lambda: run_plan(plan, f, as_i64(x_w), as_i64(x_n)))
+    _, bank_n = interp_k1(plan, f, x)
+    k1_ms = time_ms(lambda: interp_k1(plan, f, x), reps=3)
+    (_, plain_n), k1_plain_ms = wall_ms(lambda: k1_plain(plan, f, x_w, x_n))
     err_full = max_abs_err(bank_n[rows_n], plain_n[rows_n])
     del plain_n
     say(f"  K1b at batch {B}: max abs err {err_full} on every emitted row")
     n_steps = plan.n_steps
     rep.add("interp_k1b", "circom_tpu_torch/ops/cuda/interp.cu",
             "circom_tpu/backend/interp.py:2462", max(err_k1, err_full),
-            k1_ms, k1_plain_ms, 4 * B * (x_n.shape[0] + len(rows_n)),
+            k1_ms, k1_plain_ms,
+            4 * B * (k1_input_words(plan, x.shape[1]) + len(rows_n)),
             n_steps * B, plan="SHA256/bn128")
-    k3_ms = time_ms(lambda: gather_n(bank_n, x_n, src, shift))
-    got = gather_n(bank_n, x_n, src, shift)
+    got = gather_n(bank_n, x, order, src, shift)
+    # K3's bare launch into `got` (the wrapper's index checks are
+    # device-to-host syncs)
+    k3_ms = time_ms(bare(dev, lambda: launch_gather_n(bank_n, x, order, src,
+                                                      shift, got),
+                         lambda: gather_n(bank_n, x, order, src, shift)))
     want, k3_plain_ms = wall_ms(
         lambda: gather_n_rows(bank_n, x_n, src, shift))
     err_full = max_abs_err(got, want)
@@ -2458,14 +2713,12 @@ def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
         "window of it")
     phase_kc_sha(rep, checker, cc.r1cs_rows(), wit)
     del wit
-    idle = None
-    if dev.type == "cuda":
-        say("  the full-limb run:")
-        idle = idle_of(profile_breakdown(lambda: prog.run(x), run_ms))
+    trace = interp_run(prog, x, "F", dev.type != "cuda")
     say("phase KW: KW against the parts route on F's witness")
     kw = phase_kw(prog, x, "SHA256/bn128")
-    return {"run_ms": run_ms, "check_ms": check_ms, "idle": idle,
-            "peak_gib": peak, "kw": kw}
+    return {"run_ms": run_ms, "check_ms": check_ms,
+            "idle": trace.get("idle"), "peak_gib": peak, "kw": kw,
+            "trace": trace}
 
 
 def main():
@@ -2537,8 +2790,7 @@ def main():
     say("phase 3: K2 against the plain gather")
     phase_gather(rep, prog.interp.plan, B, dev)
     say("phase 4: K1a against the plain executor")
-    order = torch.as_tensor(prog.interp.plan.win_order, device=dev)
-    phase_interp(rep, prog, gather_rows(inputs, order))
+    phase_interp(rep, prog, inputs)
     say("phase KC: KC against the plain route (the Poseidon2 batch, five "
         "fields)")
     phase_kc(rep, cc, prog, inputs, (9, 5) if args.rehearse else (1000, 260))
@@ -2561,7 +2813,7 @@ def main():
     say(f"SHA256: compiled in {t1 - t0:.1f} s, planned in "
         f"{time.perf_counter() - t1:.1f} s")
     say(f"phase B: the SHA256 main path (SHA256/bn128 run_mixed, batch {B})")
-    sha_x, sha_ms = sha256_path(paths, sha, sha_prog, dev, B)
+    sha_x, sha_ms, sha_trace = sha256_path(paths, sha, sha_prog, dev, B)
     say("phase C: K1b and K3 against their plain versions (SHA256 plan)")
     k1b_ms, k3_ms = phase_sha_kernels(rep, sha_prog, sha_x, dev, b_cmp)
     del sha_x
@@ -2589,6 +2841,11 @@ def main():
         torch.cuda.empty_cache()
     t_new = time.perf_counter()
     new = new_paths(paths, rep, dev, B, b_div, args.rehearse)
+    say(f"phase P8: the interpreter at the eight --prime fields (the "
+        f"comparators, batch {B})")
+    t_p8 = time.perf_counter()
+    p8 = phase_primes(paths, dev, B, 16 if args.rehearse else P8_K1_LANES)
+    t_p8 = time.perf_counter() - t_p8
     t_new = time.perf_counter() - t_new
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2627,13 +2884,14 @@ def main():
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     say(f"Poseidon2 path: {times['run_ms']:.1f} ms witness run, "
-        f"{times['check_ms']:.1f} ms R1CS check (batch {B})")
+        + check_summary(times) + f" (batch {B})"
+        + run_summary(times["trace"]))
     say(f"SHA256 mixed path: {sha_ms:.1f} ms run_mixed, "
         f"{B / sha_ms * 1e3:.0f} mixed witnesses/s (batch {B}); K1b "
-        f"{k1b_ms:.3f} ms, K3 {k3_ms:.3f} ms")
+        f"{k1b_ms:.3f} ms, K3 {k3_ms:.3f} ms" + run_summary(sha_trace))
     say(f"SHA256 full path: {full['run_ms']:.1f} ms full-limb run, "
-        f"{full['check_ms']:.1f} ms R1CS check (batch {b_full}); idle "
-        f"{full['idle']}, peak {full['peak_gib']:.1f} GiB")
+        f"{full['check_ms']:.1f} ms R1CS check (batch {b_full}); peak "
+        f"{full['peak_gib']:.1f} GiB" + run_summary(full["trace"]))
     say("bench_gpu.py's workloads (phase BG): "
         + ", ".join(f"{k} {bg[k]}" for k in (
             "poseidon2_gpu_wit_s", "poseidon2_wall_wit_s",
@@ -2648,9 +2906,13 @@ def main():
         t = new[name]
         say(f"{label} path: {t['run_ms']:.1f} ms witness run "
             f"({b / t['run_ms'] * 1e3:.0f} witnesses/s), "
-            f"{t['check_ms']:.1f} ms R1CS check (batch {b}); K1 "
-            f"{new['k1'][name]:.3f} ms" + (f"; idle {t['idle']}"
-                                           if "idle" in t else ""))
+            + check_summary(t) + f" (batch {b}); K1 "
+            f"{new['k1'][name]:.3f} ms" + run_summary(t["trace"]))
+    say(f"the interpreter at the eight --prime fields (phase P8, "
+        f"{t_p8:.1f} s): " + ", ".join(
+            f"{k} run {v['run_ms']:.3f} ms, check {v['check_ms']:.3f} ms "
+            f"(first {v['first_run_ms']:.2f}, {v['first_check_ms']:.2f})"
+            for k, v in p8.items()))
     for name, label, b in (
             ("n2b254", "Num2Bits(254)/bn128 (segments)", B),
             ("n2b254x4", "4 x Num2Bits(254)/bn128 (segments)", B),
@@ -2681,8 +2943,8 @@ def main():
     for t in mm.values():
         say(f"{t['label']} path: {t['run_ms']:.1f} ms witness run "
             f"({t['B'] / t['run_ms'] * 1e3:.0f} witnesses/s), "
-            f"{t['check_ms']:.1f} ms R1CS check (batch {t['B']})"
-            + (f"; idle {t['idle']}" if "idle" in t else ""))
+            + check_summary(t) + f" (batch {t['B']})"
+            + run_summary(t["trace"]))
     for name, k in kw.items():
         say(f"KW on the {name} path (batch {k['B']}): {k['ms']:.4f} ms "
             f"(bound {bound(k['bytes'], 0)[0]:.4f} ms), the parts route "

@@ -13,14 +13,19 @@ assembly by KW (or the gather K2), and the mixed witness's gathers K2, K3.
 
 On CUDA it launches the interpreter kernel K1 (ops/cuda/interp.cu: every
 opcode of the planner, K1a to K1d, with the trailing REDC, in one
-launch), then for the full-limb witness the assembly kernel KW
+launch), which reads its wide and narrow inputs where the caller's input
+rows lie (no split of the inputs runs before it), then for the full-limb
+witness the assembly kernel KW
 (ops/cuda/gather.cu: every witness row written once from its source, a
 wide bank row, an input row, a constant or a narrow bank row unpacked and
 widened), or K2 alone where the witness is the wide bank's rows in
 witness order; for the mixed witness the narrow gather with bit unpack
 K3 and the wide gather K2 (KW where the wide rows name inputs or
-constants).  On the CPU it runs the plain versions: backend/interp_ref.py
-for K1, K2 and K3, and for KW the parts route (`assemble_parts`: the
+constants), K3 also reading the narrow inputs in the input rows.  A run
+on the card is `torch.empty` and those launches alone.  On the CPU it
+runs the plain versions: the input split (split_inputs, the JAX package's
+split in _run) and backend/interp_ref.py for K1, K2 and K3, and for KW
+the parts route (`assemble_parts`: the
 wide, narrow and narrow input rows gathered apart, the narrow ones
 widened by ops/narrow.widen_narrow, each put into the witness), as the
 JAX package assembles the witness in XLA.
@@ -43,36 +48,82 @@ from .interp_ref import gather_n_rows, gather_rows, run_plan
 from .plan import UnsupportedTapeOp
 
 
-def interp_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
-    """Wide inputs uint32 (n_win, L, B) and narrow inputs int32 (n_nin, B)
-    -> (wide bank uint32 (n_chunks * (K + 1), L, B), flagged rows reduced
-    out of Montgomery form; narrow bank int32 (n_chunks * (KN + 1), B)).
+def interp_k1(plan: DevicePlan, field: TorchField, inputs):
+    """The caller's input rows uint32 (n_inputs, Lin, B) -> (wide bank
+    uint32 (n_chunks * (K + 1), L, B), flagged rows reduced out of
+    Montgomery form; narrow bank int32 (n_chunks * (KN + 1), B)).  K1
+    reads its inputs where they lie (check_inputs: the rows it takes).
     On CUDA, bank rows that no step writes, and each chunk's dump rows,
-    are left unset: the rows of plan.emitted_rows() are the output."""
+    are left unset: the rows of plan.emitted_rows() are the output.  On
+    the CPU the plain version: split_inputs, then k1_plain."""
     check_field(plan, field)
-    if x_w.device.type == "cpu":
-        bank, bank_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
-        return as_u32(bank), to_i32(bank_n)
-    if x_w.device != plan.device or x_n.device != plan.device:
-        raise ValueError(f"inputs on {x_w.device}/{x_n.device}, plan on "
-                         f"{plan.device}")
-    L, B = plan.L, x_w.shape[-1]
-    if x_w.dtype != torch.uint32 or x_w.dim() != 3 or x_w.shape[1] != L \
-            or x_w.shape[0] != len(plan.win_order):
-        raise ValueError(f"K1 takes uint32 ({len(plan.win_order)}, {L}, B) "
-                         f"wide inputs, got {x_w.dtype} {tuple(x_w.shape)}")
-    if x_n.dtype != torch.int32 or tuple(x_n.shape) != \
-            (len(plan.nin_order), B):
-        raise ValueError(f"K1 takes int32 ({len(plan.nin_order)}, {B}) "
-                         f"narrow inputs, got {x_n.dtype} "
-                         f"{tuple(x_n.shape)}")
-    return launch_k1(plan, field, x_w.contiguous(), x_n.contiguous())
+    check_inputs(plan, inputs)
+    if inputs.device.type == "cpu":
+        return k1_plain(plan, field, *split_inputs(plan, inputs))
+    if inputs.device != plan.device:
+        raise ValueError(f"inputs on {inputs.device}, plan on {plan.device}")
+    return launch_k1(plan, field, inputs.contiguous())
 
 
-def launch_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
-    """Launch K1 without checks on contiguous inputs on the plan's card,
-    of the shapes interp_k1 takes: returns its (bank, bank_n)."""
-    L, B, dev = plan.L, x_w.shape[-1], x_w.device
+def check_inputs(plan: DevicePlan, inputs):
+    """Raises ValueError unless `inputs` are input rows that K1 and K3
+    take for the plan: uint32 (n_inputs, Lin, B) with a row for every row
+    that win_order and nin_order name, Lin 1, 2 or L, and L where the plan
+    has a wide input.  Shapes and the plan's host tables only: no
+    device-to-host sync."""
+    if inputs.dtype != torch.uint32 or inputs.dim() != 3:
+        raise ValueError(f"K1 takes uint32 (n_inputs, Lin, B) input rows, "
+                         f"got {inputs.dtype} {tuple(inputs.shape)}")
+    n, lin, _ = inputs.shape
+    if n < plan.n_input_rows:
+        raise ValueError(f"the plan reads input row {plan.n_input_rows - 1},"
+                         f" got {n} rows")
+    if lin not in (1, 2, plan.L):
+        raise ValueError(f"input rows of {lin} limbs: K1 takes 1, 2 or "
+                         f"{plan.L}")
+    if plan.win_order and lin != plan.L:
+        raise ValueError(f"wide inputs need full-limb input rows "
+                         f"({plan.L} limbs), got {lin}")
+
+
+def split_inputs(plan: DevicePlan, inputs):
+    """The plain version of K1's input loads, the JAX package's split
+    (backend/interp.py _run): input rows uint32 (n_inputs, Lin, B) -> (wide
+    inputs uint32 (n_win, L, B), the rows of win_order; narrow inputs int32
+    (n_nin, B) of the rows of nin_order, narrow_inputs)."""
+    if plan.win_order:
+        x_w = gather_rows(inputs, plan.dev["win_order"])
+    else:
+        x_w = torch.empty((0, plan.L, inputs.shape[-1]), dtype=torch.uint32,
+                          device=inputs.device)
+    return x_w, narrow_inputs(inputs, plan.dev["nin_order"])
+
+
+def narrow_inputs(inputs, order):
+    """Narrow inputs int32 (len(order), B): limb0 | limb1 << 16 of the
+    input rows `order` (limb0 alone where the rows have one limb; limbs 2
+    and up are not read), in 32 bits.  The plain version of K1's and K3's
+    narrow loads."""
+    if not order.shape[0]:
+        return torch.empty((0, inputs.shape[-1]), dtype=torch.int32,
+                           device=inputs.device)
+    xs = as_i64(gather_rows(inputs, order))
+    return to_i32(xs[:, 0] | (xs[:, 1] << 16) if inputs.shape[1] > 1
+                  else xs[:, 0])
+
+
+def k1_plain(plan: DevicePlan, field: TorchField, x_w, x_n):
+    """K1's plain version after the split: wide inputs uint32 (n_win, L,
+    B) and narrow inputs int32 (n_nin, B) -> interp_k1's banks, by
+    interp_ref.run_plan."""
+    bank, bank_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
+    return as_u32(bank), to_i32(bank_n)
+
+
+def launch_k1(plan: DevicePlan, field: TorchField, inputs):
+    """Launch K1 without checks on contiguous input rows on the plan's
+    card that check_inputs takes: returns its (bank, bank_n)."""
+    L, B, dev = plan.L, inputs.shape[-1], inputs.device
     # the register files (each at least its trash row) and the banks
     rf = torch.empty(k1_file_shape(plan, B), dtype=torch.uint32, device=dev)
     rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev)
@@ -83,7 +134,7 @@ def launch_k1(plan: DevicePlan, field: TorchField, x_w, x_n):
     # one launch runs every part; it counts for each part its plan runs
     # (interp_k1a .. interp_k1d, convert.PARTS)
     launch("interp_k1", library("interp").ctpu_interp_k1, dev,
-           *k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n,
+           *k1_args(plan, field, inputs, rf, bank, rf_n, bank_n,
                     stream_ptr(dev)), parts=plan.parts or ("interp_k1a",))
     return bank, bank_n
 
@@ -97,15 +148,18 @@ def k1_file_shape(plan: DevicePlan, B):
     return (plan.n_regs, plan.L // 2, B)
 
 
-def k1_args(plan: DevicePlan, field: TorchField, x_w, x_n, rf, bank, rf_n,
+def k1_args(plan: DevicePlan, field: TorchField, inputs, rf, bank, rf_n,
             bank_n, stream):
     """The arguments of ctpu_interp_k1 (ops/cuda/interp.cu), in order: the
+    input rows (n_inputs, Lin, B) and the rows of the wide and narrow
     inputs, the plan's device tables, the register files (scratch, rf of
     k1_file_shape) and banks, the field's constants and the stream."""
     d = plan.dev
     return (
-        plan.L, x_w.shape[-1], x_w.data_ptr(), x_w.shape[0], x_n.data_ptr(),
-        x_n.shape[0], d["table"].data_ptr(), d["grp"].data_ptr(),
+        plan.L, inputs.shape[-1], inputs.data_ptr(), inputs.shape[1],
+        d["win_order"].data_ptr(), len(plan.win_order),
+        d["nin_order"].data_ptr(), len(plan.nin_order),
+        d["table"].data_ptr(), d["grp"].data_ptr(),
         d["r_op"].data_ptr(), d["r_s0"].data_ptr(),
         d["rstarts"].data_ptr(), plan.n_chunks, d["cbank_w"].data_ptr(),
         d["mont_tab"].data_ptr(), d["mat_regs"].data_ptr(),
@@ -159,36 +213,46 @@ def launch_gather_w(bank, idx, out):
            idx.shape[0], stream_ptr(bank.device))
 
 
-def gather_n(bank_n, x_n, src, shift):
-    """Narrow witness gather: row src[w] of [bank_n; x_n], with bit
-    shift[w] unpacked where shift[w] >= 0.  int32 (R_n, B), (n_nin, B),
-    (W,), (W,) -> int32 (W, B).  On the card src is first held inside
-    the rows, a device-to-host sync."""
+def gather_n(bank_n, inputs, nin_order, src, shift):
+    """Narrow witness gather: row src[w] of [bank_n; the narrow inputs],
+    with bit shift[w] unpacked where shift[w] >= 0; narrow input k is
+    limb0 | limb1 << 16 of input row nin_order[k] (narrow_inputs), read
+    where it lies.  int32 (R_n, B), uint32 (n_inputs, Lin, B), int32
+    (n_nin,), (W,), (W,) -> int32 (W, B).  On the card src and nin_order
+    are first held inside their rows, a device-to-host sync."""
     if bank_n.device.type == "cpu":
-        return gather_n_rows(bank_n, x_n, src, shift)
+        return gather_n_rows(bank_n, narrow_inputs(inputs, nin_order), src,
+                             shift)
     dev = bank_n.device
     B = bank_n.shape[1]
     if any(t.dtype != torch.int32 or t.device != dev
-           for t in (bank_n, x_n, src, shift)) or x_n.shape[1:] != (B,) \
+           for t in (bank_n, nin_order, src, shift)) \
+            or inputs.dtype != torch.uint32 or inputs.device != dev \
+            or inputs.dim() != 3 or inputs.shape[2] != B \
             or src.shape != shift.shape:
-        raise ValueError("gather_n takes int32 (R_n, B), (n_nin, B), (W,) "
-                         "and (W,) tensors on one device")
-    bank_n, x_n = bank_n.contiguous(), x_n.contiguous()
+        raise ValueError("gather_n takes int32 (R_n, B), uint32 (n_inputs, "
+                         "Lin, B) and int32 (n_nin,), (W,), (W,) tensors on "
+                         "one device")
+    bank_n, inputs = bank_n.contiguous(), inputs.contiguous()
+    nin_order = nin_order.contiguous()
     src, shift = src.contiguous(), shift.contiguous()
-    _check_index(src, bank_n.shape[0] + x_n.shape[0], "gather_n")
+    _check_index(src, bank_n.shape[0] + nin_order.shape[0], "gather_n")
+    _check_index(nin_order, inputs.shape[0], "gather_n's input rows")
     out = torch.empty((src.shape[0], B), dtype=torch.int32, device=dev)
     if out.numel():
-        launch_gather_n(bank_n, x_n, src, shift, out)
+        launch_gather_n(bank_n, inputs, nin_order, src, shift, out)
     return out
 
 
-def launch_gather_n(bank_n, x_n, src, shift, out):
-    """Launch K3 without checks: contiguous int32 bank_n (R_n, B), x_n
-    (n_nin, B), src and shift (W,) and out (W, B) on the card, src inside
-    [0, R_n + n_nin), W and B > 0."""
+def launch_gather_n(bank_n, inputs, nin_order, src, shift, out):
+    """Launch K3 without checks: contiguous int32 bank_n (R_n, B), uint32
+    input rows (n_inputs, Lin, B), int32 nin_order (n_nin,) inside
+    [0, n_inputs), src and shift (W,) and out (W, B) on the card, src
+    inside [0, R_n + n_nin), W and B > 0."""
     W, B = out.shape
     launch("gather_n", library("gather").ctpu_gather_n, out.device,
-           bank_n.data_ptr(), bank_n.shape[0], x_n.data_ptr(), src.data_ptr(),
+           bank_n.data_ptr(), bank_n.shape[0], inputs.data_ptr(),
+           inputs.shape[1], nin_order.data_ptr(), src.data_ptr(),
            shift.data_ptr(), out.data_ptr(), W, B, stream_ptr(out.device))
 
 
@@ -337,13 +401,18 @@ class TorchInterpreter:
             launch_gather_w(bank, idx, out)
         return out
 
-    def _gather_n(self, bank_n, x_n, src, shift):
+    def _gather_n(self, bank_n, inputs, src, shift):
+        """K3 over the narrow bank and the narrow inputs, read in the
+        contiguous input rows; on the CPU its plain version, after the
+        plain split of the narrow inputs."""
+        order = self.plan.dev["nin_order"]
         if self.device.type == "cpu":
-            return gather_n_rows(bank_n, x_n, src, shift)
+            return gather_n_rows(bank_n, narrow_inputs(inputs, order), src,
+                                 shift)
         out = torch.empty((src.shape[0], bank_n.shape[1]), dtype=torch.int32,
                           device=self.device)
         if out.numel():
-            launch_gather_n(bank_n, x_n, src, shift, out)
+            launch_gather_n(bank_n, inputs, order, src, shift, out)
         return out
 
     def mixed_layout(self):
@@ -352,28 +421,14 @@ class TorchInterpreter:
         return self.plan.nw_idx.tolist(), self.plan.wd_idx.tolist()
 
     def _inputs(self, inputs):
-        """uint32 (n_inputs, Lin, B) -> (inputs on the device, wide inputs
-        uint32 (n_win, L, B) in win_of order, narrow inputs int32
-        (n_nin, B) in nin_of order: limb0 | limb1 << 16).  Lin may be 2
-        (or 1) when no input is wide."""
-        plan = self.plan
-        inputs = u32_on(inputs, self.device)
-        n, lin, B = inputs.shape
-        if plan.win_order:
-            if lin != plan.L:
-                raise ValueError(f"wide inputs need full-limb input rows "
-                                 f"({plan.L} limbs), got {lin}")
-            x_w = gather_rows(inputs, plan.dev["win_order"])
-        else:
-            x_w = torch.empty((0, plan.L, B), dtype=torch.uint32,
-                              device=self.device)
-        if plan.nin_order:
-            xs = as_i64(gather_rows(inputs, plan.dev["nin_order"]))
-            v = xs[:, 0] | (xs[:, 1] << 16) if lin > 1 else xs[:, 0]
-            x_n = to_i32(v)
-        else:
-            x_n = torch.empty((0, B), dtype=torch.int32, device=self.device)
-        return inputs, x_w, x_n
+        """uint32 (n_inputs, Lin, B) -> (the input rows on the device,
+        checked (check_inputs); the plain split of them (split_inputs):
+        wide inputs uint32 (n_win, L, B), narrow inputs int32 (n_nin,
+        B)).  The CPU's route, and the oracle's on the card: a run on the
+        card never splits its inputs."""
+        inputs = u32_on(inputs, self.device).contiguous()
+        check_inputs(self.plan, inputs)
+        return (inputs,) + split_inputs(self.plan, inputs)
 
     def _as_index(self, a):
         return torch.as_tensor(a, dtype=torch.int64, device=self.device)
@@ -400,22 +455,22 @@ class TorchInterpreter:
                                                            consts)])
         return self._gather_w(source.view(torch.uint32), plan.dev["wd_src"])
 
-    def assemble_parts(self, inputs, x_w, x_n, bank, bank_n):
+    def assemble_parts(self, inputs, x_w, bank, bank_n):
         """KW's plain version, the parts route: the full-limb witness
-        uint32 (n_witness, L, B) from K1's banks, the inputs on the device
-        and _inputs' x_w, x_n.  The wide rows (_wide_parts), the narrow
-        emission rows (K3, then ops/narrow.widen_narrow) and the narrow
-        input rows (the input's own limbs) are made apart and each put
-        into the witness; a part that is the witness, in witness order,
-        is returned as it is.  The CPU's route, and KW's oracle on the
-        card."""
+        uint32 (n_witness, L, B) from K1's banks, _inputs' contiguous input
+        rows and its x_w.  The wide rows (_wide_parts), the narrow
+        emission rows (_gather_n, then ops/narrow.widen_narrow) and the
+        narrow input rows (the input's own limbs) are made apart and each
+        put into the witness; a part that is the witness, in witness
+        order, is returned as it is.  The CPU's route, and KW's oracle on
+        the card."""
         plan = self.plan
         B = inputs.shape[-1]
         parts = (
             lambda: self._wide_parts(bank, x_w, B),
             lambda: widen_narrow(self._gather_n(
-                bank_n, x_n, self._nw_src, self._nw_shift), self.field.p,
-                plan.L),
+                bank_n, inputs, self._nw_src, self._nw_shift),
+                self.field.p, plan.L),
             lambda: gather_rows(inputs, self._nin_rows),
         )
         if self._whole is not None:
@@ -449,34 +504,44 @@ class TorchInterpreter:
         return out
 
     def _run_mixed(self, inputs):
-        """inputs uint32 (n_inputs, L or 2, B) -> (narrow int32 (n_nw, B),
-        wide uint32 (n_wd, L, B)) in the row order of mixed_layout()."""
+        """inputs uint32 (n_inputs, L or 2 (or 1), B) -> (narrow int32
+        (n_nw, B), wide uint32 (n_wd, L, B)) in the row order of
+        mixed_layout(): on the card K1, K3, then K2 (KW where the wide
+        rows name inputs or constants), each reading the input rows where
+        they lie (made contiguous first: a copy only where the caller's
+        rows are a strided view, such as x[:, :2]); on the CPU the plain
+        versions after the split."""
         plan = self.plan
-        inputs, x_w, x_n = self._inputs(inputs)
-        B = x_w.shape[-1]
-        bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
-        if len(plan.nw_src):
-            narrow = self._gather_n(bank_n, x_n, plan.dev["nw_src"],
-                                    plan.dev["nw_shift"])
-        else:
-            narrow = torch.empty((0, B), dtype=torch.int32,
-                                 device=self.device)
-        if self.device.type == "cpu" or self._bank_only:
-            return narrow, self._wide_parts(bank, x_w, B)
+        src, shift = plan.dev["nw_src"], plan.dev["nw_shift"]
+        if self.device.type == "cpu":
+            inputs, x_w, x_n = self._inputs(inputs)
+            bank, bank_n = k1_plain(plan, self.field, x_w, x_n)
+            narrow = gather_n_rows(bank_n, x_n, src, shift)
+            return narrow, self._wide_parts(bank, x_w, inputs.shape[-1])
+        inputs = u32_on(inputs, self.device).contiguous()
+        bank, bank_n = interp_k1(plan, self.field, inputs)
+        narrow = self._gather_n(bank_n, inputs, src, shift)
+        if self._bank_only:
+            return narrow, self._gather_w(bank, plan.dev["wd_src"])
         return narrow, self.assemble_kw(inputs, bank, bank_n, "wide")
 
     def _run(self, inputs):
         """uint32 (n_inputs, L, B) -> witness uint32 (n_witness, L, B): on
         the card K1, then KW (K2 alone where the witness is the wide
-        bank's rows in witness order); on the CPU the plain versions."""
+        bank's rows in witness order), each reading the input rows where
+        they lie (made contiguous first, as in _run_mixed); on the CPU the
+        plain versions after the split."""
         plan = self.plan
-        inputs, x_w, x_n = self._inputs(inputs)
-        if inputs.shape[1] != plan.L:
+        inputs = u32_on(inputs, self.device).contiguous()
+        if inputs.dim() != 3 or inputs.shape[1] != plan.L:
             raise ValueError(f"the full-limb witness needs full-limb input "
-                             f"rows ({plan.L} limbs), got {inputs.shape[1]}")
-        bank, bank_n = interp_k1(plan, self.field, x_w, x_n)
+                             f"rows ({plan.L} limbs), got "
+                             f"{tuple(inputs.shape)}")
         if self.device.type == "cpu":
-            return self.assemble_parts(inputs, x_w, x_n, bank, bank_n)
+            inputs, x_w, x_n = self._inputs(inputs)
+            bank, bank_n = k1_plain(plan, self.field, x_w, x_n)
+            return self.assemble_parts(inputs, x_w, bank, bank_n)
+        bank, bank_n = interp_k1(plan, self.field, inputs)
         if self._k2_whole:
             return self._gather_w(bank, plan.dev["wd_src"])
         return self.assemble_kw(inputs, bank, bank_n)

@@ -104,6 +104,12 @@ class DevicePlan:
         return twin
 
     @property
+    def n_input_rows(self):
+        """The input rows the plan reads: 1 + the largest row of
+        win_order and nin_order (0 where it reads none)."""
+        return max(self.win_order + self.nin_order, default=-1) + 1
+
+    @property
     def n_bank_rows(self):
         return self.n_chunks * (self.K + 1)
 
@@ -244,8 +250,9 @@ def plan_from_arrays(arrays, device) -> DevicePlan:
                  "mont_tab", "mat_regs", "mat_limbs", "nmat_regs",
                  "nmat_vals", "nw_src", "nw_shift", "wd_src", "consts"):
         plan.dev[name] = to_device(getattr(plan, name), device)
+    # the input row of each wide and narrow input: K1's and K3's tables
     for name in ("win_order", "nin_order"):
-        plan.dev[name] = to_device(np.asarray(getattr(plan, name), np.int64),
+        plan.dev[name] = to_device(np.asarray(getattr(plan, name), np.int32),
                                    device)
     return plan
 
@@ -352,6 +359,25 @@ def unit_inputs(p, L, B, seed):
                 else:
                     out[k, b] = v
     return x_w, x_n
+
+
+def input_rows(plan, x_w, x_n):
+    """Input rows uint32 (plan.n_input_rows, L, B), a numpy array, that K1
+    splits into the wide inputs x_w uint32 (n_win, L, B) and the narrow
+    inputs x_n int32 (n_nin, B): row win_order[k] holds x_w[k], row
+    nin_order[k] the two 16-bit halves of x_n[k] in limbs 0 and 1, every
+    other limb 0.  The inverse of the interpreter's input split, for plans
+    built from arrays (unit_arrays, narrow_unit_arrays)."""
+    x_w, x_n = np.asarray(x_w, np.uint32), np.asarray(x_n, np.int32)
+    if set(plan.win_order) & set(plan.nin_order):
+        raise ValueError("an input row is both wide and narrow")
+    B = x_n.shape[-1] if len(plan.nin_order) else x_w.shape[-1]
+    out = np.zeros((plan.n_input_rows, plan.L, B), np.uint32)
+    out[plan.win_order] = x_w
+    u = x_n.view(np.uint32)
+    out[plan.nin_order, 0] = u & 0xFFFF
+    out[plan.nin_order, 1] = u >> 16
+    return out
 
 
 def _in(a, hi):

@@ -1,8 +1,8 @@
-"""Time K1, K2, K5, KC, KS and K4 against the same kernels built from
+"""Time K1, K3, K2, K5, KC, KS and K4 against the same kernels built from
 another checkout.
 
     python -m circom_tpu_torch.kernel_ab --other DIR [--reps N]
-        [--kernels k1,k2,k5,kc,ks,k4]
+        [--kernels k1,k3,k2,k5,kc,ks,k4]
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked with `git archive`.  Its
@@ -11,21 +11,19 @@ built beside this checkout's, with the same nvcc flags, all at once
 (interp.cu alone takes about a minute of nvcc), and each library's entry
 point is called through ctypes.  K2's and K5's entry points have the same
 interface in both (the 32-bit K5's, with n0inv32).  The other K1's
-interface is read off its interp.cu: where its entry point takes the
-constant bank in limbs beside the words (`cbank`, the K1 whose wide file
-was 16-bit limbs for K1c and K1d),
-
-    ctpu_interp_k1(L, B, x_w, n_win, x_n, n_nin, table, grp, r_op, r_s0,
-                   rstarts, n_chunks, cbank, cbank_w, mont_tab, mat_regs,
-                   mat_limbs, n_mat, nmat_vals, nmat_regs, n_nmat, rf,
-                   bank, K, rf_n, bank_n, KN, p_limbs, r2_limbs, n0inv32,
-                   half_limbs, mask_limbs, q_limbs, bits, full, stream)
-
-with rf (n_regs, L, B), it gets those 36 arguments; otherwise this
-checkout's 35 (k1_args, the word file of k1_file_shape).  Both versions
-run on the same inputs, must agree bit for bit, and are timed by CUDA
-events around their bare launches (no checks, outputs allocated before),
-in turns: other, this, this, other.
+interface is read off its interp.cu (k1_interface), by its arguments:
+this checkout's 37 (k1_args: the caller's input rows, their limb count
+and the plan's win_order and nin_order, read where they lie), or 0844d12's
+35, the split inputs x_w (n_win, L, B) and x_n (n_nin, B) in place of
+those (split_k1_args, a frozen copy of 0844d12's argument list), which
+gets the split of the same input rows, made once before the launches.
+The other K3 likewise takes the input rows or 0844d12's split x_n
+(rows_k3).  KC, KS and K4 must take this checkout's interfaces, which
+0844d12's already do: an older interface of any kernel asked for is
+refused (refuse_older), so that no route older than the parent is kept
+here.  Both versions run on the same inputs, must agree bit for bit, and
+are timed by CUDA events around their bare launches (no checks, outputs
+allocated before), in turns: other, this, this, other.
 
 - K1 on five plans, every emitted row of both banks compared, with the
   32-bit products a lane of each: Poseidon2/bn128 (P, K1a) and
@@ -34,6 +32,18 @@ in turns: other, this, this, other.
   moves says each lane's chain of dependent steps, not the card's
   throughput, bounds K1), the stdlib comparators/bn128 (C, K1d) at
   65,536, bigint-div/bn128 (D, K1d's long division) at 8,192.
+- With K1, where the other K1 takes the split inputs (35 arguments):
+  the interpreter's whole run of SHA256/bn128, full limbs at 8,192 (F)
+  and run_mixed at 65,536 (M), this checkout's (K1 and K3 reading the
+  input rows where they lie, then KW, or K3) against the other's route
+  (split_run, a frozen copy of 0844d12's: the split in plain PyTorch,
+  K1 on it, then KW, or K3 on the split narrow inputs), both outputs bit
+  for bit, the runs timed in turns by CUDA events and each run's peak
+  allocation read.
+- K3 at M's shape (SHA256/bn128's run_mixed at 65,536 lanes:
+  27,369 rows, 512 narrow input rows of 2 limbs), its bare launch on the
+  same K1 narrow bank, this checkout's reading the input rows and the
+  other's on the split x_n where it takes that (made once before).
 - K2 at Poseidon2/bn128's plan shape (the plan's wd_src over a random
   bank of (n_bank_rows, 16, 65,536)), beside `index_select` of the same
   rows into the same output.
@@ -45,51 +55,25 @@ in turns: other, this, this, other.
   such a check is the sum over its products.
 - KC (check.cu) on the R1CS check of Poseidon2/bn128 (P) at batch 65,536
   and of the full-limb SHA256 block over bn128 (F) at 8,192, each in one
-  launch over the whole batch, lanes corrupted at different wires.  The
-  other checkout's KC is taken to have the interface of the KC that ran
-  a CIOS a nonzero over CSR columns with coefficients coeff·R^2 mod p in
-  L/2 words (rebuilt here from the same rows, as its checker built
-  them):
-
-    ctpu_r1cs_check(L, z, b, a_ptr, a_col, a_coef, b_ptr, b_col, b_coef,
-                    c_ptr, c_col, c_coef, n_rows, rows_per_chunk, p_limbs,
-                    n0inv32, first, stream)
-
-  Where the other check.cu takes this checkout's entry streams instead
-  (its entry point names a_ent: a variant of this KC), it gets the same
-  arguments as this one.  This checkout's KC runs through its checker's
-  own arguments (kc_args).  The first violated rows of both must be
-  identical.
+  launch over the whole batch, lanes corrupted at different wires, both
+  through this checkout's checker's arguments (kc_args).  The first
+  violated rows of both must be identical.
 - KS (scan.cu) on 16 x Num2Bits(254)/bn128 at batch 8,192 (Q) and
   65,536 (QS8, QS64: the scan's schedule at 8 and 64 slots), and on
   bigint-div + Num2Bits(254)/bn128 at 8,192 (O), this checkout's at
-  every width of KS_WIDTHS over its own tables (backend/ks.py).  The
-  other scan.cu is taken to have the interface of the KS whose register
-  file was all in device memory, over the JAX schedule's tables (rebuilt
-  here by a frozen copy of that KS's `ks_tables`, `old_ks_tables`):
-
-    ctpu_scan(L, off, ent, n_steps, consts, x, rf, out, b, limbs,
-              n0inv32, bits, warps, stream)
-
-  with rf (n_regs, L/2, b), timed at 8 warps a block (its kept layout)
-  and 1; where the other scan.cu takes `n_smem` (a variant of this KS),
-  it gets this checkout's tables and arguments.  Every launch's witness
-  equals this checkout's run, which equals the step loop's (Q, QS) or
-  the per-node path's (O).
+  every width of KS_WIDTHS over its own tables (backend/ks.py), both
+  through ks_args.  Every launch's witness equals this checkout's run,
+  which equals the step loop's (Q, QS) or the per-node path's (O).
 - K4 (generated per program) on the segmented paths Num2Bits(254)/bn128
   (S) and 4 x Num2Bits(254)/bn128 (S4) at batch 65,536: each checkout's
   own generator writes its source (a child process with only that
   checkout on its path), and nvcc builds a library a segment of both at
-  once.  The other K4's interface is read off its source: the stacked
-  one, `ctpu_k4_seg<s>(xin, xout, B, stream)` with xin (n_in, L, B) and
-  xout (n_out, L, B), which runs the route it had (a frozen copy:
-  `stacked_run`, each segment's inputs and then the witness assembled by
-  torch.stack), or this checkout's in place,
-  `ctpu_k4_seg<s>(x, w, c, B, stream)` over the inputs, the witness and
-  the crossing buffer, which runs this checkout's route (a variant of
-  this K4).  Both runs' witnesses must be equal bit for bit; the bare K4
-  launches (all segments, buffers allocated before) and the whole runs
-  are timed in turns, and each run's peak allocation read.
+  once.  Both take the in-place interface, `ctpu_k4_seg<s>(x, w, c, B,
+  stream)` over the inputs, the witness and the crossing buffer (the
+  stacked one of two buffers, older than 0844d12, is refused:
+  k4_stacked).  Both runs' witnesses must be equal bit for bit; the bare
+  K4 launches (all segments, buffers allocated before) and the whole
+  runs are timed in turns, and each run's peak allocation read.
 
 Prints a line for each measurement, the card's name and power limit, and
 a JSON object as the last line.  Exits 1 without a card.
@@ -113,8 +97,9 @@ import numpy as np
 
 from .backend.checker import (R1CSChecker, kc_args, kc_products,
                               kc_rows_per_chunk)
-from .backend.interp import k1_args, k1_file_shape
-from .backend.ks import KS_OPS, KS_WIDTHS, const_words, ks_args
+from .backend.interp import (interp_k1, k1_args, k1_file_shape, kw_args,
+                             narrow_inputs)
+from .backend.ks import KS_WIDTHS, ks_args
 from .backend.torch_backend import WitnessProgram
 from .circuits import sha256_io
 from .circuits.gen_poseidon import generate
@@ -126,8 +111,8 @@ from .convert import N_OPERANDS, OPCODES, to_device
 from .compiler.pipeline import compile_source
 from .field.primes import LIMB_BITS, field_spec
 from .ops import build
-from .ops.field import TorchField
-from .ops.limbs import int_to_limbs, ints_to_limbs
+from .ops.field import TorchField, as_i64
+from .ops.narrow import to_i32
 
 ROOT = Path(__file__).resolve().parents[1]
 NAMES = ("interp", "gather", "field_ops")
@@ -135,16 +120,15 @@ _P, _I, _LL, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_uint32)
 _PU32 = ctypes.POINTER(ctypes.c_uint32)
 # the other checkout's entry points where they differ from this one's:
-# K1's with the constant bank in limbs, the CSR KC's, the KS over a
-# register file in device memory
-OTHER_SIGNATURES = dict(build.SIGNATURES, interp={"ctpu_interp_k1": (
-    _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-         _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32, _PU32, _U32,
-         _PU32, _PU32, _PU32, _I, _I, _P])}, check={"ctpu_r1cs_check": (
-             _I, [_I, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                  _LL, _PU32, _U32, _P, _P])}, scan={"ctpu_scan": (
-                      _I, [_I, _P, _P, _I, _P, _P, _P, _P, _LL, _PU32, _U32,
-                           _I, _I, _P])})
+# 0844d12's K1 on the split inputs (35 arguments) and K3 on the split
+# narrow inputs
+K1_SIGNATURES = {
+    "rows": build.SIGNATURES["interp"]["ctpu_interp_k1"],
+    "split": (_I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                   _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32,
+                   _PU32, _U32, _PU32, _PU32, _PU32, _I, _I, _P])}
+SPLIT_K3 = dict(build.SIGNATURES["gather"], ctpu_gather_n=(
+    _I, [_P, _LL, _P, _P, _P, _P, _LL, _LL, _P]))
 
 
 def _source(root, name):
@@ -152,28 +136,44 @@ def _source(root, name):
             / f"{name}.cu").read_text()
 
 
-def streams_kc(root):
-    """Whether the check.cu of the checkout at `root` takes KC's entry
-    streams (this checkout's interface), not CSR columns."""
-    return "a_ent" in _source(root, "check")
+def _head(root, name, fn):
+    """The parameter list of entry point `fn` in the checkout's name.cu."""
+    return _source(root, name).split(f'extern "C" int {fn}')[1].split("{")[0]
 
 
-def limbs_k1(root):
-    """Whether the K1 of the checkout at `root` takes the constant bank in
-    limbs beside the words (36 arguments), not this checkout's 35."""
-    head = _source(root, "interp").split('extern "C" int ctpu_interp_k1')[1]
-    return "cbank," in head.split("{")[0]
+def k1_interface(root):
+    """The interface of the K1 of the checkout at `root`: "rows" (this
+    checkout's 37 arguments: the input rows and the plan's win_order and
+    nin_order) or "split" (0844d12's 35: the split inputs x_w and x_n);
+    an older one (the constant bank in limbs as well) is refused."""
+    head = _head(root, "interp", "ctpu_interp_k1")
+    if "win_order" in head:
+        return "rows"
+    if "cbank," in head:
+        raise SystemExit(f"the K1 of {root} is older than 0844d12's")
+    return "split"
 
 
-def shared_ks(root):
-    """Whether the KS of the checkout at `root` takes this checkout's
-    tables and interface (`n_smem`), not the device-memory file's."""
-    return "n_smem" in _source(root, "scan")
+def rows_k3(root):
+    """Whether the K3 of the checkout at `root` reads its narrow inputs in
+    the input rows (this checkout's interface), not the split x_n."""
+    return "nin_order" in _head(root, "gather", "ctpu_gather_n")
 
 
-# which other interfaces are this checkout's own
-SAME_INTERFACE = {"check": streams_kc, "interp": lambda r: not limbs_k1(r),
-                  "scan": shared_ks}
+# what this checkout's (and 0844d12's) KC and KS name in their sources:
+# KC's entry streams, KS's shared-memory register file
+CURRENT_MARKS = {"check": "a_ent", "scan": "n_smem"}
+
+
+def refuse_older(root, names):
+    """Raises SystemExit where the checkout at `root` has, for a source of
+    `names`, a KC or KS older than 0844d12's (KC over CSR columns, KS over
+    a register file in device memory): kernel_ab keeps no route older
+    than the parent's."""
+    for name, mark in CURRENT_MARKS.items():
+        if name in names and mark not in _source(root, name):
+            raise SystemExit(f"the {name}.cu of {root} is older than "
+                             "0844d12's")
 
 
 def build_libraries(other, names=NAMES):
@@ -210,9 +210,12 @@ def build_libraries(other, names=NAMES):
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {tag} {name}: {line.strip()}")
         lib = ctypes.CDLL(str(so))
-        same = SAME_INTERFACE.get(name, lambda r: True)
-        sigs = (OTHER_SIGNATURES if tag == "other" and not same(root)
-                else build.SIGNATURES)[name]
+        sigs = build.SIGNATURES[name]
+        if name == "gather" and tag == "other" and not rows_k3(root):
+            sigs = SPLIT_K3
+        if name == "interp":
+            sigs = {"ctpu_interp_k1": K1_SIGNATURES[
+                "rows" if tag == "this" else k1_interface(root)]}
         for fn, (res, args) in sigs.items():
             getattr(lib, fn).restype = res
             getattr(lib, fn).argtypes = args
@@ -300,8 +303,8 @@ K1_CASES = (("P", 65536), ("M", 65536), ("G", 65536), ("G", 16384),
 
 
 def k1_case(name, dev, B):
-    """(plan, field, wide inputs, narrow inputs) of K1_CASES' plan `name`
-    at batch B."""
+    """(plan, field, input rows, their split: wide inputs, narrow inputs)
+    of K1_CASES' plan `name` at batch B."""
     prime = "goldilocks" if name == "G" else "bn128"
     spec = field_spec(prime)
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -326,25 +329,26 @@ def k1_case(name, dev, B):
         x = canonical(gen, spec, (prog.n_inputs, spec.n_limbs, B), dev)
         if name == "D":
             x.view(torch.int32)[1, 0] |= 1     # a nonzero divisor
-    _, x_w, x_n = prog.interp._inputs(x)
-    return prog.interp.plan, prog.field, x_w.contiguous(), x_n.contiguous()
+    x, x_w, x_n = prog.interp._inputs(x)
+    return (prog.interp.plan, prog.field, x.contiguous(), x_w.contiguous(),
+            x_n.contiguous())
 
 
-def other_k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n, stream):
-    """The other K1's arguments (see the module's docstring); the constant
-    bank in limbs is kept on the plan beside its other device tables."""
+def split_k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n, stream):
+    """The arguments of a K1 that takes the split inputs (35; a frozen
+    copy of 0844d12's k1_args): wide inputs uint32 (n_win, L, B), narrow
+    inputs int32 (n_nin, B), then this checkout's tables."""
     d = plan.dev
-    d.setdefault("cbank", to_device(plan.cbank, x_w.device))
     return (
         plan.L, x_w.shape[-1], x_w.data_ptr(), x_w.shape[0], x_n.data_ptr(),
         x_n.shape[0], d["table"].data_ptr(), d["grp"].data_ptr(),
         d["r_op"].data_ptr(), d["r_s0"].data_ptr(),
-        d["rstarts"].data_ptr(), plan.n_chunks, d["cbank"].data_ptr(),
-        d["cbank_w"].data_ptr(), d["mont_tab"].data_ptr(),
-        d["mat_regs"].data_ptr(), d["mat_limbs"].data_ptr(),
-        len(plan.mat_regs), d["nmat_vals"].data_ptr(),
-        d["nmat_regs"].data_ptr(), len(plan.nmat_regs), rf.data_ptr(),
-        bank.data_ptr(), plan.K, rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
+        d["rstarts"].data_ptr(), plan.n_chunks, d["cbank_w"].data_ptr(),
+        d["mont_tab"].data_ptr(), d["mat_regs"].data_ptr(),
+        d["mat_limbs"].data_ptr(), len(plan.mat_regs),
+        d["nmat_vals"].data_ptr(), d["nmat_regs"].data_ptr(),
+        len(plan.nmat_regs), rf.data_ptr(), bank.data_ptr(), plan.K,
+        rf_n.data_ptr(), bank_n.data_ptr(), plan.KN,
         build.u32_array(field.p_list), build.u32_array(field.r2_list),
         field.n0inv32, build.u32_array(field.half_list),
         build.u32_array(field.mask_list), build.u32_array(field.q_list),
@@ -352,19 +356,22 @@ def other_k1_args(plan, field, x_w, x_n, rf, bank, rf_n, bank_n, stream):
         int(bool({"interp_k1c", "interp_k1d"} & set(plan.parts))), stream)
 
 
-def k1(libs, name, B, dev, reps, limbs):
-    """K1 on plan `name` at batch B, this checkout's and the other's (with
-    `limbs`, the interface that takes the constant bank in limbs), every
-    emitted row compared, then timed in turns."""
-    plan, field, x_w, x_n = k1_case(name, dev, B)
+def k1(libs, name, B, dev, reps, iface):
+    """K1 on plan `name` at batch B, this checkout's on the input rows and
+    the other's of interface `iface` (k1_interface) on the rows or on
+    their split, every emitted row compared, then timed in turns."""
+    plan, field, x, x_w, x_n = k1_case(name, dev, B)
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs, fns = {}, {}
-    other = ((other_k1_args, (plan.n_regs, plan.L, B)) if limbs
-             else (k1_args, k1_file_shape(plan, B)))
-    for tag, make_args, rf_shape in (
-            ("other", *other), ("this", k1_args, k1_file_shape(plan, B))):
+
+    def rows_args(plan, field, _w, _n, *rest):
+        return k1_args(plan, field, x, *rest)
+
+    other = {"rows": rows_args, "split": split_k1_args}[iface]
+    for tag, make_args in (("other", other), ("this", rows_args)):
         o = outs[tag] = {
-            "rf": torch.empty(rf_shape, dtype=torch.uint32, device=dev),
+            "rf": torch.empty(k1_file_shape(plan, B), dtype=torch.uint32,
+                              device=dev),
             "bank": torch.empty((plan.n_bank_rows, plan.L, B),
                                 dtype=torch.uint32, device=dev),
             "rf_n": torch.empty((plan.n_nregs, B), dtype=torch.int32,
@@ -400,6 +407,169 @@ def k1(libs, name, B, dev, reps, limbs):
             "n_regs": plan.n_regs, "file_bytes_per_lane": traffic,
             "emitted_rows": [len(rows), len(rows_n)],
             "products32_per_lane": products, "ms": ms}
+
+
+def split_run(libs, prog, x, mixed, orders):
+    """0844d12's interpreter run on the other checkout's K1, K2, K3 and KW
+    (a frozen copy of its route): the input rows split in plain PyTorch
+    (index_select of the wide rows; the narrow rows gathered, widened to
+    int64, shifted, OR-ed and cast back to int32), K1 on the split, then
+    KW, or K2 where the witness is the wide bank's rows (run); K3 on the
+    split narrow inputs, then K2 or KW for the wide rows (run_mixed).
+    orders: the plan's win_order and nin_order as int64 tensors on the
+    card, as 0844d12 kept them."""
+    interp, field = prog.interp, prog.field
+    plan, dev = interp.plan, prog.device
+    lin, B = x.shape[1], x.shape[-1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x_i = x.view(torch.int32)
+    x_w = (x_i.index_select(0, orders[0]).view(torch.uint32)
+           if plan.win_order else
+           torch.empty((0, plan.L, B), dtype=torch.uint32, device=dev))
+    if plan.nin_order:
+        xs = as_i64(x_i.index_select(0, orders[1]).view(torch.uint32))
+        x_n = to_i32(xs[:, 0] | (xs[:, 1] << 16) if lin > 1 else xs[:, 0])
+    else:
+        x_n = torch.empty((0, B), dtype=torch.int32, device=dev)
+    rf = torch.empty(k1_file_shape(plan, B), dtype=torch.uint32, device=dev)
+    rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev)
+    bank = torch.empty((plan.n_bank_rows, plan.L, B), dtype=torch.uint32,
+                       device=dev)
+    bank_n = torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
+                         device=dev)
+    checked(libs["other", "interp"].ctpu_interp_k1(*split_k1_args(
+        plan, field, x_w, x_n, rf, bank, rf_n, bank_n, stream)), "other K1")
+    lib = libs["other", "gather"]
+
+    def k2(idx):
+        out = torch.empty((idx.shape[0], plan.L, B), dtype=torch.uint32,
+                          device=dev)
+        if out.numel():
+            checked(lib.ctpu_gather_rows(bank.data_ptr(), idx.data_ptr(),
+                                         out.data_ptr(), plan.L * B,
+                                         idx.shape[0], stream), "other K2")
+        return out
+
+    def kw(rows):
+        tab = interp._kw[rows]
+        out = torch.empty((tab.shape[0], plan.L, B), dtype=torch.uint32,
+                          device=dev)
+        if out.numel():
+            checked(lib.ctpu_assemble(*kw_args(
+                field, tab, bank, bank_n, x, plan.dev["consts"], out,
+                stream)), "other KW")
+        return out
+
+    if not mixed:
+        return k2(plan.dev["wd_src"]) if interp._k2_whole else kw("full")
+    src, shift = plan.dev["nw_src"], plan.dev["nw_shift"]
+    narrow = torch.empty((src.shape[0], B), dtype=torch.int32, device=dev)
+    if narrow.numel():
+        checked(lib.ctpu_gather_n(bank_n.data_ptr(), bank_n.shape[0],
+                                  x_n.data_ptr(), src.data_ptr(),
+                                  shift.data_ptr(), narrow.data_ptr(),
+                                  src.shape[0], B, stream), "other K3")
+    return narrow, (k2(plan.dev["wd_src"]) if interp._bank_only
+                    else kw("wide"))
+
+
+def sha256_program(dev):
+    """SHA256/bn128's WitnessProgram on `dev` (the interpreter's plan of M
+    and F)."""
+    cc = compile_source(
+        (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text()
+        + "\ncomponent main = Sha256Block();\n")
+    return WitnessProgram(cc.build_tape()[0], field_spec("bn128"),
+                          device=dev, input_ranges=cc.input_range_hints())
+
+
+def k3(libs, dev, reps, rows):
+    """K3 at M's shape (run_mixed of SHA256/bn128 at 65,536 lanes: 27,369
+    rows from this checkout's K1 narrow bank and 512 narrow input rows of
+    2 limbs), both checkouts' bare launches into outputs allocated before:
+    this one's reading the input rows, the other's on the split x_n (made
+    once before) or, with `rows`, on the input rows as well; both outputs
+    bit for bit, then timed in turns."""
+    prog = sha256_program(dev)
+    plan, B = prog.interp.plan, 65536
+    rng = np.random.default_rng(18)
+    msgs = [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
+                                           dtype=np.uint8)]
+    x = to_device(sha256_io.input_rows(msgs), dev)
+    _bank, bank_n = interp_k1(plan, prog.field, x)
+    del _bank
+    order, src = plan.dev["nin_order"], plan.dev["nw_src"]
+    shift = plan.dev["nw_shift"]
+    x_n = narrow_inputs(x, order)
+    W = src.shape[0]
+    outs = {k: torch.empty((W, B), dtype=torch.int32, device=dev)
+            for k in ("other", "this")}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def row_args(out):
+        return (bank_n.data_ptr(), bank_n.shape[0], x.data_ptr(),
+                x.shape[1], order.data_ptr(), src.data_ptr(),
+                shift.data_ptr(), out.data_ptr(), W, B, stream)
+
+    args = {"this": row_args(outs["this"]),
+            "other": row_args(outs["other"]) if rows else (
+                bank_n.data_ptr(), bank_n.shape[0], x_n.data_ptr(),
+                src.data_ptr(), shift.data_ptr(), outs["other"].data_ptr(),
+                W, B, stream)}
+    fns = {k: (lambda k=k: checked(libs[k, "gather"].ctpu_gather_n(
+        *args[k]), f"{k} K3")) for k in ("other", "this")}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    if not torch.equal(outs["this"], outs["other"]):
+        raise SystemExit("K3 on M: this differs from other")
+    ms = in_turns(fns, reps)
+    for k, v in ms.items():
+        print(f"  K3 M at {B} ({W} rows, {len(plan.nin_order)} narrow input "
+              f"rows of {x.shape[1]} limbs) {k}: {v[0]:.4f}, {v[1]:.4f} ms")
+    return {"batch": B, "rows": W, "other_reads": "rows" if rows else "x_n",
+            "ms": ms}
+
+
+def interp_runs(libs, dev, reps):
+    """The interpreter's whole run of SHA256/bn128, full limbs at 8,192
+    (F) and run_mixed at 65,536 (M): this checkout's against the other's
+    route (split_run), outputs bit for bit, both runs timed in turns by
+    CUDA events and each run's peak allocation read."""
+    spec = field_spec("bn128")
+    prog = sha256_program(dev)
+    plan = prog.interp.plan
+    orders = [torch.as_tensor(o, dtype=torch.int64, device=dev)
+              for o in (plan.win_order, plan.nin_order)]
+    rng = np.random.default_rng(16)
+    out = {}
+    for name, B, lin, mixed in (("F", 8192, spec.n_limbs, False),
+                                ("M", 65536, 2, True)):
+        msgs = [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
+                                               dtype=np.uint8)]
+        rows = np.zeros((512, lin, B), np.uint32)
+        rows[:, 0] = sha256_io.msgs_to_bits_batch(msgs)
+        x = to_device(rows, dev)
+        fns = {"other": lambda: split_run(libs, prog, x, mixed, orders),
+               "this": (lambda: prog.run_mixed(x)) if mixed
+               else (lambda: prog.run(x))}
+        got = {k: fn() for k, fn in fns.items()}
+        torch.cuda.synchronize()
+        pairs = zip(got["this"], got["other"]) if mixed \
+            else [(got["this"], got["other"])]
+        for a, b in pairs:
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise SystemExit(f"run {name}: this differs from other")
+        del got
+        ms = in_turns(fns, reps)
+        peaks = {k: peak_gib(dev, fn) for k, fn in fns.items()}
+        for k, v in ms.items():
+            print(f"  run {name} at {B} ({'run_mixed' if mixed else 'run'}) "
+                  f"{k}: {v[0]:.4f}, {v[1]:.4f} ms, peak {peaks[k]:.3f} GiB")
+        out[name] = {"batch": B, "ms": ms, "peak_gib": peaks}
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def k2(libs, dev, reps):
@@ -510,30 +680,6 @@ def k5(libs, name, rows, n_wires, B, dev, reps):
             "shapes": shapes}
 
 
-def csr_matrices(rows, spec, dev):
-    """The CSR KC's matrices of `rows`, as its checker built them: a (ptr
-    int32 (n_rows + 1), col int32 (nnz), coeff·R^2 mod p uint32 (nnz, L/2))
-    triple a matrix, each row's nonzeros by column."""
-    L, p = spec.n_limbs, spec.p
-    R = 1 << (LIMB_BITS * L)
-    out = []
-    for mi in range(3):
-        rws, cols, coefs = [], [], []
-        for ri, row in enumerate(rows):
-            for col, coef in sorted(row[mi].items()):
-                rws.append(ri)
-                cols.append(col)
-                coefs.append(coef * R % p * R % p)
-        ptr = np.zeros(len(rows) + 1, np.int32)
-        np.cumsum(np.bincount(np.asarray(rws, np.int64),
-                              minlength=len(rows)), out=ptr[1:])
-        limbs = ints_to_limbs(coefs, L).reshape(-1, L)
-        words = limbs[:, 0::2] | (limbs[:, 1::2] << 16)
-        out.append(tuple(to_device(a, dev) for a in (
-            ptr, np.asarray(cols, np.int32), np.ascontiguousarray(words))))
-    return out
-
-
 def kc_case(name, dev, B):
     """(rows, spec, witness with lanes corrupted) of KC's case `name`: P,
     Poseidon2/bn128, or F, the full-limb SHA256 block over bn128."""
@@ -563,29 +709,20 @@ def kc_case(name, dev, B):
     return cc.r1cs_rows(), cc.counts()["n_wires"], spec, wit
 
 
-def kc(libs, name, B, dev, reps, streams):
-    """KC on case `name` at batch B in one launch, the other checkout's (the
-    CSR KC's interface, or with `streams` this one's) and this one's:
-    their first violated rows compared, then timed in turns."""
+def kc(libs, name, B, dev, reps):
+    """KC on case `name` at batch B in one launch, the other checkout's and
+    this one's: their first violated rows compared, then timed in
+    turns."""
     rows, n_wires, spec, wit = kc_case(name, dev, B)
     checker = R1CSChecker(rows, n_wires, spec, device=dev)
-    old = csr_matrices(rows, spec, dev)
-    field, n = checker.field, checker.n_rows
+    n = checker.n_rows
     stream = torch.cuda.current_stream(dev).cuda_stream
-    p = build.u32_array(field.p_list)
     rpc = kc_rows_per_chunk(n, B)
     firsts = {k: torch.full((B,), n, dtype=torch.int32, device=dev)
               for k in ("other", "this")}
-    this_args = kc_args(checker, wit, firsts["this"], stream)
-    other_args = (kc_args(checker, wit, firsts["other"], stream) if streams
-                  else (spec.n_limbs, wit.data_ptr(), B,
-                        *[t.data_ptr() for m in old for t in m], n, rpc, p,
-                        field.n0inv32, firsts["other"].data_ptr(), stream))
-    fns = {
-        "other": lambda: checked(libs["other", "check"].ctpu_r1cs_check(
-            *other_args), "other KC"),
-        "this": lambda: checked(libs["this", "check"].ctpu_r1cs_check(
-            *this_args), "this KC")}
+    args = {k: kc_args(checker, wit, firsts[k], stream) for k in firsts}
+    fns = {k: (lambda k=k: checked(libs[k, "check"].ctpu_r1cs_check(
+        *args[k]), f"{k} KC")) for k in firsts}
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -613,63 +750,6 @@ def kc(libs, name, B, dev, reps, streams):
 KS_CASES = (("Q", "n2b254x16", 8, 8192), ("QS8", "n2b254x16", 8, 65536),
             ("QS64", "n2b254x16", 64, 65536),
             ("O", "bigdiv_n2b254", 8, 8192))
-# the other KS's widths: a warp a slot (its kept layout), a thread a lane
-OTHER_KS_WARPS = (8, 1)
-
-
-def old_ks_tables(sched):
-    """The tables of the KS whose register file was all in device memory,
-    a frozen copy of its builder: (off int32 (n_steps + 1,), entries
-    int32 (off[-1], 8)) from a scan Schedule; the first step
-    the constants' and inputs' loads (imm: the constant's index; a: the
-    input's), then each step's real slots, then the copied rows."""
-    opc, a_i, b_i, c_i, o_i, w_i, imm = sched.tables
-    trash, n_w = sched.n_regs - 1, sched.n_witness
-
-    def entries(op, a=0, b=0, c=0, o=-1, w=-1, k=0):
-        cols = np.broadcast_arrays(KS_OPS.index(op), a, b, c, o, w, k, 0)
-        return np.stack(cols, -1).reshape(-1, 8).astype(np.int32)
-
-    first = [entries("const", o=reg, k=k)
-             for k, (reg, _v, _d) in enumerate(sched.const_loads)]
-    first += [entries("input", a=idx, o=reg)
-              for reg, idx in sched.input_loads]
-    load = {reg: ("const", {"k": k})
-            for k, (reg, _v, _d) in enumerate(sched.const_loads)}
-    load.update({reg: ("input", {"a": idx})
-                 for reg, idx in sched.input_loads})
-    for reg, ws in sched.load_outputs:
-        op, kw = load[reg]
-        first.append(entries(op, w=np.asarray(ws), **kw))
-    steps = [np.concatenate(first) if first else np.zeros((0, 8), np.int32)]
-    for si in range(sched.n_steps):
-        op = sched.branch_ops[opc[si]]
-        n = int((o_i[si] != trash).sum())
-        w = w_i[si, :n]
-        cols = [t[si, :n] for t in (a_i, b_i, c_i)]
-        steps.append(entries(op, *cols, o_i[si, :n], np.where(w == n_w, -1, w),
-                             imm[si, :n]))
-    if sched.out_dups:
-        src, dst = np.asarray(sched.out_dups, np.int64).T
-        steps.append(entries("dup", a=src, w=dst))
-    off = np.cumsum([0] + [len(t) for t in steps]).astype(np.int32)
-    return off, np.concatenate(steps)
-
-
-def old_ks_args(scan, x, rf, out, warps, stream):
-    """The other KS's arguments (see the module's docstring) for one run
-    of ScanProgram `scan` on x into out, its register file rf; the tables
-    on x's device in scan.old_ks (old_ks_tables' and the constants'
-    words, const_loads in order)."""
-    f, d = scan.field, scan.old_ks
-    limbs = (f.p_list + f.r2_list + f.one_mont_list + f.half_list
-             + f.mask_list)
-    return (f.L, d["off"].data_ptr(), d["ent"].data_ptr(),
-            len(d["off"]) - 1, d["consts"].data_ptr(), x.data_ptr(),
-            rf.data_ptr(), out.data_ptr(), x.shape[-1],
-            build.u32_array(limbs), f.n0inv32, f.p.bit_length(), warps,
-            stream)
-
 
 def ks_program(circuit, spec, dev, slots):
     """(a WitnessProgram of `circuit` at `slots` on the scan, and the
@@ -685,11 +765,9 @@ def ks_program(circuit, spec, dev, slots):
     return scan, main
 
 
-def ks(libs, dev, reps, same):
-    """KS of both checkouts on every KS_CASES shape, this one's at every
-    width of KS_WIDTHS, the other's at OTHER_KS_WARPS (or, with `same`,
-    this one's interface, at KS_WIDTHS), in turns; {case: {"tag
-    w<warps>": [ms, ms]}}."""
+def ks(libs, dev, reps):
+    """KS of both checkouts on every KS_CASES shape at every width of
+    KS_WIDTHS, in turns; {case: {"tag w<warps>": [ms, ms]}}."""
     spec = field_spec("bn128")
     L = spec.n_limbs
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -710,32 +788,16 @@ def ks(libs, dev, reps, same):
         got = torch.empty_like(want)
         stream = build.stream_ptr(dev)
         fns, keep = {}, []
-        if not same:
-            off, ent = old_ks_tables(scan.sched)
-            words = const_words([(v, d) for _r, v, d in
-                                 scan.sched.const_loads], scan.field)
-            scan.old_ks = {"off": to_device(off, dev),
-                           "ent": to_device(ent, dev),
-                           "consts": to_device(np.ascontiguousarray(words),
-                                               dev)}
         for tag in ("other", "this"):
             lib = libs[tag, "scan"]
-            widths = (OTHER_KS_WARPS if tag == "other" and not same
-                      else KS_WIDTHS)
-            for warps in widths:
-                if tag == "other" and not same:
-                    rf = torch.empty((scan.sched.n_regs, L // 2, B),
+            for warps in KS_WIDTHS:
+                d = this.device_tables(warps)
+                t = d["t"]
+                spill = (torch.empty((t.n_spill, L // 2, B),
                                      dtype=torch.int32, device=dev)
-                    keep.append(rf)
-                    args = old_ks_args(scan, x, rf, got, warps, stream)
-                else:
-                    d = this.device_tables(warps)
-                    t = d["t"]
-                    spill = (torch.empty((t.n_spill, L // 2, B),
-                                         dtype=torch.int32, device=dev)
-                             if t.n_spill else None)
-                    keep.append(spill)
-                    args = ks_args(this.field, d, x, spill, got, stream)
+                         if t.n_spill else None)
+                keep.append(spill)
+                args = ks_args(this.field, d, x, spill, got, stream)
                 fns[f"{tag} w{warps}"] = (
                     lambda lib=lib, args=args:
                     checked(lib.ctpu_scan(*args), "KS"))
@@ -822,49 +884,13 @@ def build_k4(root, text, tag):
 
     with ThreadPoolExecutor(max_workers=n) as pool:
         sos = list(pool.map(one, range(n)))
-    n_ptr = 2 if k4_stacked(text) else 3
     fns = []
     for s, so in enumerate(sos):
         fn = getattr(ctypes.CDLL(str(so)), f"ctpu_k4_seg{s}")
         fn.restype = _I
-        fn.argtypes = [_P] * n_ptr + [_LL, _P]
+        fn.argtypes = [_P] * 3 + [_LL, _P]
         fns.append(fn)
     return fns
-
-
-def stacked_run(sp, launch, x):
-    """The segments' run over the stacked K4 interface, a frozen copy of
-    the route it had: each segment's inputs stacked from input rows and
-    earlier segments' outputs, a fresh output tensor a segment (launch(s,
-    xin, out) runs segment s), then the witness stacked from the outputs,
-    constant rows and input rows.  Returns (the witness, each segment's
-    (inputs, outputs))."""
-    xt, L = sp.xt, sp.L
-    xi = x.view(torch.int32)
-    B = x.shape[-1]
-    vals, bufs = {}, []
-    for s, seg in enumerate(sp.segments):
-        parts = [xi[xt.iidx[a]] if xt.kind[a] == "input" else vals[a]
-                 for a in seg.in_nodes]
-        xin = torch.stack(parts) if parts else torch.zeros(
-            (1, L, B), dtype=torch.int32, device=x.device)
-        out = torch.empty((len(seg.out_nodes), L, B), dtype=torch.int32,
-                          device=x.device)
-        launch(s, xin, out)
-        bufs.append((xin, out))
-        for row, a in enumerate(seg.out_nodes):
-            vals[a] = out[row]
-    rows = []
-    for nid in xt.out_ids:
-        if xt.kind[nid] == "const":
-            limb = torch.as_tensor(int_to_limbs(xt.cval[nid], L)
-                                   .astype(np.int32), device=x.device)
-            rows.append(limb[:, None].expand(L, B))
-        elif xt.kind[nid] == "input":
-            rows.append(xi[xt.iidx[nid]])
-        else:
-            rows.append(vals[nid])
-    return torch.stack(rows).view(torch.uint32), bufs
 
 
 def peak_gib(dev, fn):
@@ -896,6 +922,8 @@ def k4(other, dev, reps):
         prog = progs[name] = WitnessProgram(tape, spec, device=dev)
         text = k4_source(Path(other).resolve(), copies,
                          out_dir / f"other-{name}.txt")
+        if k4_stacked(text):
+            raise SystemExit(f"the K4 of {other} is older than 0844d12's")
         if k4_segments(text) != [(len(g.instrs), len(g.src),
                                   len(g.dst))
                                  for g in prog.fused.kernels]:
@@ -913,39 +941,25 @@ def k4(other, dev, reps):
     for (name, copies, B), (_n, text) in zip(K4_CASES, jobs):
         prog, fns = progs[name], theirs[name]
         sp = prog.fused
-        stacked = k4_stacked(text)
         x = canonical(gen, spec, (copies, spec.n_limbs, B), dev)
         want = prog.run(x)
-        if stacked:
-            def launch(s, xin, o, fns=fns, B=B):
-                checked(fns[s](xin.data_ptr(), o.data_ptr(), B, stream),
-                        "K4")
-            got, bufs = stacked_run(sp, launch, x)
+        wit_o = torch.empty_like(want)
+        cross_o = torch.empty((sp.n_cross, sp.L, B), dtype=torch.uint32,
+                              device=dev)
 
-            def other_run():
-                return stacked_run(sp, launch, x)[0]
+        def other_bare(fns=fns, wit_o=wit_o, cross_o=cross_o, B=B):
+            for s in range(len(fns)):
+                checked(fns[s](x.data_ptr(), wit_o.data_ptr(),
+                               cross_o.data_ptr(), B, stream), "K4")
 
-            def other_bare():
-                for s, (xin, o) in enumerate(bufs):
-                    launch(s, xin, o)
-        else:
-            wit_o = torch.empty_like(want)
-            cross_o = torch.empty((sp.n_cross, sp.L, B), dtype=torch.uint32,
-                                  device=dev)
-
-            def other_bare():
-                for s in range(len(fns)):
-                    checked(fns[s](x.data_ptr(), wit_o.data_ptr(),
-                                   cross_o.data_ptr(), B, stream), "K4")
-
-            def other_run():
-                wit = torch.empty_like(want)
-                cross = torch.empty_like(cross_o)
-                for s in range(len(fns)):
-                    checked(fns[s](x.data_ptr(), wit.data_ptr(),
-                                   cross.data_ptr(), B, stream), "K4")
-                return wit
-            got = other_run()
+        def other_run(fns=fns, want=want, cross_o=cross_o, B=B):
+            wit = torch.empty_like(want)
+            cross = torch.empty_like(cross_o)
+            for s in range(len(fns)):
+                checked(fns[s](x.data_ptr(), wit.data_ptr(),
+                               cross.data_ptr(), B, stream), "K4")
+            return wit
+        got = other_run()
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise SystemExit(f"K4 on {name}: the other checkout's witness "
                              "differs from this one's")
@@ -966,8 +980,7 @@ def k4(other, dev, reps):
                         reps)
         peaks = {"other": peak_gib(dev, other_run),
                  "this": peak_gib(dev, lambda: prog.run(x))}
-        result[name] = {"interface": "stacked" if stacked else "in place",
-                        "segments": len(sp.kernels), "bare_ms": bare,
+        result[name] = {"segments": len(sp.kernels), "bare_ms": bare,
                         "run_ms": runs, "peak_gib": peaks}
         for what, t in (("bare K4", bare), ("run", runs)):
             for k, v in t.items():
@@ -975,9 +988,7 @@ def k4(other, dev, reps):
                       + ", ".join(f"{m:.4f}" for m in v) + " ms")
         print(f"  K4 {name} peak allocation of a run: other "
               f"{peaks['other']:.3f} GiB, this {peaks['this']:.3f} GiB")
-        del x, wit, cross
-        if stacked:
-            del bufs
+        del x, wit, cross, wit_o, cross_o
         torch.cuda.empty_cache()
     return result
 
@@ -987,9 +998,9 @@ def main(argv=None):
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", default="k1,k2,k5,kc,ks,k4",
+    ap.add_argument("--kernels", default="k1,k3,k2,k5,kc,ks,k4",
                     help="which comparisons to run, and so which sources "
-                         "to build (default: all six)")
+                         "to build (default: all seven)")
     args = ap.parse_args(argv)
     kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -1000,9 +1011,14 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip())
-    names = [n for k, n in (("k1", "interp"), ("k2", "gather"),
+    names = [n for k, n in (("k1", "interp"), ("k3", "gather"),
+                            ("k2", "gather"),
                             ("k5", "field_ops"), ("kc", "check"),
                             ("ks", "scan")) if k in kernels]
+    names = list(dict.fromkeys(names))
+    if "k1" in kernels and "gather" not in names:
+        names.append("gather")      # the whole runs' K2, K3 and KW
+    refuse_older(args.other, names)
     with ThreadPoolExecutor(1) as pool:
         # KC's witnesses and KS's reference run this checkout's kernels:
         # built beside
@@ -1013,12 +1029,21 @@ def main(argv=None):
             print(f"  this checkout's kernels built in {fixed.result():.1f} s")
     result = {"card": card.strip()}
     if "k1" in kernels:
-        limbs = limbs_k1(args.other)
-        print(f"  the other K1 takes {36 if limbs else 35} arguments")
+        iface = k1_interface(args.other)
+        n_args = {"rows": 37, "split": 35}[iface]
+        print(f"  the other K1 takes {n_args} arguments ({iface})")
         for name, B in K1_CASES:
             result[f"k1_{name}_{B}"] = k1(libs, name, B, dev, args.reps,
-                                          limbs)
+                                          iface)
             torch.cuda.empty_cache()
+        if iface == "split" and not rows_k3(args.other):
+            result["runs"] = interp_runs(libs, dev, max(2, args.reps // 2))
+        else:
+            print("  the whole runs need an other checkout whose K1 and K3 "
+                  "take the split inputs")
+    if "k3" in kernels:
+        result["k3_M"] = k3(libs, dev, args.reps, rows_k3(args.other))
+        torch.cuda.empty_cache()
     if "k2" in kernels:
         result["k2"] = k2(libs, dev, args.reps)
         torch.cuda.empty_cache()
@@ -1034,14 +1059,12 @@ def main(argv=None):
                             sha.counts()["n_wires"], 8192, dev,
                             max(2, args.reps // 4))
     if "kc" in kernels:
-        streams = streams_kc(args.other)
-        result["kc_P"] = kc(libs, "P", 65536, dev, args.reps, streams)
+        result["kc_P"] = kc(libs, "P", 65536, dev, args.reps)
         torch.cuda.empty_cache()
-        result["kc_F"] = kc(libs, "F", 8192, dev, max(2, args.reps // 4),
-                            streams)
+        result["kc_F"] = kc(libs, "F", 8192, dev, max(2, args.reps // 4))
         torch.cuda.empty_cache()
     if "ks" in kernels:
-        result["ks"] = ks(libs, dev, args.reps, shared_ks(args.other))
+        result["ks"] = ks(libs, dev, args.reps)
     if "k4" in kernels:
         result["k4"] = k4(args.other, dev, args.reps)
     print(json.dumps(result))

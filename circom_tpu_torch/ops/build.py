@@ -62,13 +62,14 @@ SIGNATURES = {
     },
     "interp": {
         "ctpu_interp_k1": (
-            _I, [_I, _LL, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
-                 _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _PU32,
-                 _PU32, _U32, _PU32, _PU32, _PU32, _I, _I, _P]),
+            _I, [_I, _LL, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I,
+                 _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,
+                 _PU32, _PU32, _U32, _PU32, _PU32, _PU32, _I, _I, _P]),
     },
     "gather": {
         "ctpu_gather_rows": (_I, [_P, _P, _P, _LL, _LL, _P]),
-        "ctpu_gather_n": (_I, [_P, _LL, _P, _P, _P, _P, _LL, _LL, _P]),
+        "ctpu_gather_n": (_I, [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _LL,
+                               _P]),
         "ctpu_assemble": (_I, [_I, _LL, _P, _LL, _P, _P, _P, _P, _PU32, _P,
                                _P]),
     },

@@ -22,7 +22,9 @@
 // the narrow sources, raw where shift[w] < 0, else bit shift[w] of it
 // ((row >>u shift) & 1, the unpack of a bit-packed word row).  A source
 // row below the narrow bank's row count is read from the bank, a larger
-// one from the narrow inputs x_n, both in place.  The TPU kernel batched 32
+// one, n_bank_rows + k, is narrow input k read where the caller's input
+// rows lie: limb0 | limb1 << 16 of input row nin_order[k] (limb0 alone
+// where the rows have one limb), as K1 loads it.  The TPU kernel batched 32
 // output rows a grid cell and deduplicated their source rows to amortize
 // its per-cell cost; here a 2-D grid does the same job without tables:
 // blockIdx.y walks the witness rows, threads run along the batch, so every
@@ -92,32 +94,68 @@ void launch(const T* bank, const int32_t* idx, T* out, long long row_elems,
       <<<(unsigned)blocks, threads, 0, s>>>(bank, idx, out, row_elems, total);
 }
 
+// Narrow input value of limbs lo and hi (hi 0 where the rows have one limb).
+__device__ __forceinline__ int32_t narrow_in(uint32_t lo, uint32_t hi) {
+  return (int32_t)(lo | (hi << 16));
+}
+
+// K3's block, and 8 blocks an SM: at most 32 registers a thread, so that a
+// launch runs at full occupancy (a block is one row of 1,024 lanes at
+// 16 bytes a thread).  Without the bound, reading the two input limbs
+// took it to 40 and 48 registers, and K3 at M's shape ran 5 % slower than
+// the K3 that read the split narrow inputs; with it (ptxas spills 72
+// bytes in one of the two variants) 6 % faster (kernel_ab, in turns, on
+// an H100).
+constexpr int K3_THREADS = 256;
+
 template <int V>
-__global__ void gather_n_kernel(const int32_t* __restrict__ bank_n,
-                                long long n_bank_rows,
-                                const int32_t* __restrict__ x_n,
-                                const int32_t* __restrict__ src,
-                                const int32_t* __restrict__ shift,
-                                int32_t* __restrict__ out, long long W,
-                                long long B) {
+__global__ void __launch_bounds__(K3_THREADS, 8)
+gather_n_kernel(const int32_t* __restrict__ bank_n, long long n_bank_rows,
+                const uint32_t* __restrict__ inputs, int lin,
+                const int32_t* __restrict__ nin_order,
+                const int32_t* __restrict__ src,
+                const int32_t* __restrict__ shift, int32_t* __restrict__ out,
+                long long W, long long B) {
   const long long n_vec = B / V;
   for (long long w = blockIdx.y; w < W; w += gridDim.y) {
     const long long r = __ldg(src + w);
     const int32_t sh = __ldg(shift + w);
-    const int32_t* row = r < n_bank_rows ? bank_n + r * B
-                                         : x_n + (r - n_bank_rows) * B;
     int32_t* dst = out + w * B;
+    if (r < n_bank_rows) {
+      const int32_t* row = bank_n + r * B;
+      for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+           i < n_vec; i += (long long)gridDim.x * blockDim.x) {
+        if constexpr (V == 4) {
+          int4 v = reinterpret_cast<const int4*>(row)[i];
+          v.x = unpack_bit(v.x, sh);
+          v.y = unpack_bit(v.y, sh);
+          v.z = unpack_bit(v.z, sh);
+          v.w = unpack_bit(v.w, sh);
+          reinterpret_cast<int4*>(dst)[i] = v;
+        } else {
+          dst[i] = unpack_bit(row[i], sh);
+        }
+      }
+      continue;
+    }
+    // narrow input r - n_bank_rows: limbs 0 and 1 of its input row
+    const uint32_t* lo =
+        inputs + (long long)__ldg(nin_order + (r - n_bank_rows)) * lin * B;
+    const uint32_t* hi = lo + B;
     for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
          i < n_vec; i += (long long)gridDim.x * blockDim.x) {
       if constexpr (V == 4) {
-        int4 v = reinterpret_cast<const int4*>(row)[i];
-        v.x = unpack_bit(v.x, sh);
-        v.y = unpack_bit(v.y, sh);
-        v.z = unpack_bit(v.z, sh);
-        v.w = unpack_bit(v.w, sh);
+        const uint4 l = reinterpret_cast<const uint4*>(lo)[i];
+        const uint4 h = lin > 1 ? reinterpret_cast<const uint4*>(hi)[i]
+                                : make_uint4(0, 0, 0, 0);
+        int4 v;
+        v.x = unpack_bit(narrow_in(l.x, h.x), sh);
+        v.y = unpack_bit(narrow_in(l.y, h.y), sh);
+        v.z = unpack_bit(narrow_in(l.z, h.z), sh);
+        v.w = unpack_bit(narrow_in(l.w, h.w), sh);
         reinterpret_cast<int4*>(dst)[i] = v;
       } else {
-        dst[i] = unpack_bit(row[i], sh);
+        dst[i] = unpack_bit(narrow_in(lo[i], lin > 1 ? hi[i] : 0u), sh);
       }
     }
   }
@@ -244,19 +282,23 @@ extern "C" int ctpu_gather_rows(const uint32_t* bank, const int32_t* idx,
   return (int)cudaGetLastError();
 }
 
-// K3.  bank_n: (n_bank_rows, B) int32, x_n: (n_xn, B) int32, src and shift:
-// (W,) int32, out: (W, B) int32, all on the device; every src[w] lies in
-// [0, n_bank_rows + n_xn).  Returns the launch's cudaError_t (0 on
+// K3.  bank_n: (n_bank_rows, B) int32; inputs: (n_inputs, lin, B) uint32
+// 16-bit limbs, the caller's input rows, lin >= 1; nin_order: (n_nin,)
+// int32, the input row of each narrow input, each below n_inputs; src and
+// shift: (W,) int32; out: (W, B) int32; all on the device; every src[w]
+// lies in [0, n_bank_rows + n_nin).  Returns the launch's cudaError_t (0 on
 // success).
 extern "C" int ctpu_gather_n(const int32_t* bank_n, long long n_bank_rows,
-                             const int32_t* x_n, const int32_t* src,
+                             const uint32_t* inputs, int lin,
+                             const int32_t* nin_order, const int32_t* src,
                              const int32_t* shift, int32_t* out, long long W,
                              long long B, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lin < 1) return (int)cudaErrorInvalidValue;
   if (W == 0 || B == 0) return 0;
-  const int threads = 256;
+  const int threads = ctpu::K3_THREADS;
   const bool vec = B % 4 == 0 &&
-                   ((uintptr_t)bank_n | (uintptr_t)x_n | (uintptr_t)out) %
+                   ((uintptr_t)bank_n | (uintptr_t)inputs | (uintptr_t)out) %
                            16 == 0;
   const long long n_vec = vec ? B / 4 : B;
   long long bx = (n_vec + threads - 1) / threads;
@@ -264,10 +306,10 @@ extern "C" int ctpu_gather_n(const int32_t* bank_n, long long n_bank_rows,
   const dim3 grid((unsigned)bx, (unsigned)(W < 65535 ? W : 65535));
   if (vec) {
     ctpu::gather_n_kernel<4><<<grid, threads, 0, s>>>(
-        bank_n, n_bank_rows, x_n, src, shift, out, W, B);
+        bank_n, n_bank_rows, inputs, lin, nin_order, src, shift, out, W, B);
   } else {
     ctpu::gather_n_kernel<1><<<grid, threads, 0, s>>>(
-        bank_n, n_bank_rows, x_n, src, shift, out, W, B);
+        bank_n, n_bank_rows, inputs, lin, nin_order, src, shift, out, W, B);
   }
   return (int)cudaGetLastError();
 }

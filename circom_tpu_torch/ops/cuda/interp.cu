@@ -81,6 +81,14 @@
 //   registers, not 80, and was ~1.5x slower on SHA256's plan.
 // - The opcodes whose operand index depends on the data or the count
 //   (select, the shifts, the long division) read their words in place.
+// - The inputs are read where the caller's rows lie, (n_inputs, Lin, B):
+//   wide input k is row win_order[k] packed into words (Lin = L), narrow
+//   input k is limb0 | limb1 << 16 of row nin_order[k] (limb0 alone where
+//   Lin = 1), the bits of the JAX package's split in _run
+//   (astype(int32) | limb1 << 16; limbs 2 and up are not read).  So no
+//   gather, widening or cast of the inputs runs before K1: the split took
+//   six launches and ~1.4 GB of traffic on SHA256's 512 input rows at
+//   8,192 lanes, where K1 reads 33.5 MB of them.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -165,8 +173,11 @@ enum Op {
 };
 
 struct InterpArgs {
-  const uint32_t* x_w;      // (n_win, L, B) wide inputs, 16-bit limbs
-  const int32_t* x_n;       // (n_nin, B) narrow inputs
+  const uint32_t* inputs;   // (n_inputs, lin, B) input rows, 16-bit limbs
+  const int32_t* win_order;  // (n_win) input row of each wide input
+  const int32_t* nin_order;  // (n_nin) input row of each narrow input
+  int lin;                  // limbs an input row: L where n_win > 0, else
+                            // 1, 2 or L
   const int32_t* table;     // (n_steps, 7): op ia ib ic dst em aux
   const int32_t* grp;       // (n_steps): length of a narrow step group
   const int32_t* r_op;      // per run: opcode
@@ -633,10 +644,12 @@ __global__ void __launch_bounds__(THREADS) interp_k1_kernel(
   uint32_t pw[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) pw[i] = kc.p[i];
-  // inputs and materialized wide constants into the wide register file
+  // inputs (rows of the caller's tensor) and materialized wide constants
+  // into the wide register file
   for (int k = 0; k < a.n_win; ++k) {
     uint32_t v[N];
-    pack32<L>(a.x_w + (long long)k * L * a.B + b, a.B, v);
+    pack32<L>(a.inputs + (long long)__ldg(a.win_order + k) * L * a.B + b,
+              a.B, v);
     rf.store(k, v);
   }
   for (int m = 0; m < a.n_mat; ++m) {
@@ -645,7 +658,12 @@ __global__ void __launch_bounds__(THREADS) interp_k1_kernel(
     rf.store(__ldg(a.mat_regs + m), v);
   }
   // narrow inputs and constants into the narrow register file
-  for (int k = 0; k < a.n_nin; ++k) a.rf_n[k * a.B + b] = a.x_n[k * a.B + b];
+  for (int k = 0; k < a.n_nin; ++k) {
+    const uint32_t* row =
+        a.inputs + (long long)__ldg(a.nin_order + k) * a.lin * a.B + b;
+    const uint32_t v = a.lin > 1 ? row[0] | (row[a.B] << 16) : row[0];
+    a.rf_n[k * a.B + b] = (int32_t)v;
+  }
   for (int m = 0; m < a.n_nmat; ++m)
     a.rf_n[__ldg(a.nmat_regs + m) * a.B + b] = __ldg(a.nmat_vals + m);
   for (int c = 0; c < a.n_chunks; ++c) {
@@ -726,18 +744,22 @@ int launch(const InterpArgs& a, const uint32_t* p_limbs,
 
 }  // namespace ctpu
 
-// Launch K1 on `stream`.  Device pointers: x_w, x_n, table, grp, r_op,
-// r_s0, rstarts, cbank_w, mont_tab, mat_regs, mat_limbs, nmat_vals,
-// nmat_regs, rf, bank, rf_n, bank_n.  rf holds the plan's wide registers
-// (the trash register included), L/2 words a register a lane: (n_regs,
-// L/2, B) for L = 16, (n_regs, B, 2) for L = 4.  Host pointers: p_limbs,
-// r2_limbs, half_limbs, mask_limbs, q_limbs (L 16-bit limbs each); n0inv32
-// = -p^-1 mod 2^32.  L is 4 (goldilocks) or 16 (the 256-bit primes); full
-// is nonzero when the plan runs K1c or K1d opcodes.  Returns the launch's
-// cudaError_t (0 on success).
+// Launch K1 on `stream`.  Device pointers: inputs, win_order, nin_order,
+// table, grp, r_op, r_s0, rstarts, cbank_w, mont_tab, mat_regs, mat_limbs,
+// nmat_vals, nmat_regs, rf, bank, rf_n, bank_n.  inputs holds the caller's
+// input rows, (n_inputs, lin, B) 16-bit limbs; win_order and nin_order
+// (n_win, n_nin) name the row of each wide and narrow input, every one
+// below n_inputs; lin is L where n_win > 0, else 1, 2 or L.  rf holds the
+// plan's wide registers (the trash register included), L/2 words a
+// register a lane: (n_regs, L/2, B) for L = 16, (n_regs, B, 2) for L = 4.
+// Host pointers: p_limbs, r2_limbs, half_limbs, mask_limbs, q_limbs (L
+// 16-bit limbs each); n0inv32 = -p^-1 mod 2^32.  L is 4 (goldilocks) or 16
+// (the 256-bit primes); full is nonzero when the plan runs K1c or K1d
+// opcodes.  Returns the launch's cudaError_t (0 on success).
 extern "C" int ctpu_interp_k1(
-    int L, long long B, const uint32_t* x_w, int n_win, const int32_t* x_n,
-    int n_nin, const int32_t* table, const int32_t* grp, const int32_t* r_op,
+    int L, long long B, const uint32_t* inputs, int lin,
+    const int32_t* win_order, int n_win, const int32_t* nin_order, int n_nin,
+    const int32_t* table, const int32_t* grp, const int32_t* r_op,
     const int32_t* r_s0, const int32_t* rstarts, int n_chunks,
     const uint32_t* cbank_w, const int32_t* mont_tab,
     const int32_t* mat_regs, const uint32_t* mat_limbs, int n_mat,
@@ -748,9 +770,13 @@ extern "C" int ctpu_interp_k1(
     const uint32_t* mask_limbs, const uint32_t* q_limbs, int bits, int full,
     void* stream) {
   if (L != 4 && L != 16) return (int)cudaErrorInvalidValue;
+  if ((lin != 1 && lin != 2 && lin != L) || (n_win > 0 && lin != L))
+    return (int)cudaErrorInvalidValue;
   ctpu::InterpArgs a = {};
-  a.x_w = x_w;
-  a.x_n = x_n;
+  a.inputs = inputs;
+  a.win_order = win_order;
+  a.nin_order = nin_order;
+  a.lin = lin;
   a.table = table;
   a.grp = grp;
   a.r_op = r_op;

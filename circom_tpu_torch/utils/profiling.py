@@ -120,7 +120,7 @@ def wall_ms(fn):
 
 
 def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
-                      runs=1):
+                      runs=1, pad=0.0):
     """Where a warm run's time goes, printed: device time by kernel from
     torch.profiler, and the device's idle share of the run's wall time
     (`wall`, ms, measured without the profiler, is printed beside it),
@@ -131,7 +131,10 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
     time, the kernels of Poseidon2/goldilocks' 3-launch run went
     unrecorded altogether.  aten=False leaves PyTorch's operator events
     out of the host times (a per-op run records some 180,000, slow to
-    summarise); the CUDA runtime's calls stay.  Kernels whose names hold
+    summarise); the CUDA runtime's calls stay.  `pad` seconds of host
+    time stand before and after each step's runs, inside the step and
+    outside its timing, so that no kernel runs near the edge of the
+    traced window.  Kernels whose names hold
     a string of `show` are printed beside the eight longest.  Returns
     (device busy ms, wall ms, kernels and copies, {name: (count, device
     ms)} of the kernels and copies) a run; the busy time
@@ -154,7 +157,9 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
                  on_trace_ready=lambda p: traced.append(p.key_averages())
                  ) as prof:
         for k in range(warmup + reps):
+            time.sleep(pad)
             _, t = wall_ms(step)
+            time.sleep(pad)
             ms += t if k >= warmup else 0.0
             prof.step()
     ms /= reps * runs

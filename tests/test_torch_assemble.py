@@ -48,7 +48,8 @@ from circom_tpu.backend.interp import InterpreterProgram, _unpack_bits
 from circom_tpu_torch.backend import interp as interp_mod
 from circom_tpu_torch.backend.interp import (KW_BANK, KW_CONST, KW_INPUT,
                                              KW_NARROW, TorchInterpreter,
-                                             interp_k1, kw_args, kw_table)
+                                             interp_k1, kw_args, kw_table,
+                                             narrow_inputs)
 from circom_tpu_torch.backend.interp_ref import gather_n_rows, gather_rows
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits import sha256_io
@@ -89,6 +90,7 @@ SHIM = """\
 #define __global__
 #define __forceinline__ inline
 #define __grid_constant__
+#define __launch_bounds__(...)
 struct int4 { int x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
@@ -166,10 +168,10 @@ def host_kw(lib, interp, inputs, bank, bank_n, rows="full"):
 def banks_and_both(lib, interp, x):
     """K1's banks on the plain executor, then (KW's witness, the parts
     route's) from them."""
-    inputs, x_w, x_n = interp._inputs(x)
-    bank, bank_n = interp_k1(interp.plan, interp.field, x_w, x_n)
+    inputs, x_w, _ = interp._inputs(x)
+    bank, bank_n = interp_k1(interp.plan, interp.field, inputs)
     got = host_kw(lib, interp, inputs, bank, bank_n)
-    want = interp.assemble_parts(inputs, x_w, x_n, bank, bank_n)
+    want = interp.assemble_parts(inputs, x_w, bank, bank_n)
     return u32(got), u32(want)
 
 
@@ -284,11 +286,11 @@ def test_kw_hand_edited_wide_inputs_and_consts(kwhost):
     cols = [[int(v) for v in rng.integers(0, 2 ** 62, size=3)]
             for _ in range(prog.n_inputs)]
     x = prog.encode_inputs(cols)
-    inputs, x_w, x_n = interp._inputs(x)
-    bank, bank_n = interp_k1(interp.plan, interp.field, x_w, x_n)
+    inputs, x_w, _ = interp._inputs(x)
+    bank, bank_n = interp_k1(interp.plan, interp.field, inputs)
     got = u32(host_kw(kwhost, interp, inputs, bank, bank_n))
     np.testing.assert_array_equal(
-        got, u32(interp.assemble_parts(inputs, x_w, x_n, bank, bank_n)))
+        got, u32(interp.assemble_parts(inputs, x_w, bank, bank_n)))
     np.testing.assert_array_equal(got[1], x[1])
     np.testing.assert_array_equal(got[4], x[0])
     for w, v in consts.items():
@@ -411,9 +413,9 @@ def test_kw_synthetic_matches_parts_and_jax(kwhost, field, B):
     spec = FIELDS[field]
     interp = synthetic(spec, seed=B)
     data = synthetic_data(interp, B, seed=100 + B)
-    inputs, x_w, x_n, bank, bank_n = data
+    inputs, x_w, _, bank, bank_n = data
     got = u32(host_kw(kwhost, interp, inputs, bank, bank_n))
-    want = u32(interp.assemble_parts(*data))
+    want = u32(interp.assemble_parts(inputs, x_w, bank, bank_n))
     np.testing.assert_array_equal(got, want)
     # the narrow rows: JAX's unpack and widening, and v mod p by hand
     pos, jax_rows, bits = jax_narrow_rows(interp.plan, spec.p, bank_n)
@@ -573,14 +575,19 @@ def test_host_k2_k3_match_plain(kwhost, B):
                                   gather_rows(bank, idx).numpy())
     bank_n = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(6, B))
                               .astype(np.int32))
-    x_n = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(2, B))
-                           .astype(np.int32))
+    # the narrow inputs: limbs 0 and 1 of input rows 3 and 1 of five
+    inputs = torch.from_numpy(rng.integers(0, 1 << 16, size=(5, 4, B),
+                                           dtype=np.uint32).view(np.int32))
+    inputs = inputs.view(torch.uint32)
+    order = torch.tensor([3, 1], dtype=torch.int32)
     src = torch.from_numpy(rng.integers(0, 8, size=10).astype(np.int32))
     shift = torch.tensor(SHIFTS * 2, dtype=torch.int32)
     out_n = torch.empty((10, B), dtype=torch.int32)
-    assert kwhost.ctpu_gather_n(bank_n.data_ptr(), 6, x_n.data_ptr(),
-                                src.data_ptr(), shift.data_ptr(),
-                                out_n.data_ptr(), 10, B, None) == 0
+    assert kwhost.ctpu_gather_n(bank_n.data_ptr(), 6, inputs.data_ptr(), 4,
+                                order.data_ptr(), src.data_ptr(),
+                                shift.data_ptr(), out_n.data_ptr(), 10, B,
+                                None) == 0
+    x_n = narrow_inputs(inputs, order)
     np.testing.assert_array_equal(
         out_n.numpy(), gather_n_rows(bank_n, x_n, src, shift).numpy())
 
@@ -593,8 +600,8 @@ def meta_launches(monkeypatch):
     by name (no kernel runs), the parts route refused."""
     names = []
 
-    def k1(plan, field, x_w, x_n):
-        B = x_w.shape[-1]
+    def k1(plan, field, inputs):
+        B = inputs.shape[-1]
         return (torch.empty((plan.n_bank_rows, plan.L, B),
                             dtype=torch.uint32, device="meta"),
                 torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
@@ -655,8 +662,8 @@ def test_kw_never_falls_back(monkeypatch):
     def parts(*a, **k):
         raise AssertionError("the parts route ran")
 
-    def k1(plan, field, x_w, x_n):
-        B = x_w.shape[-1]
+    def k1(plan, field, inputs):
+        B = inputs.shape[-1]
         return (torch.empty((plan.n_bank_rows, plan.L, B),
                             dtype=torch.uint32, device="meta"),
                 torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,

@@ -21,10 +21,10 @@ from circom_tpu_torch.backend import checker as checker_mod
 from circom_tpu_torch.backend.checker import R1CSChecker
 from circom_tpu_torch.backend import interp
 from circom_tpu_torch.backend.interp import (gather_n, gather_w, interp_k1,
-                                             launch_gather_w)
+                                             k1_plain, launch_gather_w,
+                                             narrow_inputs, split_inputs)
 from circom_tpu_torch.backend.ks import KsProgram
-from circom_tpu_torch.backend.interp_ref import (gather_n_rows, gather_rows,
-                                                 run_plan)
+from circom_tpu_torch.backend.interp_ref import gather_n_rows, gather_rows
 from circom_tpu_torch.backend.segments import (UNWRITTEN, SegmentedProgram,
                                                segment_k4, segment_ref)
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
@@ -41,8 +41,9 @@ from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
                                                segment_ops_source)
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.convert import (K1C_OPCODES, K1D_OPCODES,
-                                      narrow_unit_arrays, plan_from_arrays,
-                                      to_device, unit_arrays, unit_inputs)
+                                      input_rows, narrow_unit_arrays,
+                                      plan_from_arrays, to_device,
+                                      unit_arrays, unit_inputs)
 from circom_tpu_torch.field.primes import LIMB_BITS, FieldSpec, field_spec
 from circom_tpu_torch.ops import build
 from circom_tpu_torch.ops import field_kernels as fk
@@ -225,10 +226,10 @@ def test_kw_matches_parts_route(card, name, B):
     prog, x = kw_program(name, card, B)
     interp = prog.interp
     assert not interp._k2_whole
-    inputs, x_w, x_n = interp._inputs(x)
-    bank, bank_n = interp_k1(interp.plan, prog.field, x_w, x_n)
+    inputs, x_w, _ = interp._inputs(x)
+    bank, bank_n = interp_k1(interp.plan, prog.field, inputs)
     got = interp.assemble_kw(inputs, bank, bank_n)
-    want = interp.assemble_parts(inputs, x_w, x_n, bank, bank_n)
+    want = interp.assemble_parts(inputs, x_w, bank, bank_n)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     del want
     build.reset_launches()
@@ -262,13 +263,12 @@ def test_k1a_and_k2_match_plain(card, poseidon2):
                           device=card)
     plan = prog.interp.plan
     rng = np.random.default_rng(12)
-    x_w = to_device(canonical(rng, "bn128",
-                              (len(plan.win_order), plan.L, 4096)), card)
-    x_n = torch.zeros((0, 4096), dtype=torch.int32, device=card)
-    got, _ = interp_k1(plan, prog.field, x_w, x_n)
-    want, _ = run_plan(plan, prog.field, as_i64(x_w), as_i64(x_n))
+    x = to_device(canonical(rng, "bn128",
+                            (plan.n_input_rows, plan.L, 4096)), card)
+    got, _ = interp_k1(plan, prog.field, x)
+    want, _ = k1_plain(plan, prog.field, *split_inputs(plan, x))
     rows = torch.as_tensor(plan.emitted_rows(), device=card)
-    assert torch.equal(as_i64(got)[rows], want[rows])
+    assert torch.equal(as_i64(got)[rows], as_i64(want)[rows])
     idx = plan.dev["wd_src"]
     assert torch.equal(as_i64(gather_w(got, idx)),
                        as_i64(gather_rows(got, idx)))
@@ -367,24 +367,29 @@ def random_int32(rng, shape):
     return v.astype(np.int32)
 
 
-def k1_against_plain(plan, field, x_n, card):
-    """K1 and the plain executor on the same narrow inputs: every emitted
-    narrow bank row bit for bit."""
-    x_w = torch.zeros((0, plan.L, x_n.shape[1]), dtype=torch.uint32,
-                      device=card)
-    _, got = interp_k1(plan, field, x_w, x_n)
-    _, want = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
+def k1_against_plain(plan, field, x, card):
+    """K1 on the input rows x and the plain executor on their split: every
+    emitted narrow bank row bit for bit."""
+    x = to_device(x, card)
+    _, got = interp_k1(plan, field, x)
+    _, want = k1_plain(plan, field, *split_inputs(plan, x))
     rows = torch.as_tensor(plan.emitted_rows(narrow=True), device=card)
     assert len(rows)
-    assert torch.equal(got.long()[rows], want[rows])
+    assert torch.equal(got[rows], want[rows])
+
+
+def narrow_rows(plan, x_n):
+    """Input rows (numpy) whose narrow inputs under the plan are x_n."""
+    return input_rows(plan, np.zeros((0, plan.L, x_n.shape[1]), np.uint32),
+                      x_n)
 
 
 def test_k1b_unit_plan_matches_plain(card):
     """Every K1b opcode at the edge shift counts, one step each."""
     arrays, _cases = narrow_unit_arrays(16, EDGE_COUNTS)
     plan = plan_from_arrays(arrays, card)
-    x_n = to_device(random_int32(np.random.default_rng(21), (2, 4096)), card)
-    k1_against_plain(plan, TorchField(field_spec("bn128"), card), x_n, card)
+    x = narrow_rows(plan, random_int32(np.random.default_rng(21), (2, 4096)))
+    k1_against_plain(plan, TorchField(field_spec("bn128"), card), x, card)
 
 
 @pytest.mark.parametrize("name", ["overwrite", "groups"])
@@ -397,9 +402,9 @@ def test_k1b_overwritten_constants_and_groups_match_plain(card, name):
     arrays = {"overwrite": unit.overwrite_arrays(16),
               "groups": unit.groups_arrays(16)[0]}[name]
     plan = plan_from_arrays(arrays, card)
-    x_n = to_device(random_int32(np.random.default_rng(22),
-                                 (len(plan.nin_order), 4096)), card)
-    k1_against_plain(plan, TorchField(field_spec("bn128"), card), x_n, card)
+    x = narrow_rows(plan, random_int32(np.random.default_rng(22),
+                                       (len(plan.nin_order), 4096)))
+    k1_against_plain(plan, TorchField(field_spec("bn128"), card), x, card)
 
 
 def word_src():
@@ -418,9 +423,9 @@ def test_k1b_word_circuit_matches_plain(card, prime):
     prog = WitnessProgram(cc.build_tape()[0], spec, device=card,
                           input_ranges=cc.input_range_hints())
     rng = np.random.default_rng(22)
-    x_n = to_device(rng.integers(0, 2, size=(64, 2048)).astype(np.int32),
-                    card)
-    k1_against_plain(prog.interp.plan, prog.field, x_n, card)
+    x = np.zeros((prog.n_inputs, 2, 2048), np.uint32)
+    x[:, 0] = rng.integers(0, 2, size=(prog.n_inputs, 2048))
+    k1_against_plain(prog.interp.plan, prog.field, x, card)
 
 
 def test_k3_matches_plain(card):
@@ -430,13 +435,142 @@ def test_k3_matches_plain(card):
     B = 4099                       # not a multiple of 4: the scalar path
     for b in (B, 4096):
         bank_n = to_device(random_int32(rng, (40, b)), card)
-        x_n = to_device(random_int32(rng, (9, b)), card)
+        # nine narrow inputs in limbs 0 and 1 of rows of 12 input rows
+        inputs = to_device(rng.integers(0, 1 << 16, size=(12, 16, b),
+                                        dtype=np.uint32), card)
+        order = to_device(rng.permutation(12)[:9].astype(np.int32), card)
         src = to_device(rng.integers(0, 49, size=700).astype(np.int32),
                         card)
         shift = to_device(np.resize(np.asarray(EDGE_COUNTS, np.int32), 700),
                           card)
-        got = gather_n(bank_n, x_n, src, shift)
+        got = gather_n(bank_n, inputs, order, src, shift)
+        x_n = narrow_inputs(inputs, order)
         assert torch.equal(got, gather_n_rows(bank_n, x_n, src, shift))
+
+
+def unit_rows(rng, n_rows, L, B):
+    """Random 16-bit limbs (n_rows, L, B) whose limbs 0 and 1 give narrow
+    values at the edges in the first lanes: bit 31 set (-2^31, -1), 0 and
+    2^31 - 1; every limb above 1 nonzero."""
+    x = rng.integers(1, 1 << 16, size=(n_rows, L, B), dtype=np.uint32)
+    for j, v in enumerate((0x80000000, 0xFFFFFFFF, 0, 0x7FFFFFFF)):
+        x[:, 0, j] = v & 0xFFFF
+        if L > 1:
+            x[:, 1, j] = v >> 16
+    return x
+
+
+@pytest.mark.parametrize("lin", ["L", 2, 1])
+def test_k1_k3_read_input_rows_match_split(card, lin):
+    """K1 and K3 read their inputs in the caller's rows (n_inputs, Lin, B)
+    at Lin = L (the K1c/K1d unit plan: wide and narrow inputs), 2 and 1
+    (the K1b unit plan, its narrow inputs at rows 3 and 1 of five), held
+    against the plain split (split_inputs, narrow_inputs) and the plain
+    executor and gather, bit for bit; limbs above 1 nonzero, narrow values
+    with bit 31 set, and a lane count that is not a multiple of 4."""
+    rng = np.random.default_rng(27)
+    spec = field_spec("bn128")
+    field = TorchField(spec, card)
+    if lin == "L":
+        arrays, _ = unit_arrays(spec.p, 16, K1D_OPCODES + ("add",))
+        x = input_rows(plan_from_arrays(arrays, "cpu"),
+                       *unit_inputs(spec.p, 16, 4099, 28))
+        x[3:] = unit_rows(rng, 3, 16, 4099)
+    else:
+        arrays, _ = narrow_unit_arrays(16, EDGE_COUNTS)
+        arrays = dict(arrays, nin_of={3: 0, 1: 1})
+        x = unit_rows(rng, 5, lin, 4099)
+    plan = plan_from_arrays(arrays, card)
+    k1_against_plain_both(plan, field, x, card)
+    xs = to_device(x, card)
+    _, bank_n = interp_k1(plan, field, xs)
+    n_src = plan.n_bank_n_rows + len(plan.nin_order)
+    src = to_device(rng.integers(0, n_src, size=300).astype(np.int32), card)
+    shift = to_device(np.resize(np.asarray(EDGE_COUNTS, np.int32), 300),
+                      card)
+    order = plan.dev["nin_order"]
+    got = gather_n(bank_n, xs, order, src, shift)
+    want = gather_n_rows(bank_n, narrow_inputs(xs, order), src, shift)
+    assert torch.equal(got, want)
+
+
+def test_interpreter_runs_launch_only_their_kernels(card):
+    """A run on the card is its kernels alone: SHA256's full-limb run (F)
+    launches K1 and KW once each, its run_mixed (M) K1 and K3 (its wide
+    gather has no rows, so no K2), and MerkleInclusion(4)'s run_mixed
+    (wide and narrow inputs, the pathIndex bits) K1, K3 and K2; no other
+    launch, and the outputs equal the CPU's."""
+    prog, x = kw_program("sha256", card, 64)
+    parts = {k: 1 for k in prog.interp.plan.parts}
+    build.reset_launches()
+    wit = prog.run(x)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {**parts, "assemble": 1}
+    plain = prog.for_device("cpu")
+    assert torch.equal(wit.view(torch.int32).cpu(),
+                       plain.run(x).view(torch.int32))
+    assert not len(prog.interp.plan.wd_src)
+    x2 = x[:, :2].copy()
+    build.reset_launches()
+    narrow, wide = prog.run_mixed(x2)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {**parts, "gather_n": 1}
+    want_n, _ = plain.run_mixed(x2)
+    assert torch.equal(narrow.cpu(), want_n) and wide.shape[0] == 0
+    cc = compile_source(merkle_source(4))
+    hints = cc.input_range_hints()
+    spec = field_spec("bn128")
+    mk = WitnessProgram(cc.build_tape()[0], spec, device=card,
+                        input_ranges=hints)
+    p = mk.interp.plan
+    assert p.win_order and p.nin_order and mk.interp._bank_only
+    rng = random.Random(29)
+    cols = [[rng.randrange(2) if i in hints else rng.randrange(spec.p)
+             for _ in range(300)] for i in range(mk.n_inputs)]
+    xm = mk.encode_inputs(cols)
+    build.reset_launches()
+    narrow, wide = mk.run_mixed(xm)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {**{k: 1 for k in p.parts},
+                                    "gather_n": 1, "gather_w": 1}
+    want_n, want_w = mk.for_device("cpu").run_mixed(xm)
+    assert torch.equal(narrow.cpu(), want_n)
+    assert torch.equal(wide.view(torch.int32).cpu(),
+                       want_w.view(torch.int32))
+
+
+def same_outputs(got, want):
+    """Whether two runs' (or run_mixed's) outputs are equal, bit for
+    bit."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in pairs)
+
+
+@pytest.mark.parametrize("view", ["limbs", "lanes"])
+def test_strided_inputs_match_contiguous(card, view):
+    """K1, K3 and KW read input row r at r * Lin * B: a strided view of
+    the caller's rows on the card, x[:, :2] of SHA256's full-limb rows
+    (limbs 2 and up random) or x[..., :b] of a batch twice as wide, gives
+    the outputs of the same rows copied contiguous (which the tests above
+    hold against the CPU): SHA256's run_mixed, and with "lanes" its run
+    and MerkleInclusion(32)'s run and run_mixed (wide and narrow
+    inputs)."""
+    b = 96
+    prog, x = kw_program("sha256", card, 2 * b)
+    x[:, 2:] = np.random.default_rng(31).integers(
+        0, 1 << 16, size=x[:, 2:].shape, dtype=np.uint32)
+    cases = [(prog, x)]
+    if view == "lanes":
+        cases.append(kw_program("merkle32", card, 2 * b))
+    for p, rows in cases:
+        xc = to_device(rows, card)
+        v = xc[:, :2] if view == "limbs" else xc[..., :b]
+        assert not v.is_contiguous()
+        want = v.contiguous()
+        assert same_outputs(p.run_mixed(v), p.run_mixed(want))
+        if view == "lanes":
+            assert same_outputs(p.run(v), p.run(want))
 
 
 def test_sha256_run_mixed_digests(card):
@@ -464,20 +598,22 @@ def test_k1c_k1d_unit_plan_matches_plain(card, prime):
     ops = K1D_OPCODES + (K1C_OPCODES if prime == "goldilocks" else ("add",))
     arrays, _cases = unit_arrays(spec.p, L, ops)
     plan = plan_from_arrays(arrays, card)
-    x_w, x_n = unit_inputs(spec.p, L, 4096, 31)
-    k1_against_plain_both(plan, TorchField(spec, card),
-                          to_device(x_w, card), to_device(x_n, card), card)
+    x = input_rows(plan, *unit_inputs(spec.p, L, 4096, 31))
+    k1_against_plain_both(plan, TorchField(spec, card), x, card)
 
 
-def k1_against_plain_both(plan, field, x_w, x_n, card):
-    got_w, got_n = interp_k1(plan, field, x_w, x_n)
-    want_w, want_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
+def k1_against_plain_both(plan, field, x, card):
+    """K1 on the input rows x and the plain executor on their split: every
+    emitted row of both banks bit for bit."""
+    x = to_device(x, card)
+    got_w, got_n = interp_k1(plan, field, x)
+    want_w, want_n = k1_plain(plan, field, *split_inputs(plan, x))
     torch.cuda.synchronize()
     rows = torch.as_tensor(plan.emitted_rows(), device=card)
     rows_n = torch.as_tensor(plan.emitted_rows(narrow=True), device=card)
     assert len(rows) + len(rows_n)
-    assert torch.equal(as_i64(got_w)[rows], want_w[rows])
-    assert torch.equal(got_n.long()[rows_n], want_n[rows_n])
+    assert torch.equal(as_i64(got_w)[rows], as_i64(want_w)[rows])
+    assert torch.equal(got_n[rows_n], want_n[rows_n])
 
 
 def path_program(name, card):
@@ -507,8 +643,7 @@ def path_program(name, card):
 def test_k1cd_path_matches_plain_host_and_r1cs(card, name):
     cc, prog, x = path_program(name, card)
     plan = prog.interp.plan
-    _, x_w, x_n = prog.interp._inputs(x)
-    k1_against_plain_both(plan, prog.field, x_w, x_n, card)
+    k1_against_plain_both(plan, prog.field, x, card)
     wit = prog.run(x)
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], prog.spec,
                           device=card, lanes=256)

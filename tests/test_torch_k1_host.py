@@ -34,7 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from circom_tpu_torch.backend.interp import k1_args, k1_file_shape
+from circom_tpu_torch.backend.interp import (k1_args, k1_file_shape,
+                                             split_inputs)
 from circom_tpu_torch.backend.interp_plan import (_NARROW_RESULT,
                                                   _OPERAND_FILES)
 from circom_tpu_torch.backend.interp_ref import run_plan
@@ -47,8 +48,9 @@ from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.convert import (K1B_GROUP, K1B_OPCODES, K1C_OPCODES,
                                       K1D_OPCODES, N_OPERANDS, OPCODES,
-                                      narrow_unit_arrays, plan_from_arrays,
-                                      unit_arrays, unit_inputs)
+                                      input_rows, narrow_unit_arrays,
+                                      plan_from_arrays, unit_arrays,
+                                      unit_inputs)
 from circom_tpu_torch.field.primes import LIMB_BITS, field_spec
 from circom_tpu_torch.ops import build
 from circom_tpu_torch.ops.field import TorchField, as_i64
@@ -193,8 +195,8 @@ def _program(src, prime):
 
 @lru_cache(maxsize=None)
 def case(name):
-    """(plan, field, wide inputs uint32 (n_win, L, B), narrow inputs int32
-    (n_nin, B)) of one plan, on the CPU."""
+    """(plan, field, input rows uint32 (n_inputs, L, B)) of one plan, on
+    the CPU."""
     rng = np.random.default_rng(71)
     if name.startswith("unit-"):
         prime = name[len("unit-"):]
@@ -203,9 +205,8 @@ def case(name):
                              else ("add",))
         plan = plan_from_arrays(unit_arrays(spec.p, spec.n_limbs, ops)[0],
                                 "cpu")
-        x_w, x_n = unit_inputs(spec.p, spec.n_limbs, 400, 72)
-        return (plan, TorchField(spec), torch.from_numpy(x_w.view(np.int32))
-                .view(torch.uint32), torch.from_numpy(x_n))
+        x = input_rows(plan, *unit_inputs(spec.p, spec.n_limbs, 400, 72))
+        return plan, TorchField(spec), u32_tensor(x)
     if name in ("narrow-unit", "overwrite", "groups"):
         arrays = {"narrow-unit": narrow_unit_arrays(16)[0],
                   "overwrite": overwrite_arrays(16),
@@ -213,9 +214,8 @@ def case(name):
         plan = plan_from_arrays(arrays, "cpu")
         x_n = rng.integers(-2 ** 31, 2 ** 31, size=(len(plan.nin_order), B))
         x_n[:, :4] = (-2 ** 31, -1, 0, 2 ** 31 - 1)
-        return (plan, TorchField(field_spec("bn128")),
-                torch.zeros((0, 16, B), dtype=torch.uint32),
-                torch.from_numpy(x_n.astype(np.int32)))
+        x = input_rows(plan, np.zeros((0, 16, B), np.uint32), x_n)
+        return plan, TorchField(field_spec("bn128")), u32_tensor(x)
     if name == "sha256":
         src = (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text() \
             + "\ncomponent main = Sha256Block();\n"
@@ -237,8 +237,12 @@ def case(name):
             x = canonical(rng, spec, (prog.n_inputs, spec.n_limbs, B))
             if name == "bigdiv":
                 x[1, 0, :] |= 1        # a nonzero divisor
-    _, x_w, x_n = prog.interp._inputs(x)
-    return prog.interp.plan, prog.field, x_w, x_n
+    return prog.interp.plan, prog.field, u32_tensor(x)
+
+
+def u32_tensor(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.uint32)
+                            .view(np.int32)).view(torch.uint32)
 
 
 PLANS = ["poseidon2-bn128", "poseidon2-goldilocks", "sha256", "bigdiv",
@@ -248,8 +252,8 @@ PLANS = ["poseidon2-bn128", "poseidon2-goldilocks", "sha256", "bigdiv",
 
 @pytest.mark.parametrize("name", PLANS)
 def test_host_k1_matches_plain_on_emitted_rows(k1host, name):
-    plan, field, x_w, x_n = case(name)
-    L, Bx = plan.L, x_w.shape[-1]
+    plan, field, x = case(name)
+    L, Bx = plan.L, x.shape[-1]
     # the wide file, L/2 words a register a lane, then a guard that K1
     # must not touch
     n_file = plan.n_regs * (L // 2) * Bx
@@ -260,12 +264,12 @@ def test_host_k1_matches_plain_on_emitted_rows(k1host, name):
     # banks filled with a marker: rows K1 does not store keep it
     bank = torch.full((plan.n_bank_rows, L, Bx), -1, dtype=torch.int32)
     bank_n = torch.full((plan.n_bank_n_rows, Bx), -1, dtype=torch.int32)
-    x_w, x_n = x_w.contiguous(), x_n.contiguous()
     rc = k1host.ctpu_interp_k1(*k1_args(
-        plan, field, x_w, x_n, rf.view(torch.uint32),
-        bank.view(torch.uint32), rf_n, bank_n, None))
+        plan, field, x, rf.view(torch.uint32), bank.view(torch.uint32),
+        rf_n, bank_n, None))
     assert rc == 0
     assert bool((rf_guarded[n_file:] == -1).all())
+    x_w, x_n = split_inputs(plan, x)
     want_w, want_n = run_plan(plan, field, as_i64(x_w), as_i64(x_n))
     rows = torch.as_tensor(plan.emitted_rows())
     rows_n = torch.as_tensor(plan.emitted_rows(narrow=True))

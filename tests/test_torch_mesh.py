@@ -418,11 +418,10 @@ def test_every_launch_enters_its_tensors_device(chain3, launches):
 
     def i32(*shape):
         return torch.empty(shape, dtype=torch.int32, device=meta)
-    interp_mod.launch_k1(plan, field, u32(len(plan.win_order), 16, B),
-                         i32(len(plan.nin_order), B))
+    interp_mod.launch_k1(plan, field, u32(plan.n_input_rows, 16, B))
     interp_mod.launch_gather_w(u32(5, 16, B), i32(3), u32(3, 16, B))
-    interp_mod.launch_gather_n(i32(5, B), i32(1, B), i32(3), i32(3),
-                               i32(3, B))
+    interp_mod.launch_gather_n(i32(5, B), u32(2, 16, B), i32(1), i32(3),
+                               i32(3), i32(3, B))
     fk.launch("mont_mul", TorchField(spec, meta), u32(2, 16, B),
               u32(2, 16, B), u32(2, 16, B))
     seg = WitnessProgram(chain3.cc.build_tape()[0], spec, device="cpu",
