@@ -26,7 +26,14 @@ mismatch exits non-zero.  The paths:
 - the same comparators at each of the eight --prime fields, batch 65,536
   (phase P8): run (K1, KW), R1CS check of every lane, the edge lanes 0,
   1, p - 1 and p // 2 and random ones against the host calculator, K1
-  against its plain executor on a slice;
+  against its plain executor on a slice; and, at the end of the smoke,
+  Poseidon2 at the eight fields, batch 65,536 (K1, whose lazy dots
+  subtract p up to three times at secq256r1, K2, KC: the same checks),
+  MerkleInclusion(32) at secq256r1 and bls12381, batch 16,384 (K1a-K1d
+  in one launch, KW, KC; sampled lanes against the host and the native
+  calculator), and KS on the scan tapes of circuits/sources.ks_tapes()
+  at the eight fields, batch 8,192 (one launch a run, bit for bit
+  against the step loop on the card);
 - Num2Bits(254) and 4 x Num2Bits(254) over bn128, batch 65,536, which
   the interpreter refuses: run on the segments (K4, one and four
   segments, each writing its rows of the witness in place) and R1CS
@@ -48,10 +55,11 @@ mismatch exits non-zero.  The paths:
   for its wide rows and pathIndex bits): run and R1CS check, sampled
   lanes against the host and the native calculator;
 - the compile CLI (python -m circom_tpu_torch.cli --witness-gpu) on both
-  circuits and on bigint-div + Num2Bits(254) (the scan), each circuit's
-  witness step also in this process (K2, KW or one KS launch, and the
-  check), and the native calculator's witnesses/s on this host beside
-  the card's (the CPU baseline);
+  circuits and on bigint-div + Num2Bits(254) (the scan), and with --prime
+  secq256r1 on Poseidon2 (its .wtns against the host calculator's), each
+  circuit's witness step also in this process (K2, KW or one KS launch,
+  and the check), and the native calculator's witnesses/s on this host
+  beside the card's (the CPU baseline);
 - MerkleInclusion(32) over Poseidon2/bn128 at 65,536 witnesses split
   over four shards of 16,384 (parallel/mesh.py: cuda:0..3 where there
   are four cards, else four shards on cuda:0): every shard's witness,
@@ -134,7 +142,7 @@ try:
                                                    bigdiv_num2bits_source,
                                                    comparator_inputs,
                                                    comparators_source,
-                                                   kc_extreme_r1cs,
+                                                   kc_extreme_r1cs, ks_tapes,
                                                    merkle_source, mimc_source,
                                                    num2bits_source,
                                                    poseidon2_source,
@@ -208,6 +216,9 @@ K5_K6 = ("mont_mul", "sub")
 KW_NEVER = ("gather_w", "gather_n")
 KW_SOURCE = "circom_tpu_torch/ops/cuda/gather.cu"
 KW_REPLACES = "circom_tpu/backend/interp.py:2200"
+# the card's name and power limit (nvidia-smi), beside each new case of
+# phase P8
+CARD = "no card (a CPU rehearsal)"
 
 
 T0 = time.perf_counter()
@@ -1047,49 +1058,68 @@ def phase_k1_path(prog, x, label):
 # phase P8: the eight fields that --prime takes
 P8_PRIMES = ("bn128", "bls12381", "bls12377", "goldilocks", "grumpkin",
              "pallas", "vesta", "secq256r1")
-P8_HOST_LANES = 16      # the edge lanes and random ones, against the host
 P8_K1_LANES = 256       # K1 against the plain executor
 
 
-def prime_inputs(spec, B, seed, dev):
-    """The comparators' inputs a, b as uint32 limbs (2, L, B) on dev:
-    edge pairs in the first lanes (0, 1, p - 1 and p // 2 on both inputs,
-    each pair's sum and differences inside the gadgets' bits: p - 1 with
-    1, p // 2 with p // 2 + 1), then random a, b below 2^63."""
+def prime_inputs(spec, B, seed, dev, below=2 ** 63):
+    """Two inputs as uint32 limbs (2, L, B) on dev: edge pairs in the
+    first lanes (0, 1, p - 1 and p // 2 on both inputs, each pair's sum
+    and differences inside the comparators' bits: p - 1 with 1, p // 2
+    with p // 2 + 1), then random values below `below` (the comparators'
+    2^63; Poseidon2 takes any canonical pair, below=None)."""
     p, L = spec.p, spec.n_limbs
-    ab = np.random.default_rng(seed).integers(0, 2 ** 63, size=(2, B),
-                                              dtype=np.uint64)
-    x = np.zeros((2, L, B), np.uint32)
-    for i in range(4):
-        x[:, i] = (ab >> np.uint64(16 * i)) & np.uint64(0xFFFF)
+    rng = np.random.default_rng(seed)
+    if below is None:
+        x = canonical_np(rng, spec, (2, L, B))
+    else:
+        ab = rng.integers(0, below, size=(2, B), dtype=np.uint64)
+        x = np.zeros((2, L, B), np.uint32)
+        for i in range(4):
+            x[:, i] = (ab >> np.uint64(16 * i)) & np.uint64(0xFFFF)
     pairs = [(0, 0), (1, p - 1), (p - 1, 1), (p // 2, p // 2 + 1),
-             (p // 2 + 1, p // 2), (1, 0)]
+             (p // 2 + 1, p // 2), (1, 0) if below else (p - 1, p - 1)]
     for j, pair in enumerate(pairs[:B]):
         for i, v in enumerate(pair):
             x[i, :, j] = int_to_limbs(v, L)
     return to_device(x, dev)
 
 
-def phase_primes(paths, dev, B, b_k1):
-    """Phase P8: the interpreter at each of the eight --prime fields.  The
-    stdlib comparators (C's circuit) compiled at the field run at B lanes
-    through WitnessProgram.run, K1 then KW, and the R1CS check (KC), the
-    launches counted around exactly that (path p8_<field>); every lane
-    passes the check; the edge lanes (0, 1, p - 1, p // 2) and random ones
-    equal the host calculator; K1 equals its plain executor on every
-    emitted row of a slice of b_k1 lanes.  Returns each field's run and
-    check ms: the counted (first) ones, and each warm, the median of
-    CHECK_RUNS."""
+# phase P8's interpreter circuits: name -> (path prefix, source at a
+# field, the inputs' bound (prime_inputs), its map of a lane's inputs,
+# lanes against the host, seed)
+P8_CIRCUITS = {
+    "comparators": ("p8", lambda prime: comparators_source(), 2 ** 63,
+                    lambda v: {"a": v[0], "b": v[1]}, 16, SEED + 40),
+    "Poseidon2": ("p8p", poseidon2_source, None,
+                  lambda v: {"inputs": v}, 12, SEED + 50),
+}
+
+
+def phase_primes(paths, dev, B, b_k1, circuit):
+    """Phase P8: the interpreter at each of the eight --prime fields.  A
+    circuit of P8_CIRCUITS (the stdlib comparators, C's; Poseidon2, P's,
+    whose lazy dots subtract p up to three times at secq256r1) compiled
+    at the field runs at B lanes through WitnessProgram.run (K1, then KW
+    or K2) and the R1CS check (KC), the launches counted around exactly
+    that (path <prefix>_<field>); every lane passes the check; the edge
+    lanes (0, 1, p - 1, p // 2) and random ones equal the host
+    calculator, whose exact integers would catch a kernel and its plain
+    version that agree on a wrong value; K1 equals its plain executor on
+    every emitted row of a slice of b_k1 lanes; K1's wrapper is timed at
+    B lanes.  Returns each field's run and check ms, the counted (first)
+    ones and each warm, the median of CHECK_RUNS, and K1's ms."""
+    prefix, source, below, host_map, n_host, seed = P8_CIRCUITS[circuit]
     out = {}
     for k, prime in enumerate(P8_PRIMES):
         spec = field_spec(prime)
-        cc = compile_source(comparators_source(), prime=prime)
+        cc = compile_source(source(prime), prime=prime)
         prog = WitnessProgram(cc.build_tape()[0], spec, device=dev,
                               input_ranges=cc.input_range_hints())
         if prog.interp is None:
-            raise SystemExit(f"FAIL P8 {prime}: the interpreter planner "
-                             "refused the comparators")
-        x = prime_inputs(spec, B, SEED + 40 + k, dev)
+            raise SystemExit(f"FAIL P8 {circuit}/{prime}: the interpreter "
+                             "planner refused it")
+        plan, f = prog.interp.plan, prog.field
+        x = prime_inputs(spec, B, seed + k, dev, below)
         checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
                               device=dev)
 
@@ -1098,36 +1128,163 @@ def phase_primes(paths, dev, B, b_k1):
             ok, check_ms = wall_ms(lambda: checker.check(wit))
             return wit, int((~ok).sum()), run_ms, check_ms
 
+        path = f"{prefix}_{prime}"
         wit, n_bad, run_ms, check_ms = paths.run(
-            f"p8_{prime}", run_and_check, must_launch(prog),
-            never_launch(prog))
-        one_launch(paths, f"p8_{prime}", dev, 1)
+            path, run_and_check, must_launch(prog), never_launch(prog))
+        one_launch(paths, path, dev, 1)
         if n_bad:
-            raise SystemExit(f"FAIL P8 {prime}: {n_bad} of {B} lanes violate "
-                             "a constraint")
+            raise SystemExit(f"FAIL P8 {circuit}/{prime}: {n_bad} of {B} "
+                             "lanes violate a constraint")
         lanes = list(range(min(6, B))) + random.Random(SEED + k).sample(
-            range(6, B), min(P8_HOST_LANES, B) - min(6, B))
+            range(6, B), min(n_host, B) - min(6, B))
         ins, got = lane_values(wit, x, lanes)
         warm_run = median_ms(lambda: prog.run(x))
         warm_check = median_ms(lambda: checker.check(wit))
         del wit
-        check_host_lanes(cc, ins, got, lanes,
-                         lambda v: {"a": v[0], "b": v[1]}, f"P8 {prime}")
+        check_host_lanes(cc, ins, got, lanes, host_map,
+                         f"P8 {circuit}/{prime}")
+        k1_ms = time_ms(lambda: interp_k1(plan, f, x), reps=3)
         err = phase_k1_path(prog, x[..., :b_k1].contiguous(),
-                            f"comparators/{prime}")[0]
+                            f"{circuit}/{prime}")[0]
         if err:
-            raise SystemExit(f"FAIL P8 {prime}: K1 differs from its plain "
-                             f"executor (max abs err {err})")
-        say(f"  {prime} (L = {spec.n_limbs}, parts "
-            f"{', '.join(prog.interp.plan.parts)}): {B} lanes in "
-            f"{run_ms:.2f} ms, every lane passes its check "
-            f"({check_ms:.2f} ms); warm, medians of {CHECK_RUNS}: run "
-            f"{warm_run[0]:.3f} ms ({warm_run[1]:.3f}-{warm_run[2]:.3f}), "
-            f"check {warm_check[0]:.3f} ms ({warm_check[1]:.3f}-"
-            f"{warm_check[2]:.3f})")
-        out[prime] = {"first_run_ms": run_ms, "first_check_ms": check_ms,
-                      "run_ms": warm_run[0], "check_ms": warm_check[0]}
+            raise SystemExit(f"FAIL P8 {circuit}/{prime}: K1 differs from "
+                             f"its plain executor (max abs err {err})")
+        subs = f.dot_subs
+        say(f"  {circuit}/{prime} (L = {spec.n_limbs}; dot2_c, dot3_c "
+            f"subtract p up to {subs[2]}, {subs[3]} times; parts "
+            f"{', '.join(plan.parts)}): {B} lanes in {run_ms:.2f} ms, every "
+            f"lane passes its check ({check_ms:.2f} ms); warm, medians of "
+            f"{CHECK_RUNS}: run {warm_run[0]:.3f} ms ({warm_run[1]:.3f}-"
+            f"{warm_run[2]:.3f}), check {warm_check[0]:.3f} ms "
+            f"({warm_check[1]:.3f}-{warm_check[2]:.3f}); K1 {k1_ms:.4f} ms "
+            f"(wrapper, mean of 3); {CARD}")
+        out[prime] = {"L": spec.n_limbs, "first_run_ms": run_ms,
+                      "first_check_ms": check_ms, "run_ms": warm_run[0],
+                      "check_ms": warm_check[0], "k1_ms": k1_ms}
         del prog, x
+    return out
+
+
+P8_MERKLE_PRIMES = ("secq256r1", "bls12381")
+P8_MK_HOST_LANES = 2    # the host calculator takes ~3 s a Merkle(32) lane
+P8_KS_LANES = 8192
+# KS's tapes whose second input divides: lane 1 divides by 0
+KS_DIVIDES = ("bigdiv", "wide_ops", "bigdiv_num2bits", "pow_div")
+CL_PRIME = "secq256r1"
+CL_PRIME_WITNESSES = 16
+
+
+def phase_merkle_primes(paths, dev, B, rehearse):
+    """Phase P8, MerkleInclusion(32) (K1a-K1d in one K1 launch, then KW)
+    at secq256r1 and bls12381, B lanes (random pathIndex bits a lane)
+    through witness_path: run, the R1CS check of every lane (path
+    p8m_<field>), P8_MK_HOST_LANES sampled lanes against the host
+    calculator and SAMPLE_LANES against the native calculator; K1's
+    wrapper timed at B.  A CPU rehearsal runs MerkleInclusion(4)."""
+    out = {}
+    depth = 4 if rehearse else 32
+    for k, prime in enumerate(P8_MERKLE_PRIMES):
+        spec = field_spec(prime)
+        cc = compile_source(merkle_source(depth), prime=prime)
+        tape, layout = cc.build_tape()
+        hints = cc.input_range_hints()
+        prog = WitnessProgram(tape, spec, device=dev, input_ranges=hints)
+        plan, f = prog.interp.plan, prog.field
+        x = hinted_inputs(spec, prog.n_inputs, hints, B, SEED + 60 + k, dev)
+        t = witness_path(paths, f"p8m_{prime}", cc, prog, x,
+                         must_launch(prog), input_map(layout),
+                         never=never_launch(prog), n_lanes=P8_MK_HOST_LANES,
+                         native=NativeCalculator(tape, spec,
+                                                 input_ranges=hints),
+                         rehearse=rehearse)
+        k1_ms = time_ms(lambda: interp_k1(plan, f, x), reps=3)
+        say(f"  MerkleInclusion({depth})/{prime} (L = {spec.n_limbs}, "
+            f"{plan.n_steps} steps, parts {', '.join(plan.parts)}): {B} "
+            f"lanes, run {t['run_ms']:.2f} ms, check {t['check_ms']:.3f} "
+            f"ms (median of {CHECK_RUNS}); K1 {k1_ms:.4f} ms (wrapper, "
+            f"mean of 3); {CARD}")
+        out[prime] = {"L": spec.n_limbs, "lanes": B, "run_ms": t["run_ms"],
+                      "check_ms": t["check_ms"], "k1_ms": k1_ms}
+        del prog, x
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_ks_primes(paths, dev, B):
+    """Phase P8, KS: the tapes of circuits/sources.ks_tapes()
+    (tests/test_torch_scan_kernel.py's, pow_div included) compiled at
+    each of the eight --prime fields, on the scan (unroll_threshold=0, as
+    every entry point), B lanes (lane 0 p - 1 on every field input, lane
+    1 dividing by 0 where the tape divides, lanes 2 and 3 below 2^31,
+    inside every tape's range checks): a run is one KS launch and none of
+    SCAN_NEVER (path p8s_<field>_<tape>), bit for bit against the step
+    loop on the card, lanes 2 and 3 against the host calculator (which
+    stops at a failed constraint); the warm run and KS's bare launch
+    timed.  Returns each field's ms."""
+    out = {}
+    for k, prime in enumerate(P8_PRIMES):
+        spec = field_spec(prime)
+        row = out[prime] = {}
+        for name, src in ks_tapes().items():
+            cc = compile_source(src, prime=prime)
+            tape, layout = cc.build_tape()
+            hints = cc.input_range_hints()
+            prog = WitnessProgram(tape, spec, device=dev, unroll_threshold=0,
+                                  mode="scan", input_ranges=hints)
+            if prog.scan is None:
+                raise SystemExit(f"FAIL P8 KS {name}/{prime}: not on the "
+                                 "scan")
+            rng = random.Random(SEED + 70 + k)
+            cols = [[rng.randint(*hints[i]) if i in hints
+                     else rng.randrange(spec.p) for _ in range(B)]
+                    for i in range(tape.n_inputs)]
+            for i, c in enumerate(cols):
+                if i not in hints:
+                    c[0] = spec.p - 1
+                    c[2:4] = [rng.randrange(1, 2 ** 31) for _ in c[2:4]]
+            if name in KS_DIVIDES:
+                cols[1][1] = 0
+            x = to_device(prog.encode_inputs(cols), dev)
+            path = f"p8s_{prime}_{name}"
+            wit = paths.run(path, lambda: prog.run(x), ("scan",), SCAN_NEVER)
+            if dev.type == "cuda" and paths.counts[path].get("scan") != 1:
+                raise SystemExit(f"FAIL P8 KS {name}/{prime}: "
+                                 f"{paths.counts[path]} launches, not one "
+                                 "KS launch")
+            want, loop_ms = wall_ms(lambda: prog.scan.run_loop(x))
+            if not same_witness(wit, want):
+                raise SystemExit(f"FAIL P8 KS {name}/{prime}: KS differs "
+                                 "from the step loop")
+            lanes = [2, 3]
+            ins, got = lane_values(wit, x, lanes)
+            for j, lane in enumerate(lanes):
+                if got[j] != list(cc.witness_host(input_map(layout)(ins[j]))):
+                    raise SystemExit(f"FAIL P8 KS {name}/{prime} lane {lane}: "
+                                     "witness differs from the host "
+                                     "calculator")
+            del wit, want
+            run_ms = wall_ms(lambda: prog.run(x))[1]
+            ks = prog.scan.ks
+            ks_ms = None
+            if dev.type == "cuda":
+                d = ks.device_tables(ks.width(B))
+                spill, buf = ks_buffers(ks, d["t"], B, dev)
+                ks_ms = time_ms(lambda: launch_scan(ks.field, d, x, spill,
+                                                    buf), reps=3)
+                del spill, buf
+            row[name] = {"run_ms": run_ms, "ks_ms": ks_ms,
+                         "loop_ms": loop_ms,
+                         "steps": prog.scan.sched.n_steps}
+            del prog, x
+        say(f"  KS at {prime} (L = {spec.n_limbs}, {B} lanes; one KS launch "
+            "a run, bit for bit against the step loop, lanes 2 and 3 "
+            "against the host): " + ", ".join(
+                f"{name} run {t['run_ms']:.3f} ms, KS "
+                + ("not measured" if t["ks_ms"] is None
+                   else f"{t['ks_ms']:.4f} ms")
+                + f", loop {t['loop_ms']:.1f} ms ({t['steps']} steps)"
+                for name, t in row.items()) + f"; {CARD}")
     return out
 
 
@@ -2268,6 +2425,58 @@ def phase_cli(paths, runs, device, n):
     return check_ms
 
 
+def phase_cli_prime(paths, device, n, prime=CL_PRIME):
+    """Phase CL at another field: `python -m circom_tpu_torch.cli` with
+    --prime <prime> --witness-gpu on Poseidon2 (P's circuit at the field,
+    on the interpreter, whose lazy dots subtract p up to three times at
+    secq256r1), n witnesses, the edge pairs first: exit 0 (its R1CS check
+    at the default --sanity_check 2 passing) and every .wtns equal to
+    write_wtns of the host calculator's witness; then its witness step in
+    this process (cli_witness_run, path cli_pos_<prime>_run) against the
+    native calculator.  Returns the CLI's ms."""
+    spec = field_spec(prime)
+    p = spec.p
+    rng = random.Random(SEED + 19)
+    rows = [[0, 0], [1, p - 1], [p - 1, p - 1], [p // 2, p // 2 + 1]][:n]
+    rows += [[rng.randrange(p), rng.randrange(p)] for _ in range(n - 4)]
+    src = poseidon2_source(prime)
+    cc = compile_source(src, prime=prime)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        circ = os.path.join(tmp, "pos.circom")
+        with open(circ, "w") as fh:
+            fh.write(src)
+        inp = os.path.join(tmp, "inputs.json")
+        with open(inp, "w") as fh:
+            json.dump([{"inputs": r} for r in rows], fh)
+        out = os.path.join(tmp, "out")
+        r, ms = wall_ms(lambda: subprocess.run(
+            [sys.executable, "-m", "circom_tpu_torch.cli", circ, "--prime",
+             prime, "-o", out, "--witness-gpu", inp, "--device", device],
+            cwd=ROOT, capture_output=True, text=True, timeout=900))
+        if r.returncode != 0:
+            raise SystemExit(f"FAIL CLI --prime {prime} on Poseidon2 (exit "
+                             f"{r.returncode}):\n{r.stdout}\n{r.stderr}")
+        ref = os.path.join(tmp, "ref.wtns")
+        for bi, row in enumerate(rows):
+            write_wtns(ref, cc.p, list(cc.witness_host({"inputs": row})))
+            with open(ref, "rb") as a, \
+                    open(os.path.join(out, f"pos.{bi}.wtns"), "rb") as b:
+                if a.read() != b.read():
+                    raise SystemExit(f"FAIL CLI --prime {prime} on "
+                                     f"Poseidon2: witness {bi} .wtns differs "
+                                     "from the host calculator's")
+    say(f"  CLI --prime {prime} on Poseidon2: exit 0 in {ms / 1e3:.1f} s, "
+        f"{n} .wtns equal the host calculator's")
+    tape, _ = cc.build_tape()
+    hints = cc.input_range_hints()
+    prog = WitnessProgram(tape, spec, device=device, unroll_threshold=0,
+                          input_ranges=hints)
+    nat = NativeCalculator(tape, spec, input_ranges=hints).run(rows)
+    cli_witness_run(paths, f"pos_{prime}", cc, tape, hints, rows, nat,
+                    device, prog)
+    return ms
+
+
 def cpu_baseline(runs, n, reps=BASELINE_REPS):
     """The CPU baseline: the native calculator (tapeval.cpp, OpenMP over
     the batch) on n random witnesses of each of MM's and MK's circuits on
@@ -2744,6 +2953,8 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True)
         card = smi.stdout.strip().splitlines()[0]
+        global CARD
+        CARD = card
         say(card)
         say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
         global LANE_OPS_PER_S
@@ -2844,7 +3055,8 @@ def main():
     say(f"phase P8: the interpreter at the eight --prime fields (the "
         f"comparators, batch {B})")
     t_p8 = time.perf_counter()
-    p8 = phase_primes(paths, dev, B, 16 if args.rehearse else P8_K1_LANES)
+    b_k1p8 = 16 if args.rehearse else P8_K1_LANES
+    p8 = phase_primes(paths, dev, B, b_k1p8, "comparators")
     t_p8 = time.perf_counter() - t_p8
     t_new = time.perf_counter() - t_new
     if dev.type == "cuda":
@@ -2860,6 +3072,8 @@ def main():
     say(f"phase CL: the compile CLI (--witness-gpu, {b_cli} witnesses a "
         "circuit)")
     cli_check = phase_cli(paths, cli_runs(mm), dev.type, b_cli)
+    cl_prime_ms = phase_cli_prime(paths, dev.type,
+                                  4 if args.rehearse else CL_PRIME_WITNESSES)
     say(f"the CPU baseline ({b_base} witnesses a circuit)")
     cpu_baseline(mm, b_base)
     t_mm = time.perf_counter() - t_mm
@@ -2875,6 +3089,24 @@ def main():
     say("phase GE: the entry points (circom_tpu_torch/entry.py)")
     phase_graft_entry(paths, dev.type)
     t_ms = time.perf_counter() - t_ms
+
+    # the rest of phase P8 comes last: before phase S it left the profiler
+    # dropping 3 of S's 20 K4 records in every traced pass
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_p8x = time.perf_counter()
+    say(f"phase P8: Poseidon2 at the eight --prime fields (batch {B})")
+    p8p = phase_primes(paths, dev, B, b_k1p8, "Poseidon2")
+    say(f"phase P8: MerkleInclusion(32) at {', '.join(P8_MERKLE_PRIMES)} "
+        f"(batch {b_mk})")
+    p8m = phase_merkle_primes(paths, dev, b_mk, args.rehearse)
+    b_ks = 8 if args.rehearse else P8_KS_LANES
+    say(f"phase P8: KS on the scan tapes at the eight --prime fields (batch "
+        f"{b_ks})")
+    t_ks = time.perf_counter()
+    p8s = phase_ks_primes(paths, dev, b_ks)
+    t_ks = time.perf_counter() - t_ks
+    t_p8x = time.perf_counter() - t_p8x
 
     kw = {"sha256_full": full["kw"], "merkle": mm["merkle"]["kw"],
           "comparators": new["comparators"]["kw"]}
@@ -2908,11 +3140,29 @@ def main():
             f"({b / t['run_ms'] * 1e3:.0f} witnesses/s), "
             + check_summary(t) + f" (batch {b}); K1 "
             f"{new['k1'][name]:.3f} ms" + run_summary(t["trace"]))
-    say(f"the interpreter at the eight --prime fields (phase P8, "
-        f"{t_p8:.1f} s): " + ", ".join(
+    say(f"the interpreter at the eight --prime fields (phase P8: the "
+        f"comparators {t_p8:.1f} s; Poseidon2, Merkle and KS's tapes "
+        f"{t_p8x:.1f} s, KS's {t_ks:.1f} s of it): comparators " + ", ".join(
             f"{k} run {v['run_ms']:.3f} ms, check {v['check_ms']:.3f} ms "
             f"(first {v['first_run_ms']:.2f}, {v['first_check_ms']:.2f})"
             for k, v in p8.items()))
+    say(f"Poseidon2 at the eight --prime fields (batch {B}; {CARD}): "
+        + ", ".join(f"{k} (L = {v['L']}) run {v['run_ms']:.3f} ms, check "
+                    f"{v['check_ms']:.3f} ms, K1 {v['k1_ms']:.4f} ms"
+                    for k, v in p8p.items()))
+    say(f"MerkleInclusion(32) at {', '.join(P8_MERKLE_PRIMES)} (batch {b_mk}; "
+        f"{CARD}): " + ", ".join(
+            f"{k} (L = {v['L']}) run {v['run_ms']:.2f} ms, check "
+            f"{v['check_ms']:.3f} ms, K1 {v['k1_ms']:.3f} ms"
+            for k, v in p8m.items()))
+    say(f"KS on the scan tapes (batch {b_ks}; {CARD}), the sum of the "
+        "tapes' bare KS launches a field: " + ", ".join(
+            f"{k} " + ("not measured" if any(
+                t["ks_ms"] is None for t in v.values()) else
+                f"{sum(t['ks_ms'] for t in v.values()):.4f} ms")
+            for k, v in p8s.items()))
+    say(f"the CLI at --prime {CL_PRIME} on Poseidon2: {cl_prime_ms / 1e3:.1f} "
+        "s")
     for name, label, b in (
             ("n2b254", "Num2Bits(254)/bn128 (segments)", B),
             ("n2b254x4", "4 x Num2Bits(254)/bn128 (segments)", B),
@@ -2967,7 +3217,8 @@ def main():
     say(f"smoke total {time.perf_counter() - t_all:.1f} s, phase BG "
         f"{t_bg:.1f} s, phases F-K "
         f"{t_new:.1f} s, phases S-W {t_seg:.1f} s, phases MM-CL and the "
-        f"baseline {t_mm:.1f} s, phases MS-GE {t_ms:.1f} s")
+        f"baseline {t_mm:.1f} s, phases MS-GE {t_ms:.1f} s, phase P8's "
+        f"Poseidon2, Merkle and KS {t_p8x:.1f} s")
     if args.rehearse:
         print(json.dumps({"kernels": list(rep.rows.values())}),
               file=sys.stderr)

@@ -128,12 +128,13 @@ def _wide_step(op, field, args, crow, cb, aux):
         return wide.idiv64(field, x, args[1])
     if op in ("dot2_c", "dot3_c"):
         # coefficients in bank rows aux..aux+n-1, an additive constant in
-        # row aux+n; one reduction of the summed columns
+        # row aux+n; one reduction of the summed columns, then as many
+        # subtracts of p as the field needs
         n = len(args)
         cols = sum(field.product_cols64(r, cb[aux + k])
                    for k, r in enumerate(args))
         cols[:field.L] += cb[aux + n]
-        return field.mont_reduce64(cols)
+        return field.mont_reduce_dot64(cols, n)
     return wide.emit(field, op, *args)
 
 

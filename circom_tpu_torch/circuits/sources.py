@@ -37,6 +37,11 @@
 - kc_extreme_r1cs(spec, B): rows at the edge of the R1CS check kernel's
   accumulators (each coefficient class at its largest, 61 wide and 228
   small terms a row, a long row, empty matrices) and witnesses at -1.
+- ks_tapes(): the small per-op tapes that the per-op kernel KS is held
+  to at every field (tests/test_torch_scan.py's TAPES and pow_div:
+  mixed wide and narrow ops, the wide shifts, the long division, K1d's
+  wide ops, bigint-div + Num2Bits(254), 4 x Num2Bits(32), and powers and
+  divisions by a witness).
 """
 
 import random
@@ -360,3 +365,87 @@ template SegmentOps() {{
 }}
 component main = SegmentOps();
 """
+
+
+MIXED_SRC = """
+pragma circom 2.0.0;
+template T() {
+  signal input a;
+  signal input b;
+  signal output o1;
+  signal output o2;
+  signal output o3;
+  signal inter;
+  inter <== a * b + 3;
+  o1 <== inter * inter + a;
+  o2 <-- a < b ? (a ^ b) + 5 : (a | b) - (a & b);
+  o3 <-- (o2 != 0) ? a - inter : -b + inter;
+  o2 * 0 === 0;
+  o3 * 0 === 0;
+}
+component main = T();
+"""
+
+WIDE_SHIFTS_SRC = """
+pragma circom 2.0.0;
+template T() {
+  signal input a;
+  signal output o1;
+  signal output o2;
+  o1 <-- a >> 3;
+  o2 <-- a << 5;
+  o1 * 0 === 0;
+  o2 * 0 === 0;
+}
+component main = T();
+"""
+
+WIDE_OPS_SRC = """
+pragma circom 2.0.0;
+template WideOps() {
+  signal input a;
+  signal input b;
+  signal output o[12];
+  o[0] <-- a << 5;
+  o[1] <-- ~a;
+  o[2] <-- a - 7;
+  o[3] <-- !a;
+  o[4] <-- a == b;
+  o[5] <-- a <= b;
+  o[6] <-- a > b;
+  o[7] <-- a >= b;
+  o[8] <-- a && b;
+  o[9] <-- a || b;
+  o[10] <-- a \\ b;
+  o[11] <-- 7 - a;
+  for (var i = 0; i < 12; i++) { o[i] * 0 === 0; }
+}
+component main = WideOps();
+"""
+
+POW_DIV_SRC = """
+pragma circom 2.0.0;
+template PowDiv() {
+    signal input a;
+    signal input b;
+    signal output o[6];
+    o[0] <-- a ** 5;
+    o[1] <-- a / b;
+    o[2] <-- a % b;
+    o[3] <-- a ** 65537;
+    o[4] <-- (a * b) ** 3;
+    o[5] <-- a ** 2147483647;
+}
+component main = PowDiv();
+"""
+
+
+def ks_tapes(stdlib=None):
+    """name -> source of the per-op tapes KS is held to at every field
+    (see above); the second input of bigdiv, wide_ops, bigdiv_num2bits
+    and pow_div divides."""
+    return {"mixed": MIXED_SRC, "wide_shifts": WIDE_SHIFTS_SRC,
+            "bigdiv": BIGINT_DIV_SRC, "wide_ops": WIDE_OPS_SRC,
+            "bigdiv_num2bits": bigdiv_num2bits_source(stdlib),
+            "num2bits32x4": num2bits_source(32, 4, stdlib),
+            "pow_div": POW_DIV_SRC}

@@ -40,10 +40,12 @@
 // of Montgomery reduction, each X -> (X + m p) / 2^32 with m = -X p^-1 mod
 // 2^32 (N products).  So X_J = (|V| + M p) / 2^(32J) with M < 2^(32J):
 // X_J < |V| / 2^(32J) + p, and one conditional subtract leaves it
-// canonical when |V| < 2^(32J) p.  J is fixed by the row's shape and the
-// path: a row sum without wide terms takes J = KC_J = 2 words, or 2 KC_J
-// for C beside two reduced factors (below); one with wide terms K = N - 1
-// + J (at least N + 1).  Both land the sum at the scale 2^(-32 J): the
+// canonical when |V| < 2^(32J) p (the headroom below, which
+// backend/checker.py checks a row at a time when it builds the
+// matrices).  J is fixed by the row's shape and the path: a row sum
+// without wide terms takes J = KC_J = 2 words, or 2 KC_J for C beside two
+// reduced factors (below); one with wide terms K = N - 1 + J (at least
+// N + 1).  Both land the sum at the scale 2^(-32 J): the
 // wide coefficients' 2^(32(N-1)), and the small and unit terms' offset of
 // N - 1 words, cancel the K - J = N - 1 extra words.
 //
@@ -62,8 +64,10 @@
 // products) and E = P + (a ^ b == c ? p - C' : C') < p^2 + p < R p, which
 // is congruent to +-(Az Bz - Cz) 2^-128.  One Montgomery reduction of E
 // (mont_reduce32, N^2 products) is canonical and zero exactly when the row
-// holds.  Where A (else B) is one unit term, its z is taken as it is: A'
-// = z < R at scale 1, C' = |Cz| 2^-64 (KC_J words), P < (R - 1)(p - 1) and
+// holds: (E + M p) / R < p + p = 2p, one subtract, at every field (p < R;
+// p + 1 <= R, so p^2 + p <= R p, secq256r1 and goldilocks included).
+// Where A (else B) is one unit term, its z is taken as it is: A' = z < R
+// at scale 1, C' = |Cz| 2^-64 (KC_J words), P < (R - 1)(p - 1) and
 // E < R p still.  A row whose A or B is empty holds when C' is zero (Az Bz
 // = 0); one whose C is empty, when A' or B' is zero (p is prime: a product
 // is zero only where a factor is), with no product.

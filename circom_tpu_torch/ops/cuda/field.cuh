@@ -7,11 +7,15 @@
 // subtract.  Each limb is a uint32 holding 16 bits, so every 16x16-bit
 // product is exact in 32 bits and column sums stay far below 2^32; the
 // results are therefore bit-identical to the JAX kernels by construction,
-// including the single conditional subtract that the lazy dot reduction
-// relies on.  K4 computes with these functions; the interpreter kernel K1
-// and the elementwise Montgomery product K5 work in 32-bit words instead
-// (field32.cuh, dot32.cuh, wide32.cuh), held bit for bit against mont_mul,
-// mac_cols, mont_reduce_cols, mod_add, mod_sub and cond_sub by the tests.
+// including the single conditional subtract of their lazy dot reduction,
+// which is canonical only where n p is well below R (dot32.cuh: one
+// subtract is not enough for dot2/dot3 at secq256r1 and goldilocks, nor
+// for dot3 at bls12381; K1 subtracts as often as the field needs, and
+// mont_reduce_cols is its oracle only where once is enough).  K4 computes
+// with these functions; the interpreter kernel K1 and the elementwise
+// Montgomery product K5 work in 32-bit words instead (field32.cuh,
+// dot32.cuh, wide32.cuh), held bit for bit against mont_mul, mac_cols,
+// mont_reduce_cols, mod_add, mod_sub and cond_sub by the tests.
 //
 // L is a template parameter (4: goldilocks, 16: bn128 and the other 256-bit
 // primes, 24: room for wider primes), so every loop unrolls and the limb

@@ -89,6 +89,33 @@
 //   gather, widening or cast of the inputs runs before K1: the split took
 //   six launches and ~1.4 GB of traffic on SHA256's 512 input rows at
 //   8,192 lanes, where K1 reads 33.5 MB of them.
+//
+// Canonical results at every field.  Every register and constant-bank row
+// holds a canonical value (< p, p < R = 2^(32N)), and each wide opcode's
+// reduction leaves one, p just under R (secq256r1, goldilocks) included:
+// - dot2_c, dot3_c: V = sum x_i c_i + k <= n (p - 1)^2 + p - 1 reduces to
+//   at most (V + (R - 1) p) / R, up to ~4p where p / R is near 1, so the
+//   dot subtracts p S_n times (dot32.cuh: S_2, S_3 = 2, 3 at secq256r1
+//   and goldilocks, 1, 2 at bls12381, else 1), a count the launch computes
+//   from p (K1Consts.dot_subs).  A field whose counts are 1 runs the
+//   kernels of one subtract (SUBS = false), their code unchanged; the
+//   others run the kernels with the counted subtracts (SUBS = true,
+//   compact or full as the plan allows).  Kept in the kernels of one
+//   subtract, that code made K1a 5.2 % and K1b 0.9 % slower at bn128
+//   (PERF.md).  One subtract gave wrong witnesses on Poseidon2 at
+//   secq256r1.
+// - mul, mul_r2, mul_c, mul_one (field32.cuh's CIOS): x y < p^2 < R p, so
+//   (x y + M p) / R < p (p / R + 1) < 2p: one subtract.
+// - add, add_c: a + b < 2p; sub, sub_c, csub_c: a + p - b in (0, 2p):
+//   one subtract.
+// - The trailing REDC of an emission row v < R: (v + M p) / R < p + 1:
+//   one subtract.
+// - K1d's bor, bxor, bnot and shl_kw (wide32.cuh reduce_once32): a value
+//   of at most `bits` = p.bit_length() bits, below 2^bits <= 2p: one
+//   subtract; band, shr_kw, select, idiv (the quotient is at most its
+//   dividend) and the comparisons are canonical without one; widen
+//   gives v or p + v, v a signed int32 and p > 2^32; K1c's gl_mul64
+//   folds below 2^64 < 2p and subtracts once.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -208,6 +235,7 @@ struct K1Consts {
   uint32_t q[N];     // p - 2^32, the widening of a negative int32
   uint32_t n0inv32;  // -p^-1 mod 2^32
   int bits;          // p.bit_length(), the long division's steps
+  int dot_subs[2];   // S_2, S_3: the subtracts of dot2_c, dot3_c (dot32.cuh)
 };
 
 // The most narrow steps a group holds: convert.K1B_GROUP, which
@@ -295,8 +323,10 @@ __device__ __forceinline__ StepRow step_row(const int32_t* table, int t) {
 
 // One run of steps s0..s1 of opcode OP, whose result is wide, computed in
 // words: each result to register dst and, unless em is the dump row K, to
-// emission row em of the chunk's bank (unpacked to 16-bit limbs).
-template <int L, int OP>
+// emission row em of the chunk's bank (unpacked to 16-bit limbs).  SUBS: a
+// dot's reduction subtracts p up to kc.dot_subs times, for the fields
+// where once is not enough (else mont_reduce32's one subtract).
+template <int L, int OP, bool SUBS>
 __device__ __forceinline__ void run_steps(const InterpArgs& a,
                                           const WordFile<L>& rf, long long b,
                                           uint32_t* chunk_bank, int s0,
@@ -348,7 +378,11 @@ __device__ __forceinline__ void run_steps(const InterpArgs& a,
       uint32_t k[N];
       load_const32<N>(a.cbank_w, aux + NT, k);
       add_low32<N>(acc, k);
-      mont_reduce32<N>(acc, pw, kc.n0inv32, w);
+      if constexpr (SUBS)
+        mont_reduce_dot32<N, NT>(acc, pw, kc.n0inv32,
+                                 kc.dot_subs[NT - 2], w);
+      else
+        mont_reduce32<N>(acc, pw, kc.n0inv32, w);
     } else if constexpr (OP == OP_MUL || OP == OP_MUL_R2 || OP == OP_MUL_C ||
                          OP == OP_MUL_ONE) {
       // the Montgomery products: by a register, R^2, a bank row, 1
@@ -634,7 +668,9 @@ __device__ __forceinline__ void run_narrow(const InterpArgs& a,
 // kernel for plans without K1c/K1d opcodes (Poseidon2/bn128, SHA256) keeps
 // the compact code, so their hot loops do not pay for 49 more cases (with
 // every case, even on the word file, K1a ran 3.9 % and K1b 1.3 % slower).
-template <int L, bool FULL>
+// SUBS = true: the dots subtract p kc.dot_subs times (the fields where
+// once is not enough).
+template <int L, bool FULL, bool SUBS>
 __global__ void __launch_bounds__(THREADS) interp_k1_kernel(
     InterpArgs a, K1Consts<L / 2> kc) {
   constexpr int N = L / 2, V = WordFile<L>::V;
@@ -675,7 +711,7 @@ __global__ void __launch_bounds__(THREADS) interp_k1_kernel(
       const int op = __ldg(a.r_op + rr);
 #define WIDE(OPC)                                                  \
   case OPC:                                                        \
-    run_steps<L, OPC>(a, rf, b, chunk_bank, s0, s1, kc, pw);       \
+    run_steps<L, OPC, SUBS>(a, rf, b, chunk_bank, s0, s1, kc, pw); \
     break;
 #define NARROW(OPC)                                                \
   case OPC:                                                        \
@@ -722,12 +758,12 @@ void words_of(const uint32_t* limbs, uint32_t (&w)[N]) {
   for (int i = 0; i < N; ++i) w[i] = limbs[2 * i] | (limbs[2 * i + 1] << 16);
 }
 
-// The field's constants packed into words, then the launch.
-template <int L, bool FULL>
-int launch(const InterpArgs& a, const uint32_t* p_limbs,
-           const uint32_t* r2_limbs, uint32_t n0inv32,
-           const uint32_t* half_limbs, const uint32_t* mask_limbs,
-           const uint32_t* q_limbs, int bits, cudaStream_t s) {
+// The field's constants packed into words, with its dots' subtracts.
+template <int L>
+K1Consts<L / 2> k1_consts(const uint32_t* p_limbs, const uint32_t* r2_limbs,
+                          uint32_t n0inv32, const uint32_t* half_limbs,
+                          const uint32_t* mask_limbs,
+                          const uint32_t* q_limbs, int bits) {
   constexpr int N = L / 2;
   K1Consts<N> kc = {};
   words_of<N>(p_limbs, kc.p);
@@ -737,8 +773,15 @@ int launch(const InterpArgs& a, const uint32_t* p_limbs,
   words_of<N>(q_limbs, kc.q);
   kc.n0inv32 = n0inv32;
   kc.bits = bits;
+  kc.dot_subs[0] = dot_subtractions<N>(kc.p, 2);
+  kc.dot_subs[1] = dot_subtractions<N>(kc.p, 3);
+  return kc;
+}
+
+template <int L, bool FULL, bool SUBS>
+int launch(const InterpArgs& a, const K1Consts<L / 2>& kc, cudaStream_t s) {
   const unsigned blocks = (unsigned)((a.B + THREADS - 1) / THREADS);
-  interp_k1_kernel<L, FULL><<<blocks, THREADS, 0, s>>>(a, kc);
+  interp_k1_kernel<L, FULL, SUBS><<<blocks, THREADS, 0, s>>>(a, kc);
   return (int)cudaGetLastError();
 }
 
@@ -801,11 +844,19 @@ extern "C" int ctpu_interp_k1(
   a.KN = KN;
   a.B = B;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K1_LAUNCH(LL, F)                                                  \
-  ctpu::launch<LL, F>(a, p_limbs, r2_limbs, n0inv32, half_limbs,         \
-                      mask_limbs, q_limbs, bits, s)
-  if (L == 4)  // goldilocks: one instantiation (its code is small)
-    return K1_LAUNCH(4, true);
-  return full ? K1_LAUNCH(16, true) : K1_LAUNCH(16, false);
-#undef K1_LAUNCH
+#define K1_CONSTS(LL)                                                      \
+  ctpu::k1_consts<LL>(p_limbs, r2_limbs, n0inv32, half_limbs, mask_limbs, \
+                      q_limbs, bits)
+  if (L == 4)  // goldilocks (S_2, S_3 = 2, 3): one instantiation
+    return ctpu::launch<4, true, true>(a, K1_CONSTS(4), s);
+  const ctpu::K1Consts<8> kc = K1_CONSTS(16);
+#undef K1_CONSTS
+  // a field whose dots need more than one subtract runs the kernels that
+  // count them, the others those of one subtract; each compact where the
+  // plan allows
+  if (kc.dot_subs[0] > 1 || kc.dot_subs[1] > 1)
+    return full ? ctpu::launch<16, true, true>(a, kc, s)
+                : ctpu::launch<16, false, true>(a, kc, s);
+  return full ? ctpu::launch<16, true, false>(a, kc, s)
+              : ctpu::launch<16, false, false>(a, kc, s);
 }

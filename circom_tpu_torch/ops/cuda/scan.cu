@@ -50,6 +50,15 @@
 // `perop.node_value` (the shifts and the power per entry, as `shift_dyn`
 // and `pow_dyn`).
 //
+// Canonical results at every field, p just under R = 2^(32N) included
+// (secq256r1, goldilocks): inputs, constants and registers hold canonical
+// values, and every reduction subtracts p once from a value below 2p.
+// mont (mul, to_mont, from_mont), mul_norm, div_mont and pow_dyn are
+// chains of field32.cuh's CIOS on canonical operands: x y < p^2 < R p, so
+// (x y + M p) / R < 2p.  add: a + b < 2p; sub, neg, mod: a + p - b in
+// (0, 2p); the quotient of idiv is at most its dividend; bor, bxor, bnot
+// and shl: below 2^bits <= 2p (wide32.cuh).  KS has no lazy dot.
+//
 // Bound: the compulsory bytes, the inputs read once and the witness
 // written once (utils/roofline.ks_bytes), plus a spilled register's
 // traffic; the shared file's traffic stays on the SM.  The operations

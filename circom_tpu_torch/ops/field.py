@@ -14,7 +14,10 @@ is < 2^32 and a column of L of them < 2^36, so nothing here overflows.
 The Montgomery reduction yields (V + M·p)/R with the unique M < R that
 clears the low limbs, followed by one conditional subtract of p; those
 values depend on V alone, so the int64 column sums here give the same
-bits as the 16-bit-split columns of the kernels.
+bits as the 16-bit-split columns of the kernels.  One subtract makes that
+value canonical when V < R·p; a lazy dot's V reaches n·p² for n terms,
+so its reduction (`mont_reduce_dot64`) subtracts up to
+`dot_subtractions` times.
 """
 
 import torch
@@ -40,6 +43,18 @@ def as_i64(x):
 def as_u32(x):
     """int64 tensor of values in [0, 2^32) -> uint32 (via int32)."""
     return x.to(torch.int32).view(torch.uint32)
+
+
+def dot_subtractions(p, n_terms, n_bits):
+    """S_n, the conditional subtracts of p that leave a lazy dot of n_terms
+    canonical: V = sum x_i·c_i + k <= n·(p - 1)² + p - 1 for canonical
+    operands, one Montgomery reduction leaves (V + M·p)/R <= (V + (R -
+    1)·p)/R, R = 2^n_bits, and that over p rounds down to S_n.  1 at p/R
+    below about 1/(n + 1); 2 and 3 for dot2 and dot3 at secq256r1 and
+    goldilocks, where p is just under R (ops/cuda/dot32.cuh
+    dot_subtractions, the same count for K1)."""
+    R = 1 << n_bits
+    return (n_terms * (p - 1) ** 2 + p - 1 + (R - 1) * p) // (R * p)
 
 
 def mont_edge_values(spec: FieldSpec):
@@ -95,6 +110,9 @@ class TorchField:
                                       dtype=torch.int64,
                                       device=self.device)[:, None]
         self.one_mont_list = [int(x) for x in c["one_mont_limbs"]]
+        # S_2, S_3: the subtracts of the lazy dots dot2_c and dot3_c
+        self.dot_subs = {n: dot_subtractions(self.p, n, LIMB_BITS * self.L)
+                         for n in (2, 3)}
         self._consts = {}
 
     # -- int64 core ----------------------------------------------------
@@ -112,11 +130,17 @@ class TorchField:
     def cond_sub64(self, limbs, top):
         """limbs (..., L, B) of 16 bits + top (..., B): subtract p once
         when the value is >= p (limb_emit.cond_sub), the borrow chain of
-        limbs - p taken at once."""
+        limbs - p taken at once; the low L limbs."""
+        return self.cond_sub_keep64(limbs, top)[0]
+
+    def cond_sub_keep64(self, limbs, top):
+        """cond_sub64 with the top kept: (limbs, top) less p when that is
+        >= p (dot32.cuh cond_sub_keep32)."""
         d = limbs - self.p_limbs
         b_in, b_out = self.borrows(d)
         take = top >= b_out
-        return torch.where(take[..., None, :], (d - b_in) & MASK, limbs)
+        return (torch.where(take[..., None, :], (d - b_in) & MASK, limbs),
+                torch.where(take, top - b_out, top))
 
     def _carry(self, cols, n):
         """Carry chain over the first n columns: (limbs, carry out)."""
@@ -140,6 +164,21 @@ class TorchField:
     def mont_reduce64(self, cols):
         """(..., n <= 2L+1, B) columns of V -> (V + M·p)/R, one
         conditional subtract, canonical when V < R·p."""
+        return self.cond_sub64(*self._redc64(cols))
+
+    def mont_reduce_dot64(self, cols, n_terms):
+        """A lazy dot's reduction (dot32.cuh mont_reduce_dot32): the
+        columns of V = sum x_i·c_i + k over n_terms terms -> (V + M·p)/R
+        with the top limb kept, less p up to dot_subs[n_terms] times:
+        canonical for canonical operands at every field."""
+        limbs, top = self._redc64(cols)
+        for _ in range(self.dot_subs[n_terms] - 1):
+            limbs, top = self.cond_sub_keep64(limbs, top)
+        return self.cond_sub64(limbs, top)
+
+    def _redc64(self, cols):
+        """(V + M·p)/R of the columns of V before any subtract: (its low L
+        limbs (..., L, B), its top limb (..., B))."""
         L = self.L
         n = cols.shape[-2]
         if n < 2 * L + 1:
@@ -154,7 +193,7 @@ class TorchField:
             cols[..., i:i + L, :] += m[..., None, :] * self.p_limbs
             cols[..., i + 1, :] += cols[..., i, :] >> LIMB_BITS
         limbs, _ = self._carry(cols[..., L:, :], L + 1)
-        return self.cond_sub64(limbs[..., :L, :], limbs[..., L, :])
+        return limbs[..., :L, :], limbs[..., L, :]
 
     def product_cols64(self, a, b):
         """Schoolbook product columns (..., 2L+1, B) of a·b."""

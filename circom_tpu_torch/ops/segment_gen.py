@@ -62,6 +62,13 @@ HEADER = """\
 // folded product and the conditional subtract are __noinline__ functions
 // called per use, one product function per distinct constant multiplicand
 // (the compiler drops the constant's zero limbs), the cheap ops inline.
+//
+// Canonical results at every field: operands are canonical (< p < R =
+// 2^(16 L)); mul's CIOS leaves (x y + M p) / R < 2p and add/sub a value
+// below 2p, each subtracting p once; k4_cond_sub follows bor, bxor and
+// bnot, whose values have at most p.bit_length() bits, below 2p; shl_k
+// masks to those bits and subtracts once (wide.cuh).  No segment op is a
+// lazy dot.
 #include <cuda_runtime.h>
 
 #include <cstdint>

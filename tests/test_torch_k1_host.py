@@ -10,7 +10,9 @@ rules its design rests on, on the CPU.
   and goldilocks (one 64-bit word a register), SHA256, bigint-div, the
   stdlib comparators, the unit plans of every K1b, K1c and K1d opcode, a
   plan whose constants are overwritten and a run that K1 reads in groups
-  of steps.
+  of steps; and Poseidon2 at bls12381 and secq256r1 and
+  MerkleInclusion(2) at secq256r1, whose lazy dots take two and three
+  subtracts of p there (the count K1's launch computes from p).
 - Dump rows are nobody's output: on each of those plans no witness
   gather (wd_src, nw_src) and no trailing-REDC flag (mont_tab) names a
   chunk's dump row, so K1 need not store it; `emitted_rows` is
@@ -44,6 +46,7 @@ from circom_tpu_torch.circuits import sha256_io
 from circom_tpu_torch.circuits.sources import (BIGINT_DIV_SRC,
                                                comparator_inputs,
                                                comparators_source,
+                                               merkle_source,
                                                poseidon2_source)
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.convert import (K1B_GROUP, K1B_OPCODES, K1C_OPCODES,
@@ -92,8 +95,8 @@ def k1host(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build interp.cu for the host")
     src = (ROOT / "circom_tpu_torch/ops/cuda/interp.cu").read_text()
-    src, n = re.subn(r"(interp_k1_kernel<L, FULL>)<<<blocks, THREADS, 0, "
-                     r"s>>>\(a, kc\);",
+    src, n = re.subn(r"(interp_k1_kernel<L, FULL, SUBS>)<<<blocks, THREADS, "
+                     r"0, s>>>\(a, kc\);",
                      r"host_launch(\1, blocks, THREADS, a, kc);", src)
     assert n == 1
     tmp = tmp_path_factory.mktemp("k1host")
@@ -224,14 +227,20 @@ def case(name):
         msgs = [bytes(r.randrange(256) for _ in range(32)) for _ in range(B)]
         x = sha256_io.input_rows(msgs)
     else:
-        prime = "goldilocks" if name == "poseidon2-goldilocks" else "bn128"
-        src = {"poseidon2-bn128": poseidon2_source("bn128"),
-               "poseidon2-goldilocks": poseidon2_source("goldilocks"),
-               "bigdiv": BIGINT_DIV_SRC,
-               "cmp": comparators_source()}[name]
+        prime = name.split("-")[1] if "-" in name else "bn128"
+        src = (poseidon2_source(prime) if name.startswith("poseidon2-")
+               else merkle_source(2) if name.startswith("merkle2-")
+               else {"bigdiv": BIGINT_DIV_SRC,
+                     "cmp": comparators_source()}[name])
         prog = _program(src, prime)
         spec = prog.spec
-        if name == "cmp":
+        if name.startswith("merkle2-"):
+            # canonical leaf and path elements, pathIndex bits
+            x = canonical(rng, spec, (prog.n_inputs, spec.n_limbs, B))
+            for i, (lo, hi) in prog.input_ranges.items():
+                x[i] = 0
+                x[i, 0] = rng.integers(lo, hi + 1, size=B)
+        elif name == "cmp":
             x = comparator_inputs(B, 74, spec.n_limbs)
         else:
             x = canonical(rng, spec, (prog.n_inputs, spec.n_limbs, B))
@@ -247,7 +256,8 @@ def u32_tensor(x):
 
 PLANS = ["poseidon2-bn128", "poseidon2-goldilocks", "sha256", "bigdiv",
          "cmp", "narrow-unit", "unit-bn128", "unit-goldilocks", "overwrite",
-         "groups"]
+         "groups", "poseidon2-bls12381", "poseidon2-secq256r1",
+         "merkle2-secq256r1"]
 
 
 @pytest.mark.parametrize("name", PLANS)
