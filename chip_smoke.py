@@ -33,13 +33,21 @@ mismatch exits non-zero.  The paths:
   in one launch, KW, KC; sampled lanes against the host and the native
   calculator), and KS on the scan tapes of circuits/sources.ks_tapes()
   at the eight fields, batch 8,192 (one launch a run, bit for bit
-  against the step loop on the card);
+  against the step loop on the card; at goldilocks each tape's run and
+  R1CS check timed end to end);
 - Num2Bits(254) and 4 x Num2Bits(254) over bn128, batch 65,536, which
   the interpreter refuses: run on the segments (K4, one and four
   segments, each writing its rows of the witness in place) and R1CS
   check; a run's median ms, its peak allocation, and its device
   operations from the profiler, which must be each of K4's kernels once
   a run and nothing else;
+- the op circuit (every op a segment holds) and LessThan(n) on the
+  segments at each of the eight --prime fields, batch 65,536 (phase S8):
+  run (K4) and R1CS check of every lane, the edge lanes and 16 more
+  against the host calculator, K4 against its plain version on every
+  segment, a run's median, idle share and profiled device operations,
+  K4's time against its bounds, each segment's registers, spills and
+  nvcc seconds;
 - bigint-div + Num2Bits(254) of the quotient over bn128, batch 8,192,
   which both fused backends refuse: run straight-line (one launch of KS
   a run, no K5, K6 or plain field op) and R1CS check, bit for bit against
@@ -79,23 +87,25 @@ rows of 1, 2 and 16 limbs); each interpreter path (P, M, F, G, D, C, MM,
 MK) prints a run's median ms, its peak allocation and its profiled
 device operations, which must be its own kernels once a run (K1, then KW
 or K2; M: K1 and K3) and nothing else; K4 is held against its plain
-version on every segment of the segmented paths and on two op circuits
-that reach every op a segment can hold. KC, the R1CS check of every
-path, is held against the check's plain route on Poseidon2's 65,536
-lanes and SHA256's 8,192 in one launch each, a SHA256 window read in
-place, random constraint systems at five fields and the accumulators'
-worst-case rows (phase KC); every checked path's check is one KC launch
-a batch (one a shard on the mesh) that copies nothing of z. KW, the
-full-limb witness's assembly, is held against its plain version (the
-parts route: K2, K3, the plain widening, index_put) on the full-limb
-SHA256, comparators and MerkleInclusion(32) witnesses, and timed against
-its byte bound beside that route (phase KW); a run of those paths
-launches K1 and KW and neither K2 nor K3. Every path's sampled lanes
-equal the host calculator.
+version on every segment of the segmented paths and on the op circuits
+that reach every op a segment can hold, at every --prime field. KC, the
+R1CS check of every path, is held against the check's plain route on
+Poseidon2's 65,536 lanes and SHA256's 8,192 in one launch each, a SHA256
+window read in place, random constraint systems at five fields and the
+accumulators' worst-case rows (phase KC); every checked path's check is
+one KC launch a batch (one a shard on the mesh) that copies nothing of
+z. KW, the full-limb witness's assembly, is held against its plain
+version (the parts route: K2, K3, the plain widening, index_put) on the
+full-limb SHA256, comparators and MerkleInclusion(32) witnesses, and
+timed against its byte bound beside that route (phase KW); a run of
+those paths launches K1 and KW and neither K2 nor K3. Every path's
+sampled lanes equal the host calculator.
 
     python3 chip_smoke.py            # needs a CUDA card
     python3 chip_smoke.py --rehearse # CPU, small batch, plain versions only;
                                      # exits 3 and prints no result
+    python3 chip_smoke.py --multicard  # phases MS and MH alone, on every
+                                       # card (a call on four cards)
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.
@@ -143,6 +153,7 @@ try:
                                                    comparator_inputs,
                                                    comparators_source,
                                                    kc_extreme_r1cs, ks_tapes,
+                                                   lessthan_source,
                                                    merkle_source, mimc_source,
                                                    num2bits_source,
                                                    poseidon2_source,
@@ -163,8 +174,8 @@ try:
     from circom_tpu_torch.native import NativeCalculator
     from circom_tpu_torch.ops import build
     from circom_tpu_torch.ops import field_kernels as fk
-    from circom_tpu_torch.ops.field import (TorchField, as_i64, as_u32,
-                                            mont_edge_values)
+    from circom_tpu_torch.ops.field import (GOLDILOCKS_P, TorchField, as_i64,
+                                            as_u32, mont_edge_values)
     from circom_tpu_torch.ops.limbs import (int_to_limbs, ints_to_limbs,
                                             limbs_to_int)
     from circom_tpu_torch.ops.narrow import NARROW_OPS
@@ -1211,6 +1222,25 @@ def phase_merkle_primes(paths, dev, B, rehearse):
     return out
 
 
+def scan_end_to_end(cc, prog, x, wit):
+    """A scan tape's run timed end to end beside KS's bare launch: the
+    medians of CHECK_RUNS of WitnessProgram.run (one KS launch), of the
+    R1CS check of its witness (one KC launch) and of the two together,
+    each by the host clock a call at a time; and how many of the lanes
+    fail a constraint (a lane dividing by 0, or p - 1 where a tape's
+    constraints want less, may)."""
+    checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], prog.spec,
+                          device=prog.device)
+
+    def checked():
+        return checker.check(prog.run(x))
+
+    return {"run_median_ms": median_ms(lambda: prog.run(x))[0],
+            "check_ms": median_ms(lambda: checker.check(wit))[0],
+            "checked_ms": median_ms(checked)[0],
+            "failing_lanes": int((~checker.check(wit)).sum())}
+
+
 def phase_ks_primes(paths, dev, B):
     """Phase P8, KS: the tapes of circuits/sources.ks_tapes()
     (tests/test_torch_scan_kernel.py's, pow_div included) compiled at
@@ -1221,7 +1251,8 @@ def phase_ks_primes(paths, dev, B):
     SCAN_NEVER (path p8s_<field>_<tape>), bit for bit against the step
     loop on the card, lanes 2 and 3 against the host calculator (which
     stops at a failed constraint); the warm run and KS's bare launch
-    timed.  Returns each field's ms."""
+    timed, and at goldilocks each tape's run and R1CS check end to end
+    (scan_end_to_end).  Returns each field's ms."""
     out = {}
     for k, prime in enumerate(P8_PRIMES):
         spec = field_spec(prime)
@@ -1263,7 +1294,7 @@ def phase_ks_primes(paths, dev, B):
                     raise SystemExit(f"FAIL P8 KS {name}/{prime} lane {lane}: "
                                      "witness differs from the host "
                                      "calculator")
-            del wit, want
+            del want
             run_ms = wall_ms(lambda: prog.run(x))[1]
             ks = prog.scan.ks
             ks_ms = None
@@ -1276,7 +1307,17 @@ def phase_ks_primes(paths, dev, B):
             row[name] = {"run_ms": run_ms, "ks_ms": ks_ms,
                          "loop_ms": loop_ms,
                          "steps": prog.scan.sched.n_steps}
-            del prog, x
+            if prime == "goldilocks":
+                row[name].update(scan_end_to_end(cc, prog, x, wit))
+            del prog, x, wit
+        if prime == "goldilocks":
+            say(f"  the goldilocks scan end to end ({B} lanes, medians of "
+                f"{CHECK_RUNS}: WitnessProgram.run, the R1CS check (KC), "
+                "run and check): " + ", ".join(
+                    f"{name} {t['run_median_ms']:.3f}, {t['check_ms']:.3f}, "
+                    f"{t['checked_ms']:.3f} ms ({t['failing_lanes']} lanes "
+                    "fail a constraint)" for name, t in row.items())
+                + f"; {CARD}")
         say(f"  KS at {prime} (L = {spec.n_limbs}, {B} lanes; one KS launch "
             "a run, bit for bit against the step loop, lanes 2 and 3 "
             "against the host): " + ", ".join(
@@ -1377,7 +1418,9 @@ K4_REPLACES = "circom_tpu/backend/segments.py:242"
 def k4_programs(dev):
     """The programs of the segmented paths, built before the kernels so
     that their generated K4 sources build in parallel with the fixed
-    ones: name -> (compiled circuit, WitnessProgram)."""
+    ones: name -> (compiled circuit, WitnessProgram); phase S8's, the op
+    circuit and LessThan(lt_bits) forced onto the segments at each of
+    P8_PRIMES, as s8_<circuit>_<field>."""
     progs = {}
     bn = field_spec("bn128")
     for name, src, prime in (
@@ -1390,7 +1433,22 @@ def k4_programs(dev):
         progs[name] = (cc, WitnessProgram(
             cc.build_tape()[0], field_spec(prime), device=dev, mode=mode,
             input_ranges=cc.input_range_hints()))
+    for prime in P8_PRIMES:
+        spec = field_spec(prime)
+        for circuit, src in (
+                ("ops", segment_ops_source(spec.p.bit_length())),
+                ("lt", lessthan_source(lt_bits(prime)))):
+            cc = compile_source(src, prime=prime)
+            progs[f"s8_{circuit}_{prime}"] = (cc, WitnessProgram(
+                cc.build_tape()[0], spec, device=dev, mode="segments",
+                input_ranges=cc.input_range_hints()))
     return progs
+
+
+def lt_bits(prime):
+    """LessThan(n)'s n at a field: circomlib's largest (252), or two
+    below the field's bit width."""
+    return min(252, field_spec(prime).p.bit_length() - 2)
 
 
 def edge_inputs(spec, n_inputs, B, seed, dev):
@@ -1407,24 +1465,35 @@ def edge_inputs(spec, n_inputs, B, seed, dev):
     return to_device(x, dev)
 
 
-def k4_ops(seg, L):
+def k4_ops(seg, field):
     """32-bit integer instructions of one segment a lane, counted low: K4
-    computes in 16-bit limbs (field.cuh), one instruction a 16x16-bit
-    product (its mask, shift and adds not counted): L (L + nz) products
-    a Montgomery product (nz: the nonzero limbs of a constant operand,
-    else L), a plain product of two values two of them, L^2 a goldilocks
-    product; L for any other op."""
-    ops = 0
+    computes in N = L/2 32-bit words, two instructions a 32x32->64-bit
+    product (its low and its high word; the carries' adds not counted):
+    N (N + nz) products a Montgomery product by a constant of nz nonzero
+    words, 2 N^2 by a value; a plain product of two values two Montgomery
+    products (the second by R^2), by a constant c one by c R mod p;
+    goldilocks' 64x64-bit product N nz word products (nz = N for a value);
+    N instructions for any other op."""
+    N = field.L // 2
+    goldilocks = field.p == GOLDILOCKS_P
+
+    def nz(value):
+        return sum(1 for i in range(N) if value >> (32 * i) & 0xFFFFFFFF)
+
+    products = 0
+    others = 0
     for op, descs, *_rest in seg.instrs:
-        nz = min([sum(1 for v in d[1] if v) for d in descs
-                  if d[0] == "const"] or [L])
-        if op == "mul" or (op == "mulp" and L > 4):
-            ops += L * (L + nz) * (2 if op == "mulp" and nz == L else 1)
+        consts = [limbs_to_int(d[1]) for d in descs if d[0] == "const"]
+        if op == "mulp" and goldilocks:
+            products += N * (nz(consts[0]) if consts else N)
         elif op == "mulp":
-            ops += L * nz
+            products += (N * (N + nz(consts[0] * 2 ** (16 * field.L)
+                                     % field.p)) if consts else 4 * N * N)
+        elif op == "mul":
+            products += N * (N + nz(consts[0])) if consts else 2 * N * N
         else:
-            ops += L
-    return ops
+            others += N
+    return 2 * products + others
 
 
 def k4_rows(sp):
@@ -1468,7 +1537,7 @@ def phase_k4_program(prog, x, label):
         plain_ms += wall_ms(lambda: segment_ref(sp.field, seg, x, *want))[1]
         err = max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
         ms += time_ms(k4)
-        ops += k4_ops(seg, L) * B
+        ops += k4_ops(seg, sp.field) * B
     if bool((got[0].view(torch.int32) == UNWRITTEN).any()):
         raise SystemExit(f"FAIL K4 on {label}: a witness row was not "
                          "written")
@@ -1485,12 +1554,13 @@ def phase_k4_program(prog, x, label):
     return err, ms, plain_ms, nbytes, ops, cross_bytes, moved
 
 
-def segment_run(prog, x, label, rehearse, runs=10):
+def segment_run(prog, x, label, rehearse, runs=10, trace=True):
     """A segmented path's run: its median ms over `runs` runs a run at a
     time, the memory it allocates at its peak beyond what was allocated
-    before, and its device operations (traced_ops), which must be each of
-    K4's kernels once a run and nothing else, so that a trace that missed
-    a kernel fails too; with the device's idle share."""
+    before, and, with `trace`, its device operations (traced_ops), which
+    must be each of K4's kernels once a run and nothing else, so that a
+    trace that missed a kernel fails too; with the device's idle
+    share."""
     dev = prog.device
     ms = sorted(wall_ms(lambda: prog.run(x))[1] for _ in range(runs))
     median = ms[len(ms) // 2]
@@ -1498,7 +1568,7 @@ def segment_run(prog, x, label, rehearse, runs=10):
     say(f"  {label} run: median {median:.3f} ms of {runs} "
         f"({ms[0]:.3f}-{ms[-1]:.3f}), {gib:.3f} GiB allocated at its peak")
     out = {"median_ms": median, "peak_gib": gib}
-    if rehearse:
+    if rehearse or not trace:
         return out
     n_k4 = len(prog.fused.kernels)
     profile, got = traced_ops(
@@ -1513,9 +1583,14 @@ def segment_run(prog, x, label, rehearse, runs=10):
 
 # profile_breakdown's passes in traced_ops: a traced warm-up step and one
 # step of TRACED_RUNS runs, TRACE_PAD s of host time around each step's
-# runs, each pass at most TRACE_TRIES times
+# runs, each pass at most TRACE_TRIES times.  The profiler keeps a kernel
+# record only inside its window, placed by the host's clock; the dropped
+# records came late in long processes and then in every pass (3 of S's
+# 20 K4 records after ~470 s of smoke on an H100, none in other
+# processes), as a drift of the card's timestamps against the host's
+# would drop the runs nearest an edge: 0.1 s keeps them 100 ms inside
 TRACED_RUNS = 20
-TRACE_PAD = 0.01
+TRACE_PAD = 0.1
 TRACE_TRIES = 5
 
 
@@ -1680,10 +1755,140 @@ def phase_k4_units(progs, dev, B):
     return err
 
 
+S8_HOST_LANES = 16      # sampled lanes against the host, beside the edges
+S8_EDGES = 16           # the first lanes: every pair of four edges
+
+
+def s8_inputs(cc, prog, circuit, B, seed, dev):
+    """Phase S8's inputs (n_inputs, L, B): random values, canonical for
+    the op circuit and below 2^n for LessThan(n) (defined there); the
+    first S8_EDGES lanes every pair of the edges on the first two inputs
+    (test_segments_at_every_prime's: 0, 1, p - 1, p // 2; LessThan's 0, 1,
+    2^n - 1, 2^(n - 1)); the range-hinted input (the op circuit's c) a
+    bit; at a field of 64 bits no b = 0 (the op circuit divides by b
+    there, and the host calculator refuses a / 0)."""
+    spec = prog.spec
+    p, L = spec.p, spec.n_limbs
+    rng = np.random.default_rng(seed)
+    x = canonical_np(rng, spec, (prog.n_inputs, L, B))
+    if circuit == "lt":
+        n = lt_bits(spec.name)
+        x[:, n // 16 + 1:] = 0
+        x[:, n // 16] &= np.uint32((1 << (n % 16)) - 1)
+        edges = [0, 1, (1 << n) - 1, 1 << (n - 1)]
+    else:
+        edges = [0, 1, p - 1, p // 2]
+    for lane in range(min(S8_EDGES, B)):
+        x[0, :, lane] = int_to_limbs(edges[lane % 4], L)
+        x[1, :, lane] = int_to_limbs(edges[lane // 4 % 4], L)
+    for i in cc.input_range_hints():
+        x[i] = 0
+        x[i, 0] = np.arange(B) % 2
+    if circuit == "ops" and p.bit_length() <= 64:
+        x[1, 0, ~x[1].any(axis=0)] = 1
+    return to_device(x, dev)
+
+
+def k4_ptxas(lib):
+    """ptxas' report of one segment's library (build.BUILD_LOG, -Xptxas
+    -v): the registers of its k4_seg entry and the largest stack frame
+    and spill (stores or loads, bytes) of any function in it; None where
+    the library was not built in this run."""
+    log = build.BUILD_LOG.get(lib)
+    if log is None:
+        return None
+    out = {"registers": None, "stack": 0, "spill": 0}
+    entry = False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = "k4_seg" in line
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out["stack"] = max(out["stack"], int(m[1]))
+            out["spill"] = max(out["spill"], int(m[2]), int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out["registers"] = int(m[1])
+            entry = False
+    return out
+
+
+def phase_segments_primes(paths, progs, dev, B, rehearse):
+    """Phase S8: the segments at each of the eight --prime fields.  The op
+    circuit (every op a segment holds) and LessThan(lt_bits) forced onto
+    the segments (progs s8_<circuit>_<field>) run at B lanes through
+    witness_path: a run and the R1CS check of every lane (KC), launches
+    counted around exactly that (path s8_<circuit>_<field>: K4 and KC,
+    nothing else), S8_HOST_LANES sampled lanes against the host
+    calculator; then the S8_EDGES edge lanes against it; a run's median
+    and peak (segment_run, untraced: in the first chip run of this phase
+    the profiler dropped one of LessThan's 20 K4 records in every pass
+    from the fourth field on, where the launch counts were exact); K4
+    against its plain version on every segment at all B lanes, in place
+    (phase_k4_program), its summed time by CUDA events against both
+    bounds, and the idle share as 1 - that time over the run's median (a
+    run's device work is its K4 launches: the launch counts, and S's and
+    S4's traces); each segment's registers, stack, spills and nvcc
+    seconds.  Returns the K4 max abs err and each case's numbers."""
+    err, out = 0, {}
+    t0 = time.perf_counter()
+    interp = ("interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d")
+    for k, prime in enumerate(P8_PRIMES):
+        for j, circuit in enumerate(("ops", "lt")):
+            name = f"s8_{circuit}_{prime}"
+            cc, prog = progs[name]
+            x = s8_inputs(cc, prog, circuit, B, SEED + 80 + 2 * k + j, dev)
+            names = ["a", "b", "c"][:prog.n_inputs]
+
+            def host_map(ins):
+                return dict(zip(names, ins))
+
+            label = f"S8 {circuit}/{prime}"
+            t = witness_path(paths, name, cc, prog, x, ("k4", "r1cs_check"),
+                             host_map, never=interp + K5_K6 + KW_NEVER
+                             + ("assemble", "scan"), n_lanes=S8_HOST_LANES)
+            edges = list(range(min(S8_EDGES, B)))
+            ins, got = lane_values(prog.run(x), x, edges)
+            check_host_lanes(cc, ins, got, edges, host_map, label)
+            t.update(segment_run(prog, x, label, rehearse, trace=False))
+            e, ms, plain_ms, nbytes, ops, *_ = phase_k4_program(prog, x,
+                                                                label)
+            err = max(err, e)
+            t["idle"] = None if rehearse else round(
+                max(0.0, 1 - ms / t["median_ms"]), 3)
+            lib = build.generated_name(prog.fused.source())
+            segs = [{"nvcc_s": build.BUILD_SECONDS.get(f"{lib}-s{s}"),
+                     **(k4_ptxas(f"{lib}-s{s}") or {})}
+                    for s in range(len(prog.fused.kernels))]
+            t_bytes, t_ops = bounds(nbytes, ops)
+            t.update(L=prog.spec.n_limbs, k4_ms=ms, plain_ms=plain_ms,
+                     bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+                     segments=segs)
+            say(f"  {label} (L = {prog.spec.n_limbs}, "
+                f"{len(prog.fused.kernels)} segments, {B} lanes): every lane "
+                f"passes its check, {len(edges)} edge and "
+                f"{S8_HOST_LANES} sampled lanes equal the host; run median "
+                f"{t['median_ms']:.3f} ms, idle {t['idle']}; K4 "
+                f"{ms:.4f} ms, bounds {t_bytes:.4f} (bytes), {t_ops:.4f} "
+                f"(operations); segments " + "; ".join(
+                    f"{g.get('registers')} registers, stack "
+                    f"{g.get('stack')}, spill {g.get('spill')}, nvcc "
+                    + ("cached" if g["nvcc_s"] is None
+                       else f"{g['nvcc_s']:.1f} s") for g in segs)
+                + f"; {CARD}")
+            out[name] = t
+            del x
+    say(f"  phase S8: {len(out)} cases in {time.perf_counter() - t0:.1f} s")
+    return err, out
+
+
 def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
-    """Phases S, S4, U, O, Q, QS, KS and W: Num2Bits(254) and 4 x
+    """Phases S, S4, U, S8, O, Q, QS, KS and W: Num2Bits(254) and 4 x
     Num2Bits(254) over bn128 at batch B through the segments (K4), K4
     against its plain version on their segments and on the op circuits,
+    the op circuit and LessThan on the segments at the eight --prime
+    fields (phase_segments_primes),
     bigint-div + Num2Bits(254) over bn128 at batch b_div straight-line
     (one KS launch, bit for bit against the per-node path on the card),
     16 x Num2Bits(254) on the scan (scan_paths: one KS launch), and the
@@ -1709,6 +1914,10 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
         del x
     say("phase U: K4 against its plain version on the op circuits")
     unit_err = phase_k4_units(progs, dev, 400 if rehearse else 4096)
+    say(f"phase S8: the segments at the eight --prime fields (the op "
+        f"circuit and LessThan, batch {B})")
+    s8_err, out["s8"] = phase_segments_primes(paths, progs, dev, B,
+                                               rehearse)
     (err, ms, plain_ms, nbytes, ops, cross_bytes, moved), s4 = (
         k4["n2b254"], k4["n2b254x4"])
     # nvcc's seconds a program: its segments' libraries, built in
@@ -1721,12 +1930,13 @@ def segment_perop_paths(paths, rep, progs, dev, B, b_div, b_qs, rehearse):
              for s in range(len(prog.fused.kernels))]
         nvcc[name] = None if None in t else {"max_s": max(t),
                                              "sum_s": sum(t)}
-    rep.add("k4", K4_SOURCE, K4_REPLACES, max(err, s4[0], unit_err), ms,
+    rep.add("k4", K4_SOURCE, K4_REPLACES, max(err, s4[0], unit_err, s8_err),
+            ms,
             plain_ms, nbytes, ops, plan="Num2Bits(254)/bn128", s4_ms=s4[1],
             s4_plain_ms=s4[2], s4_bound_ms=bound(s4[3], s4[4])[0],
             s4_bound_by=bound(s4[3], s4[4])[1],
             s4_ops_bound_ms=bounds(s4[3], s4[4])[1], nvcc_s=nvcc,
-            on_path="S, S4",
+            on_path="S, S4, S8", s8=out["s8"],
             cross_bytes=cross_bytes, s4_cross_bytes=s4[5],
             moved_bytes=moved, s4_moved_bytes=s4[6],
             run_median_ms=out["n2b254"]["median_ms"],
@@ -2930,12 +3140,54 @@ def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
             "trace": trace}
 
 
+def multicard(rehearse):
+    """Phases MS and MH alone: MerkleInclusion(32)/bn128's program, its
+    native calculator and the kernels built, then the mesh over MS_SHARDS
+    shards (one a card where there are four) and the two coordinated
+    processes (nccl where each has its card), each with its own checks."""
+    if not rehearse and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cpu") if rehearse else torch.device("cuda", 0)
+    if not rehearse:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True)
+        global CARD
+        CARD = ", ".join(smi.stdout.strip().splitlines())
+        say(CARD)
+        say(f"build: {build.build_all():.1f} s")
+    bn = field_spec("bn128")
+    cc = compile_source(merkle_source(4 if rehearse else 32))
+    tape, layout = cc.build_tape()
+    hints = cc.input_range_hints()
+    mk = {"prog": WitnessProgram(tape, bn, device=dev, input_ranges=hints),
+          "cc": cc, "calc": NativeCalculator(tape, bn, input_ranges=hints),
+          "hints": hints, "layout": layout}
+    paths = Paths(rehearse)
+    m = phase_mesh(paths, mk, 1 if rehearse else MS_LANES, rehearse)
+    say("phase MH: two coordinated processes (parallel/multihost.py)")
+    mh_ms = phase_multihost(paths, dev.type, rehearse)
+    say(f"mesh path, MerkleInclusion(32)/bn128 in {MS_SHARDS} shards on "
+        f"{', '.join(m['devices'])}: {m['run_ms']:.1f} ms step (first run), "
+        f"warm {m['warm_ms']} ms, check {m['check_ms']:.1f} ms (warm "
+        f"{m['warm_check_ms']}), peaks {m['peaks']}; two processes (MH) "
+        f"{mh_ms / 1e3:.1f} s; {CARD}")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase on the CPU with the plain "
                          "versions at batch 8, then exit 3 without a result")
+    ap.add_argument("--multicard", action="store_true",
+                    help="run phases MS and MH alone, on every card the "
+                         "machine has (for a call on several cards), and "
+                         "exit 0 without the kernels and ok lines")
     args = ap.parse_args()
+    if args.multicard:
+        return multicard(args.rehearse)
     if args.rehearse:
         dev, B, lanes = torch.device("cpu"), 8, 8
         b_full, b_cmp, b_div, b_qs = 4, 4, 8, 8
@@ -3161,6 +3413,12 @@ def main():
                 t["ks_ms"] is None for t in v.values()) else
                 f"{sum(t['ks_ms'] for t in v.values()):.4f} ms")
             for k, v in p8s.items()))
+    say(f"the segments at the eight --prime fields (phase S8, batch {B}; "
+        f"{CARD}): " + ", ".join(
+            f"{k[3:]} run {v['median_ms']:.3f} ms (idle {v.get('idle')}), K4 "
+            f"{v['k4_ms']:.4f} ms (bounds {v['bytes_bound_ms']:.4f} bytes, "
+            f"{v['ops_bound_ms']:.4f} operations)"
+            for k, v in seg["s8"].items()))
     say(f"the CLI at --prime {CL_PRIME} on Poseidon2: {cl_prime_ms / 1e3:.1f} "
         "s")
     for name, label, b in (

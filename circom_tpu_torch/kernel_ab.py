@@ -1,5 +1,5 @@
-"""Time K1, K3, K2, K5, KC, KS and K4 against the same kernels built from
-another checkout.
+"""Time K1, K3, K2, K5 and K6, KC, KS and K4 against the same kernels
+built from another checkout.
 
     python -m circom_tpu_torch.kernel_ab --other DIR [--reps N]
         [--kernels k1,k3,k2,k5,kc,ks,k4]
@@ -9,8 +9,8 @@ earlier commit unpacked with `git archive`.  Its
 circom_tpu_torch/ops/cuda sources of the kernels --kernels asks for are
 built beside this checkout's, with the same nvcc flags, all at once
 (interp.cu alone takes about a minute of nvcc), and each library's entry
-point is called through ctypes.  K2's and K5's entry points have the same
-interface in both (the 32-bit K5's, with n0inv32).  The other K1's
+point is called through ctypes.  K2's and K5/K6's entry points have the
+same interface in both (the 32-bit K5's, with n0inv32).  The other K1's
 interface is read off its interp.cu (k1_interface), by its arguments:
 this checkout's 37 (k1_args: the caller's input rows, their limb count
 and the plan's win_order and nin_order, read where they lie), or 0844d12's
@@ -47,12 +47,11 @@ allocated before), in turns: other, this, this, other.
 - K2 at Poseidon2/bn128's plan shape (the plan's wd_src over a random
   bank of (n_bank_rows, 16, 65,536)), beside `index_select` of the same
   rows into the same output.
-- K5 at every shape that the R1CS check's plain route gives a Montgomery
-  product, for Poseidon2/bn128 (P) at batch 65,536 and the SHA256 block
-  over bn128 (F) at 8,192: the shapes K5 had on the check before kernel
-  KC took the check over, recorded from the plain route itself, each
-  distinct one timed on random canonical operands, and the K5 time of
-  such a check is the sum over its products.
+- K5 and K6 (field_ops.cu) at the shapes where chip_smoke.py's phase 2
+  holds them (no main path has launched either since KS took the per-op
+  paths over): K5 on Poseidon2/bn128's check's widest matrix, (nnz, 16,
+  8,192) by an (nnz, 16, 1) coefficient column, and K6's add and subtract
+  on its (320, 16, 8,192) constraint rows.
 - KC (check.cu) on the R1CS check of Poseidon2/bn128 (P) at batch 65,536
   and of the full-limb SHA256 block over bn128 (F) at 8,192, each in one
   launch over the whole batch, lanes corrupted at different wires, both
@@ -65,15 +64,17 @@ allocated before), in turns: other, this, this, other.
   through ks_args.  Every launch's witness equals this checkout's run,
   which equals the step loop's (Q, QS) or the per-node path's (O).
 - K4 (generated per program) on the segmented paths Num2Bits(254)/bn128
-  (S) and 4 x Num2Bits(254)/bn128 (S4) at batch 65,536: each checkout's
-  own generator writes its source (a child process with only that
-  checkout on its path), and nvcc builds a library a segment of both at
-  once.  Both take the in-place interface, `ctpu_k4_seg<s>(x, w, c, B,
-  stream)` over the inputs, the witness and the crossing buffer (the
-  stacked one of two buffers, older than 0844d12, is refused:
-  k4_stacked).  Both runs' witnesses must be equal bit for bit; the bare
-  K4 launches (all segments, buffers allocated before) and the whole
-  runs are timed in turns, and each run's peak allocation read.
+  (S) and 4 x Num2Bits(254)/bn128 (S4), and on the op circuit (every op
+  a segment holds; U at bn128, Ug at goldilocks), all at batch 65,536 on
+  random canonical inputs: each checkout's own generator writes its
+  source (a child process with only that checkout on its path), and nvcc
+  builds a library a segment of both at once.  Both take the in-place
+  interface, `ctpu_k4_seg<s>(x, w, c, B, stream)` over the inputs, the
+  witness and the crossing buffer (the stacked one of two buffers, older
+  than 0844d12, is refused: k4_stacked).  Both runs' witnesses must be
+  equal bit for bit; the bare K4 launches (all segments, buffers
+  allocated before) and the whole runs are timed in turns, and each
+  run's peak allocation read.
 
 Prints a line for each measurement, the card's name and power limit, and
 a JSON object as the last line.  Exits 1 without a card.
@@ -87,7 +88,6 @@ import re
 import subprocess
 import sys
 import time
-from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -105,7 +105,8 @@ from .circuits import sha256_io
 from .circuits.gen_poseidon import generate
 from .circuits.sources import (BIGINT_DIV_SRC, bigdiv_num2bits_source,
                                comparator_inputs, comparators_source,
-                               num2bits_source, poseidon2_source)
+                               num2bits_source, poseidon2_source,
+                               segment_ops_source)
 from .backend.interp_plan import _NARROW_RESULT, _OPERAND_FILES
 from .convert import N_OPERANDS, OPCODES, to_device
 from .compiler.pipeline import compile_source
@@ -612,72 +613,55 @@ def k2(libs, dev, reps):
     return {"shape": [W, plan.n_bank_rows, L, B], "bytes": nbytes, "ms": ms}
 
 
-def k5_launches(rows, n_wires, spec, dev, B):
-    """Counter of (a shape, a strides, b strides) over the Montgomery
-    products of the R1CS check's plain route (first_violated_plain) on a
-    batch of B, each as K5 would be launched on it (the operands broadcast
-    and reshaped to (N, L, B) as field_kernels does): recorded, not
-    computed, since the shapes do not depend on the values."""
-    seen = Counter()
-    checker = R1CSChecker(rows, n_wires, spec, device=dev)
-    field = checker.field
-
-    def record(a, b):
-        shape = torch.broadcast_shapes(a.shape, b.shape)
-        N, L, Bs = int(np.prod(shape[:-2])), shape[-2], shape[-1]
-        a3, b3 = (t.broadcast_to(shape).reshape(N, L, Bs) for t in (a, b))
-        seen[(N, L, Bs), a3.stride(), b3.stride()] += 1
-        return torch.zeros(shape, dtype=torch.uint32, device=a.device)
-
-    field.mont_mul = record
-    field.to_mont = lambda a: record(a, checker.R2)
-    z = torch.zeros((n_wires, spec.n_limbs, 1), dtype=torch.uint32,
-                    device=dev).expand(-1, -1, B)
-    for zs in checker._slices(z):
-        checker.first_violated_plain(zs)
-    return seen
+# phase 2 of chip_smoke.py (phase_field), where K5 and K6 are still held
+# since no main path launches them: Poseidon2/bn128's check's widest
+# matrix (nnz rows) and its constraint rows, at CHECK_LANES lanes
+K56_LANES = 8192
 
 
-def k5(libs, name, rows, n_wires, B, dev, reps):
+def k5(libs, dev, reps):
+    """K5 and K6 at phase 2's shapes, each launch bit for bit against the
+    other checkout's: K5 on (nnz, 16, 8,192) random canonical operands by
+    an (nnz, 16, 1) coefficient column broadcast over the lanes, K6's add
+    and subtract on two (n_rows, 16, 8,192), for Poseidon2/bn128's R1CS
+    (nnz its widest matrix's entries, n_rows its constraints)."""
     spec = field_spec("bn128")
     field = TorchField(spec, dev)
-    seen = k5_launches(rows, n_wires, spec, dev, B)
+    L, B = spec.n_limbs, K56_LANES
+    rows = compile_source(poseidon2_source()).r1cs_rows()
+    nnz = max(sum(len(r[m]) for r in rows) for m in range(3))
     gen = torch.Generator(device=dev).manual_seed(12)
+    a = canonical(gen, spec, (nnz, L, B), dev)
+    c = canonical(gen, spec, (nnz, L, 1), dev).expand(nnz, L, B)
+    x = canonical(gen, spec, (len(rows), L, B), dev)
+    y = canonical(gen, spec, (len(rows), L, B), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = build.u32_array(field.p_list)
-    total = {"other": 0.0, "this": 0.0}
-    shapes = []
-    for (shape, sa, sb), count in sorted(seen.items()):
-        def operand(strides):
-            base = [1 if st == 0 else n for n, st in zip(shape, strides)]
-            return canonical(gen, spec, base, dev).expand(shape)
-        a, b = operand(sa), operand(sb)
-        assert a.stride() == sa and b.stride() == sb, (a.stride(), sa)
-        N, L, Bs = shape
-        outs = {k: torch.empty(shape, dtype=torch.uint32, device=dev)
-                for k in total}
-        args = (0, L, a.data_ptr(), build.ll_array(sa), b.data_ptr(),
-                build.ll_array(sb))
+    out = {}
+    for op, code, u, v in (("mont_mul", 0, a, c), ("add", 1, x, y),
+                           ("sub", 2, x, y)):
+        N = u.shape[0]
+        outs = {k: torch.empty(u.shape, dtype=torch.uint32, device=dev)
+                for k in ("other", "this")}
+        args = (code, L, u.data_ptr(), build.ll_array(u.stride()),
+                v.data_ptr(), build.ll_array(v.stride()))
         fns = {tag: (lambda tag=tag: checked(
             libs[tag, "field_ops"].ctpu_field_elementwise(
-                *args, outs[tag].data_ptr(), N, Bs, p, field.n0inv,
-                field.n0inv32, stream), f"{tag} K5")) for tag in total}
+                *args, outs[tag].data_ptr(), N, B, p, field.n0inv,
+                field.n0inv32, stream), f"{tag} {op}")) for tag in outs}
         ms = in_turns(fns, reps)
         if not torch.equal(outs["this"].view(torch.int32),
                            outs["other"].view(torch.int32)):
-            raise SystemExit(f"K5 {name} {shape}: the two versions differ")
-        for k in total:
-            total[k] += count * sum(ms[k]) / 2
-        print(f"  K5 {name} {shape} x{count}, b strides {sb}: other "
-              f"{ms['other'][0]:.4f}, {ms['other'][1]:.4f} ms; this "
-              f"{ms['this'][0]:.4f}, {ms['this'][1]:.4f} ms")
-        shapes.append({"shape": list(shape), "b_strides": list(sb),
-                       "launches": count, "ms": ms})
-        del a, b, outs
-    print(f"  K5 over {name}'s check ({sum(seen.values())} launches): "
-          f"other {total['other']:.3f} ms, this {total['this']:.3f} ms")
-    return {"launches": sum(seen.values()), "total_ms": total,
-            "shapes": shapes}
+            raise SystemExit(f"{op} {tuple(u.shape)}: the two versions "
+                             "differ")
+        nbytes = 4 * L * (N * B * 3 if op != "mont_mul" else N * (2 * B + 1))
+        for k, v2 in ms.items():
+            print(f"  {'K5' if op == 'mont_mul' else 'K6 ' + op} "
+                  f"{tuple(u.shape)} {k}: {v2[0]:.4f}, {v2[1]:.4f} ms "
+                  f"({nbytes / (sum(v2) / 2) / 1e6:.0f} GB/s)")
+        out[op] = {"shape": list(u.shape), "bytes": nbytes, "ms": ms}
+        del outs
+    return out
 
 
 def kc_case(name, dev, B):
@@ -817,29 +801,51 @@ def ks(libs, dev, reps):
     return out
 
 
-# K4's cases: (name, copies of Num2Bits(254)/bn128, batch)
-K4_CASES = (("S", 1, 65536), ("S4", 4, 65536))
+# K4's cases: (name, circuit: copies of Num2Bits(254) or "ops", the op
+# circuit of every segment op, field, batch)
+K4_CASES = (("S", 1, "bn128", 65536), ("S4", 4, "bn128", 65536),
+            ("U", "ops", "bn128", 65536), ("Ug", "ops", "goldilocks", 65536))
 
 # run in a child process with one checkout on its path: that checkout's
-# K4 source for argv[1] x Num2Bits(254)/bn128, written to argv[2]
+# K4 source for the circuit argv[1] (copies of Num2Bits(254), or "ops")
+# at the field argv[2], on the segments, written to argv[3]
 K4_SOURCE = """
 import sys
 from circom_tpu_torch.backend.torch_backend import WitnessProgram
-from circom_tpu_torch.circuits.sources import num2bits_source
+from circom_tpu_torch.circuits.sources import (num2bits_source,
+                                               segment_ops_source)
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.field.primes import field_spec
-cc = compile_source(num2bits_source(254, int(sys.argv[1])))
-prog = WitnessProgram(cc.build_tape()[0], field_spec("bn128"), device="cpu")
-open(sys.argv[2], "w").write(prog.fused.source())
+spec = field_spec(sys.argv[2])
+cc = compile_source(segment_ops_source(spec.p.bit_length())
+                    if sys.argv[1] == "ops"
+                    else num2bits_source(254, int(sys.argv[1])),
+                    prime=sys.argv[2])
+prog = WitnessProgram(cc.build_tape()[0], spec, device="cpu",
+                      mode="segments", input_ranges=cc.input_range_hints())
+open(sys.argv[3], "w").write(prog.fused.source())
 """
 
 
-def k4_source(root, copies, path):
-    """The K4 source that the checkout at `root` generates for `copies` x
-    Num2Bits(254)/bn128, written to `path` by its own generator."""
-    r = subprocess.run([sys.executable, "-c", K4_SOURCE, str(copies),
-                        str(path)], cwd=root, capture_output=True, text=True,
-                       env=dict(os.environ, PYTHONPATH=str(root)))
+def k4_program(circuit, prime, dev):
+    """This checkout's segmented program of a K4 case, as K4_SOURCE
+    builds the other's."""
+    spec = field_spec(prime)
+    cc = compile_source(
+        segment_ops_source(spec.p.bit_length()) if circuit == "ops"
+        else num2bits_source(254, circuit), prime=prime)
+    return WitnessProgram(cc.build_tape()[0], spec, device=dev,
+                          mode="segments",
+                          input_ranges=cc.input_range_hints())
+
+
+def k4_source(root, circuit, path, prime="bn128"):
+    """The K4 source that the checkout at `root` generates for a circuit
+    (copies of Num2Bits(254), or "ops") at `prime`, written to `path` by
+    its own generator."""
+    r = subprocess.run([sys.executable, "-c", K4_SOURCE, str(circuit),
+                        prime, str(path)], cwd=root, capture_output=True,
+                       text=True, env=dict(os.environ, PYTHONPATH=str(root)))
     if r.returncode:
         raise SystemExit(f"K4 source of {root}: {r.stderr[-2000:]}")
     return Path(path).read_text()
@@ -861,9 +867,11 @@ def k4_segments(text):
 
 
 def build_k4(root, text, tag):
-    """The entry points of a generated K4 source, built by nvcc against
+    """(the entry points of a generated K4 source, built by nvcc against
     the headers of the checkout at `root`, a library a segment in
-    parallel (-DK4_SEG=s), into ab/ of the build directory."""
+    parallel (-DK4_SEG=s), into ab/ of the build directory; each
+    segment's nvcc seconds and its kernel's registers as ptxas reports
+    them)."""
     out_dir = build.build_dir() / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / f"{tag}.cu"
@@ -874,23 +882,27 @@ def build_k4(root, text, tag):
 
     def one(s):
         so = out_dir / f"{tag}-s{s}.so"
+        t0 = time.perf_counter()
         r = subprocess.run([nvcc, *build.NVCC_FLAGS, f"-DK4_SEG={s}", "-I",
                             str(inc), "-o", str(so), str(src)],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                            text=True)
         if r.returncode:
             raise SystemExit(f"nvcc failed on {tag} segment {s}:\n{r.stdout}")
-        return so
+        regs = re.findall(r"Compiling entry function '[^']*k4_seg[^']*'.*?"
+                          r"Used (\d+) registers", r.stdout, flags=re.S)
+        return so, {"nvcc_s": time.perf_counter() - t0,
+                    "registers": int(regs[0]) if regs else None}
 
     with ThreadPoolExecutor(max_workers=n) as pool:
-        sos = list(pool.map(one, range(n)))
+        built = list(pool.map(one, range(n)))
     fns = []
-    for s, so in enumerate(sos):
+    for s, (so, _info) in enumerate(built):
         fn = getattr(ctypes.CDLL(str(so)), f"ctpu_k4_seg{s}")
         fn.restype = _I
         fn.argtypes = [_P] * 3 + [_LL, _P]
         fns.append(fn)
-    return fns
+    return fns, [info for _so, info in built]
 
 
 def peak_gib(dev, fn):
@@ -911,17 +923,15 @@ def k4(other, dev, reps):
     allocation; {case: {...}}."""
     from .backend.segments import launch_k4
 
-    spec = field_spec("bn128")
     gen = torch.Generator(device=dev).manual_seed(17)
     stream = build.stream_ptr(dev)
     out_dir = build.build_dir() / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     progs, jobs = {}, []
-    for name, copies, _B in K4_CASES:
-        tape = compile_source(num2bits_source(254, copies)).build_tape()[0]
-        prog = progs[name] = WitnessProgram(tape, spec, device=dev)
-        text = k4_source(Path(other).resolve(), copies,
-                         out_dir / f"other-{name}.txt")
+    for name, circuit, prime, _B in K4_CASES:
+        prog = progs[name] = k4_program(circuit, prime, dev)
+        text = k4_source(Path(other).resolve(), circuit,
+                         out_dir / f"other-{name}.txt", prime)
         if k4_stacked(text):
             raise SystemExit(f"the K4 of {other} is older than 0844d12's")
         if k4_segments(text) != [(len(g.instrs), len(g.src),
@@ -930,18 +940,28 @@ def k4(other, dev, reps):
             raise SystemExit(f"K4 on {name}: the other checkout cuts "
                              "other segments")
         jobs.append((name, text))
-    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+    # both checkouts' sources built by build_k4 at once, a library a
+    # segment, for their nvcc seconds and registers side by side; this
+    # checkout's runs launch its own build (build_all, cached by text)
+    with ThreadPoolExecutor(2 * len(jobs) + 1) as pool:
         mine = pool.submit(build.build_all, [
             (p.fused.source(), len(p.fused.kernels)) for p in progs.values()])
         theirs = {name: pool.submit(build_k4, other, text, f"k4-{name}")
                   for name, text in jobs}
+        ours = {name: pool.submit(build_k4, ROOT, progs[name].fused.source(),
+                                  f"k4-this-{name}") for name, _t in jobs}
         print(f"  this checkout's K4 built in {mine.result():.1f} s")
         theirs = {k: f.result() for k, f in theirs.items()}
+        ours = {k: f.result()[1] for k, f in ours.items()}
     result = {}
-    for (name, copies, B), (_n, text) in zip(K4_CASES, jobs):
-        prog, fns = progs[name], theirs[name]
+    for (name, _circuit, _prime, B), (_n, text) in zip(K4_CASES, jobs):
+        prog, (fns, their_info) = progs[name], theirs[name]
+        for tag, info in (("other", their_info), ("this", ours[name])):
+            print(f"  K4 {name} nvcc {tag}: " + ", ".join(
+                f"segment {s} {g['nvcc_s']:.1f} s, {g['registers']} "
+                "registers" for s, g in enumerate(info)))
         sp = prog.fused
-        x = canonical(gen, spec, (copies, spec.n_limbs, B), dev)
+        x = canonical(gen, prog.spec, (prog.n_inputs, sp.L, B), dev)
         want = prog.run(x)
         wit_o = torch.empty_like(want)
         cross_o = torch.empty((sp.n_cross, sp.L, B), dtype=torch.uint32,
@@ -981,7 +1001,8 @@ def k4(other, dev, reps):
         peaks = {"other": peak_gib(dev, other_run),
                  "this": peak_gib(dev, lambda: prog.run(x))}
         result[name] = {"segments": len(sp.kernels), "bare_ms": bare,
-                        "run_ms": runs, "peak_gib": peaks}
+                        "run_ms": runs, "peak_gib": peaks,
+                        "nvcc": {"other": their_info, "this": ours[name]}}
         for what, t in (("bare K4", bare), ("run", runs)):
             for k, v in t.items():
                 print(f"  K4 {name} ({B} lanes) {what} {k}: "
@@ -1048,16 +1069,8 @@ def main(argv=None):
         result["k2"] = k2(libs, dev, args.reps)
         torch.cuda.empty_cache()
     if "k5" in kernels:
-        pos = compile_source(generate((2,))
-                             + "\ncomponent main = Poseidon2();\n")
-        result["k5_P"] = k5(libs, "P", pos.r1cs_rows(),
-                            pos.counts()["n_wires"], 65536, dev, args.reps)
-        sha = compile_source(
-            (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text()
-            + "\ncomponent main = Sha256Block();\n")
-        result["k5_F"] = k5(libs, "F", sha.r1cs_rows(),
-                            sha.counts()["n_wires"], 8192, dev,
-                            max(2, args.reps // 4))
+        result["k5_k6"] = k5(libs, dev, args.reps)
+        torch.cuda.empty_cache()
     if "kc" in kernels:
         result["kc_P"] = kc(libs, "P", 65536, dev, args.reps)
         torch.cuda.empty_cache()

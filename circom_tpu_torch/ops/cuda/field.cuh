@@ -1,21 +1,26 @@
-// Device field library over base-2^16 limbs, one field element per thread.
+// The field constants every kernel reads (FieldConsts, MASK, LIMB_BITS),
+// and the 16-bit limb arithmetic that the tests' host oracles compute with.
 //
-// Ports the limb arithmetic of the JAX package's ops/limb_emit.py step for
-// step: cond_sub, the interleaved Montgomery CIOS product (emit_mul), the
-// non-interleaved Montgomery reduction of a column set (mont_reduce_rows,
-// used by the fused dot ops and the trailing REDC), and the modular add and
-// subtract.  Each limb is a uint32 holding 16 bits, so every 16x16-bit
-// product is exact in 32 bits and column sums stay far below 2^32; the
-// results are therefore bit-identical to the JAX kernels by construction,
-// including the single conditional subtract of their lazy dot reduction,
-// which is canonical only where n p is well below R (dot32.cuh: one
-// subtract is not enough for dot2/dot3 at secq256r1 and goldilocks, nor
-// for dot3 at bls12381; K1 subtracts as often as the field needs, and
-// mont_reduce_cols is its oracle only where once is enough).  K4 computes
-// with these functions; the interpreter kernel K1 and the elementwise
-// Montgomery product K5 work in 32-bit words instead (field32.cuh,
-// dot32.cuh, wide32.cuh), held bit for bit against mont_mul, mac_cols,
-// mont_reduce_cols, mod_add, mod_sub and cond_sub by the tests.
+// No kernel calls the 16-bit routines below: K1, K4, K5, K6, KC and KS
+// compute in 32-bit words (field32.cuh, dot32.cuh, wide32.cuh).  They stay
+// because g++ builds them for the host beside the word versions, which the
+// tests hold against them bit for bit (tests/test_torch_k1_words.py:
+// mac_cols, mont_reduce_cols, mod_add; tests/test_torch_k1_cd_words.py:
+// mod_sub, cond_sub, mod_add<4>, and wide.cuh's gl_mul, which ends in
+// cond_sub).  The interleaved CIOS product, which no oracle takes any
+// more, is gone: field32.cuh's mont_mul32 is held against TorchField.
+//
+// They port the limb arithmetic of the JAX package's ops/limb_emit.py step
+// for step: cond_sub, the non-interleaved Montgomery reduction of a column
+// set (mont_reduce_rows, used by the fused dot ops and the trailing REDC),
+// and the modular add and subtract.  Each limb is a uint32 holding 16
+// bits, so every 16x16-bit product is exact in 32 bits and column sums
+// stay far below 2^32; the results are therefore bit-identical to the JAX
+// kernels by construction, including the single conditional subtract of
+// their lazy dot reduction, which is canonical only where n p is well
+// below R (dot32.cuh: one subtract is not enough for dot2/dot3 at
+// secq256r1 and goldilocks, nor for dot3 at bls12381; mont_reduce_cols is
+// K1's oracle only where once is enough).
 //
 // L is a template parameter (4: goldilocks, 16: bn128 and the other 256-bit
 // primes, 24: room for wider primes), so every loop unrolls and the limb
@@ -53,50 +58,6 @@ __device__ __forceinline__ void cond_sub(uint32_t (&limbs)[L], int32_t top,
   const bool take = (top - borrow) >= 0;
 #pragma unroll
   for (int i = 0; i < L; ++i) limbs[i] = take ? subbed[i] : limbs[i];
-}
-
-// Interleaved Montgomery CIOS: out = a*b*R^-1 mod p (limb_emit.emit_mul).
-template <int L>
-__device__ __forceinline__ void mont_mul(const uint32_t (&a)[L],
-                                         const uint32_t (&b)[L],
-                                         uint32_t (&out)[L],
-                                         const FieldConsts& fc) {
-  uint32_t cols[L + 2];
-#pragma unroll
-  for (int k = 0; k < L + 2; ++k) cols[k] = 0;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const uint32_t ai = a[i];
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      const uint32_t prod = ai * b[j];  // exact: both < 2^16
-      cols[j] += prod & MASK;
-      cols[j + 1] += prod >> LIMB_BITS;
-    }
-    // one reduction step: clear cols[0], shift down
-    const uint32_t t = cols[0];
-    const uint32_t m = (t * fc.n0inv) & MASK;
-    const uint32_t prod0 = m * fc.p[0];
-    const uint32_t carry0 = (t + (prod0 & MASK)) >> LIMB_BITS;
-#pragma unroll
-    for (int k = 0; k < L + 1; ++k) cols[k] = cols[k + 1];
-    cols[L + 1] = 0;
-    cols[0] += carry0 + (prod0 >> LIMB_BITS);
-#pragma unroll
-    for (int j = 1; j < L; ++j) {
-      const uint32_t pr = m * fc.p[j];
-      cols[j - 1] += pr & MASK;
-      cols[j] += pr >> LIMB_BITS;
-    }
-  }
-  uint32_t carry = 0, top = 0;
-#pragma unroll
-  for (int k = 0; k < L + 1; ++k) {
-    const uint32_t t = cols[k] + carry;
-    if (k < L) out[k] = t & MASK; else top = t & MASK;
-    carry = t >> LIMB_BITS;
-  }
-  cond_sub<L>(out, (int32_t)top, fc);
 }
 
 // Montgomery reduction of 2L+1 column words (each < ~2^24), the lazy

@@ -6,11 +6,11 @@
 // (L/2)^2 wide products an element where the 16-bit steps of field.cuh take
 // 2 L^2 narrow ones, each with a mask, a shift and two adds.
 //
-// The bits equal field.cuh's mont_mul (and TorchField.mont_mul) for every
-// input of 16-bit limbs: R = 2^(16 L) = 2^(32 L/2) is the same, CIOS in
-// either base yields (V + M p) / R with the unique M < R that clears the low
-// half of V + M p, and both end with one conditional subtract of p, which
-// depends on that value alone.
+// The bits equal TorchField.mont_mul's (the 16-bit CIOS of the JAX
+// kernels, limb_emit.emit_mul) for every input of 16-bit limbs: R = 2^(16
+// L) = 2^(32 L/2) is the same, CIOS in either base yields (V + M p) / R
+// with the unique M < R that clears the low half of V + M p, and both end
+// with one conditional subtract of p, which depends on that value alone.
 //
 // Plain C++ on 64-bit integers, no inline PTX: g++ compiles this header for
 // the host (tests/test_torch_field32.py, with the CUDA qualifiers defined

@@ -2,11 +2,12 @@
 //
 // K5 replaces the Pallas kernel of ops/pallas_field.py make_mont_mul (the
 // CIOS product a*b*R^-1 mod p) and K6 replaces make_add / make_sub (with
-// _cond_sub_store).  The R1CS checker uses them: mont_mul for the
-// coefficient products and the Montgomery conversions, sub for Az*Bz - Cz;
-// the per-op path uses all three.
+// _cond_sub_store).  No main path launches them: the R1CS check is KC
+// (check.cu) and a per-op run one KS launch (scan.cu).  The check's plain
+// route and the per-op executors' step loop, which run on the card only
+// as oracles, and the per-op library take them.
 //
-// Operands may broadcast (a stride of 0 in n or b), which lets the checker
+// Operands may broadcast (a stride of 0 in n or b), which lets a caller
 // multiply (nnz, L, B) gathered wires by (nnz, L, 1) coefficients without
 // materialising them.  Neighbouring threads take neighbouring b, so each
 // limb row is read and written as one coalesced line per warp.
@@ -21,14 +22,17 @@
 // 0.86 ms where the 16-bit steps it replaced (~2,500 lane operations an
 // element) took 1.65 ms, bound by those operations.
 //
-// K6 (elementwise_kernel): one thread per (n, b) element, the limbs in
-// registers, the 16-bit add and subtract of field.cuh; it moves 3L words
-// for O(L) work and is bound by device-memory bandwidth.
+// K6 (elementwise_kernel): one thread per (n, b) element, packed into L/2
+// 32-bit words on load as K5 is, the modular add and subtract of dot32.cuh
+// (mod_add32, mod_sub32: a carry chain of L/2 words and one conditional
+// subtract, the results of field.cuh's 16-bit steps on every operand of
+// 16-bit limbs), unpacked on store; it moves 3L words for O(L) work and is
+// bound by device-memory bandwidth.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "field.cuh"
+#include "dot32.cuh"
 #include "field32.cuh"
 
 namespace ctpu {
@@ -76,27 +80,23 @@ __global__ void elementwise_kernel(const uint32_t* __restrict__ a, Strides sa,
                                    const uint32_t* __restrict__ b, Strides sb,
                                    uint32_t* __restrict__ out, long long N,
                                    long long B, FieldConsts fc) {
+  constexpr int W = L / 2;
+  uint32_t p[W];
+  p_words<L>(fc, p);
   const long long total = N * B;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     const long long n = e / B;
     const long long lane = e - n * B;
-    uint32_t x[L], y[L], r[L];
-    const uint32_t* pa = a + n * sa.n + lane * sa.b;
-    const uint32_t* pb = b + n * sb.n + lane * sb.b;
-#pragma unroll
-    for (int i = 0; i < L; ++i) {
-      x[i] = pa[i * sa.l];
-      y[i] = pb[i * sb.l];
-    }
+    uint32_t x[W], y[W], r[W];
+    pack32<L>(a + n * sa.n + lane * sa.b, sa.l, x);
+    pack32<L>(b + n * sb.n + lane * sb.b, sb.l, y);
     if (OP == OP_ADD) {
-      mod_add<L>(x, y, r, fc);
+      mod_add32<W>(x, y, p, r);
     } else {
-      mod_sub<L>(x, y, r, fc);
+      mod_sub32<W>(x, y, p, r);
     }
-    uint32_t* po = out + n * L * B + lane;
-#pragma unroll
-    for (int i = 0; i < L; ++i) po[i * B] = r[i];
+    unpack32<L>(r, out + n * L * B + lane, B);
   }
 }
 

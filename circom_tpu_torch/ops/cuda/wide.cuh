@@ -1,12 +1,13 @@
 // The wide ops beyond the Montgomery product over base-2^16 limbs held in
 // uint32, one field element per thread: the goldilocks folded product, the
 // signed comparisons, booleans, masked bit ops, shifts, the widening of a
-// narrow value and the long division.  The segment kernel K4
-// (ops/segment_gen.py) computes with them.  The interpreter kernel K1 uses
-// none of them any more (gl_mul, ult, is_neg, lt_signed, nonzero,
-// cmp_wide, shift_w, widen, idiv): it computes its K1c and K1d opcodes in
-// 32-bit words (wide32.cuh), which the tests hold bit for bit against
-// these.
+// narrow value and the long division.
+//
+// No kernel includes this header: K1, K4 and KS compute these ops in
+// 32-bit words (wide32.cuh).  It stays as the host oracle of
+// tests/test_torch_k1_cd_words.py, which builds it by g++ beside
+// wide32.cuh and holds every word op against its 16-bit version here bit
+// for bit (gl_mul, cmp_wide, nonzero, shift_w, widen, idiv).
 //
 // Ports, step for step, the JAX package's ops/limb_emit.py (gl_mul and the
 // emit ops: signed comparisons by the p/2 rule, booleans, masked bit ops
@@ -14,11 +15,6 @@
 // a narrow value and the long division of backend/interp.py (`wbranch`),
 // so the results are bit-identical to the JAX kernel's.  The plain PyTorch
 // versions are ops/wide.py.
-//
-// Register use: the large opcodes stream their operands from the register
-// file in device memory instead of holding them (a shift reads two limbs
-// per output limb, the long division reads one bit of the dividend per
-// step), so none of them needs more registers than K1a's dot3_c.
 #pragma once
 
 #include <cstdint>
@@ -165,20 +161,15 @@ __device__ __forceinline__ bool cmp_wide(const uint32_t (&x)[L],
 // or x >> count, count >= 0, by q = count / 16 limbs and r = count % 16
 // bits.  xr points at limb 0 of the operand, limb i at xr[i * stride]; the
 // limbs are read in place because their index depends on the count.
-// KEEP: the result limbs to compute, a bit each, the others left unset
-// (the straight-line kernel K4 passes the limbs that are read later; a
-// left shift computes them all for its conditional subtract).
-template <int L, bool LEFT, uint32_t KEEP = 0xFFFFFFFFu>
+template <int L, bool LEFT>
 __device__ __forceinline__ void shift_w(const uint32_t* xr, long long stride,
                                         int count, uint32_t (&out)[L],
                                         const FieldConsts& fc,
                                         const WideConsts& wc) {
-  static_assert(!LEFT || KEEP == 0xFFFFFFFFu, "a left shift keeps all limbs");
   const int q = count / LIMB_BITS;
   const uint32_t r = (uint32_t)(count % LIMB_BITS);
 #pragma unroll
   for (int j = 0; j < L; ++j) {
-    if (!((KEEP >> j) & 1u)) continue;
     // limbs lo = j -+ q and hi = lo -+ 1, 0 outside the value
     const int lo = LEFT ? j - q : j + q;
     const int hi = LEFT ? lo - 1 : lo + 1;

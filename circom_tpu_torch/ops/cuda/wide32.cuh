@@ -1,11 +1,12 @@
-// K1's wide opcodes beyond K1a in 32-bit words: the goldilocks product as
-// one 64-bit word (K1c), and K1d's signed comparisons by the p/2 rule,
+// The wide ops beyond the product in 32-bit words: the goldilocks product
+// as one 64-bit word (K1c), and K1d's signed comparisons by the p/2 rule,
 // booleans, masked bit ops, shifts, the widening of a narrow value and the
-// long division, over N = L/2 words of a field element.
+// long division, over N = L/2 words of a field element.  K1, KS and the
+// segment kernels K4 compute with them.
 //
-// Each equals, bit for bit, its 16-bit counterpart in wide.cuh (which K4
-// keeps) on every operand of L 16-bit limbs: both compute the same integer
-// function of the same 16L-bit value.
+// Each equals, bit for bit, its 16-bit counterpart in wide.cuh (kept as
+// the tests' host oracle) on every operand of L 16-bit limbs: both compute
+// the same integer function of the same 16L-bit value.
 // - Comparisons, nonzero tests and bit ops do not depend on the base; the
 //   conditional subtract (cond_sub32) takes p when its value is >= p, a
 //   decision on that value alone.
@@ -130,16 +131,22 @@ __device__ __forceinline__ void bnot32(const uint32_t (&x)[N],
 // or x >> count, count >= 0, by q = count / 32 words and r = count % 32
 // bits.  word(i) reads word i of x in place: the words an output word
 // takes depend on the count, which is the same in every lane (the table's
-// immediate), so each output word reads the two it needs.
-template <int N, bool LEFT, class Word>
+// immediate), so each output word reads the two it needs.  KEEP: the
+// result words to compute, a bit each, the others left unset (the segment
+// kernels K4 pass the words that are read later, so that a bit
+// decomposition's code holds a word a bit, not N; a left shift computes
+// them all for its conditional subtract).
+template <int N, bool LEFT, uint32_t KEEP = 0xFFFFFFFFu, class Word>
 __device__ __forceinline__ void shift32(Word word, int count,
                                         const uint32_t (&p)[N],
                                         const uint32_t (&mask)[N],
                                         uint32_t (&out)[N]) {
+  static_assert(!LEFT || KEEP == 0xFFFFFFFFu, "a left shift keeps all words");
   const int q = count / 32;
   const uint32_t r = (uint32_t)(count % 32);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
+    if (!((KEEP >> j) & 1u)) continue;
     // words lo = j -+ q and hi = lo -+ 1, 0 outside the value
     const int lo = LEFT ? j - q : j + q;
     const int hi = LEFT ? lo - 1 : lo + 1;

@@ -6,15 +6,15 @@ segment, each under `#if K4_SEG == s` (ops/build.py `build_generated`
 builds a library a segment from the same text, all in parallel: nvcc's
 time grows faster than linearly with a kernel's length).
 Each kernel is the segment's straight-line instructions for one lane a
-thread: operands are `Fe` values (L limbs in registers, indexed only by
-compile-time constants), constants are literals, and nothing dispatches
-on an opcode or indexes a register file at run time, which is what K4
-offers over the interpreter K1.  Every kernel takes the base pointers of
-the program's inputs, the witness and the crossing buffer; the row of
-each operand it loads and of each result it stores is a literal
-(SegmentedProgram._place: `src`, `dst`, `fill`).  The device arithmetic
-is field.cuh's and wide.cuh's, called as limb_emit's LimbEmitter.emit
-would compute each op; the results equal the plain version
+thread: operands are `F` values (N = L/2 32-bit words in registers,
+indexed only by compile-time constants), constants are word literals,
+and nothing dispatches on an opcode or indexes a register file at run
+time, which is what K4 offers over the interpreter K1.  Every kernel
+takes the base pointers of the program's inputs, the witness and the
+crossing buffer; the row of each operand it loads and of each result it
+stores is a literal (SegmentedProgram._place: `src`, `dst`, `fill`).
+The device arithmetic is the word arithmetic K1 and KS compute with
+(field32.cuh, dot32.cuh, wide32.cuh); the results equal the plain version
 (backend/segments.py `segment_ref`) bit for bit.  The generator handles
 every op of backend/plan.KERNEL_OPS but `idiv`, which the segmented
 backend refuses.
@@ -26,9 +26,9 @@ from ..field.primes import LIMB_BITS
 from .field import GOLDILOCKS_P
 
 # the ops a segment may hold: plan.KERNEL_OPS without idiv
-CMP = {"eq": "CMP_EQ", "neq": "CMP_NEQ", "lt": "CMP_LT", "le": "CMP_LE",
-       "gt": "CMP_GT", "ge": "CMP_GE", "land": "CMP_LAND",
-       "lor": "CMP_LOR"}
+CMP = {"eq": "WCMP_EQ", "neq": "WCMP_NEQ", "lt": "WCMP_LT", "le": "WCMP_LE",
+       "gt": "WCMP_GT", "ge": "WCMP_GE", "land": "WCMP_LAND",
+       "lor": "WCMP_LOR"}
 OPS = frozenset({"mul", "mulp", "add", "sub", "select", "lnot", "band",
                  "bor", "bxor", "bnot", "shl_k", "shr_k"} | set(CMP))
 THREADS = 128
@@ -41,109 +41,168 @@ HEADER = """\
 // (circom_tpu/backend/segments.py:242, body _make_kernel).  One thread
 // takes one lane of the batch: it loads the segment's operands where they
 // lie (rows of the inputs x, of the witness w that an earlier segment
-// wrote, or of the crossing buffer c, all (n, L, B)), runs the segment's
-// field ops straight through with every temporary in registers (`Fe`,
-// indexed by compile-time constants only) and constants as literals, and
-// stores each result to every witness row that names it, or to its
-// crossing row; the first kernel also writes the witness rows that are
-// constants or inputs.  Every row is a literal, so the host assembles
-// nothing: no stacked inputs or outputs, no copy of the witness.
-// Neighbouring threads take neighbouring lanes, so every limb row is one
-// coalesced line a warp.
+// wrote, or of the crossing buffer c, all (n, L, B) planes of 16-bit
+// limbs), runs the segment's field ops straight through with every
+// temporary in registers (`F`, indexed by compile-time constants only)
+// and constants as literals, and stores each result to every witness row
+// that names it, or to its crossing row; the first kernel also writes
+// the witness rows that are constants or inputs.  Every row is a literal,
+// so the host assembles nothing: no stacked inputs or outputs, no copy of
+// the witness.  Neighbouring threads take neighbouring lanes, so every
+// limb row is one coalesced line a warp.
+//
+// Words, not limbs: a value is N = L/2 32-bit words, packed from its two
+// limb rows a word once at each load and unpacked once at each store, as
+// K1 and KS do.  The card's 32x32->64
+// multiply-add gives the CIOS product in 2 N^2 word products (128 at L =
+// 16) where 16-bit limbs took 2 L^2 (512), each with a mask, a shift and
+// two adds; goldilocks' plain product is one 64x64-bit product folded
+// (gl_mul64).  R = 2^(16 L) = 2^(32 N), so the Montgomery values, and the
+// rows, are the 16-bit kernels' own.
 //
 // Bound on the card: a segment of shifts and bit ops (Num2Bits) does a
-// few 32-bit operations a limb and writes L * 4 bytes a stored row a
+// few 32-bit operations a word and writes L * 4 bytes a stored row a
 // lane, so it is bound by device-memory bytes (operands read once, results
-// written once to each of their rows); a segment of products does 2L^2
-// 32-bit multiplies a `mul` and is bound by the integer lane rate.  The
+// written once to each of their rows); a segment of products does 4 N^2
+// 32-bit instructions a `mul` and is bound by the integer lane rate.  The
 // design keeps the bytes at that minimum (no register file in memory,
 // unlike K1, and no stacked copy of a segment's inputs or outputs) and
 // keeps nvcc's time and the code small: the CIOS product, goldilocks'
-// folded product and the conditional subtract are __noinline__ functions
-// called per use, one product function per distinct constant multiplicand
-// (the compiler drops the constant's zero limbs), the cheap ops inline.
+// product and the bit ops' conditional subtract are __noinline__
+// functions called per use, one product function per distinct constant
+// multiplicand (the compiler drops the constant's zero words), the cheap
+// ops inline.
 //
-// Canonical results at every field: operands are canonical (< p < R =
-// 2^(16 L)); mul's CIOS leaves (x y + M p) / R < 2p and add/sub a value
-// below 2p, each subtracting p once; k4_cond_sub follows bor, bxor and
-// bnot, whose values have at most p.bit_length() bits, below 2p; shl_k
-// masks to those bits and subtracts once (wide.cuh).  No segment op is a
-// lazy dot.
+// Canonical results at every field: operands are canonical (< p < R).
+// mul's CIOS (mont_mul32) leaves (x y + M p) / R < (p^2 + R p) / R < 2p
+// and subtracts p once (cond_sub32); add (mod_add32) a + b < 2p and sub
+// (mod_sub32) a + p - b in [1, 2p), each less p once; bor, bxor (bitop32)
+// and bnot (bnot32) give at most p.bit_length() bits, below 2p, less p
+// once (reduce_once32); shl_k (shift32) masks to those bits and subtracts
+// once; shr_k of a canonical value is below it; gl_mul64 is canonical for
+// any 64-bit operands; comparisons and booleans are 0 or 1 (cmp32,
+// nonzero32), select and band by a constant no larger than an operand.
+// No segment op is a lazy dot.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "field.cuh"
-#include "wide.cuh"
+#include "dot32.cuh"
+#include "wide32.cuh"
 
 #pragma nv_diag_suppress 177  // a helper or constant a program does not use
 
 namespace {
 
-constexpr int L = %(L)d;
+constexpr int L = %(L)d;       // 16-bit limbs a row
+constexpr int N = L / 2;      // 32-bit words a value
 constexpr int THREADS = %(threads)d;
+constexpr uint32_t N0INV32 = %(n0inv32)du;  // -p^-1 mod 2^32
 
-__constant__ ctpu::FieldConsts FC = {{%(p)s}, {%(r2)s}, %(n0inv)du};
-__constant__ ctpu::WideConsts WC = {{%(half)s}, {%(mask)s}, {%(q)s},
-                                    %(bits)d};
+// p, p / 2 (the sign rule's pivot) and 2^bits - 1 as words: literals in
+// every function that uses them
+#define K4_P {%(p)s}
+#define K4_HALF {%(half)s}
+#define K4_MASK {%(mask)s}
 
-template <int N>
-struct Fe {
+struct F {
   uint32_t v[N];
 };
-using F = Fe<L>;
 
-template <int N>
-__device__ __noinline__ Fe<N> k4_mul(Fe<N> a, Fe<N> b) {
-  Fe<N> r;
-  ctpu::mont_mul<N>(a.v, b.v, r.v, FC);
+__device__ __noinline__ F k4_mul(F a, F b) {
+  const uint32_t p[N] = K4_P;
+  F r;
+  ctpu::mont_mul32<N>(a.v, b.v, p, N0INV32, r.v);
   return r;
 }
 
-template <int N>
-__device__ __noinline__ Fe<N> k4_cond_sub(Fe<N> a) {
-  ctpu::cond_sub<N>(a.v, 0, FC);
-  return a;
+// bor (OP 1), bxor (OP 2), each less p once
+template <int OP>
+__device__ __noinline__ F k4_bitop(F a, F b) {
+  const uint32_t p[N] = K4_P;
+  F r;
+  ctpu::bitop32<N, OP>(a.v, b.v, p, r.v);
+  return r;
 }
 
+__device__ __noinline__ F k4_bnot(F a) {
+  const uint32_t p[N] = K4_P, mask[N] = K4_MASK;
+  F r;
+  ctpu::bnot32<N>(a.v, mask, p, r.v);
+  return r;
+}
+
+// A row's limbs packed two a word on load and unpacked on store, as
+// field32.cuh's pack32 and unpack32 do, but each limb's address written
+// (row L + k) B with literal row and k: through pack32's row base and
+// stride, nvcc computed Num2Bits(254)'s 4,096 store addresses with 2,030
+// IMADs where this form takes 300, and 4 x Num2Bits(254) ran 3 %% slower
+// (H100 80GB HBM3, 700 W)
 __device__ __forceinline__ F ld(const uint32_t* x, long long row,
                                 long long B) {
   F r;
 #pragma unroll
-  for (int i = 0; i < L; ++i) r.v[i] = x[(row * L + i) * B];
+  for (int i = 0; i < N; ++i)
+    r.v[i] = x[(row * L + 2 * i) * B] | x[(row * L + 2 * i + 1) * B] << 16;
   return r;
 }
 
 __device__ __forceinline__ void st(uint32_t* x, long long row, long long B,
                                    const F& r) {
 #pragma unroll
-  for (int i = 0; i < L; ++i) x[(row * L + i) * B] = r.v[i];
+  for (int i = 0; i < N; ++i) {
+    x[(row * L + 2 * i) * B] = r.v[i] & ctpu::MASK;
+    x[(row * L + 2 * i + 1) * B] = r.v[i] >> ctpu::LIMB_BITS;
+  }
 }
+
+// word i of a value, for shift32: one type for every shift, so that nvcc
+// instantiates shift32 once a direction and KEEP, not once a call (a
+// lambda is a type of its own at each call)
+struct Words {
+  const uint32_t* v;
+  __device__ __forceinline__ uint32_t operator()(int i) const {
+    return v[i];
+  }
+};
 
 __device__ __forceinline__ F bit(bool b) {
   F r;
   r.v[0] = b ? 1u : 0u;
 #pragma unroll
-  for (int i = 1; i < L; ++i) r.v[i] = 0u;
+  for (int i = 1; i < N; ++i) r.v[i] = 0u;
   return r;
 }
 """
 
 GL_MUL = """
+__device__ __forceinline__ uint64_t u64(const F& a) {
+  return a.v[0] | (uint64_t)a.v[1] << 32;
+}
+
+__device__ __forceinline__ F of64(uint64_t r) {
+  return F{{(uint32_t)r, (uint32_t)(r >> 32)}};
+}
+
 __device__ __noinline__ F k4_gl_mul(F a, F b) {
-  F r;
-  ctpu::gl_mul(a.v, b.v, r.v, FC);
-  return r;
+  return of64(ctpu::gl_mul64(u64(a), u64(b)));
 }
 """
 
 CONST_MUL = """
-// a * %(value)s (the constant's limbs are literals: zero limbs fold away)
+// a * %(value)s (the constant's words are literals: zero words fold away)
 __device__ __noinline__ F %(name)s(F a) {
-  const uint32_t c[L] = {%(limbs)s};
+  const uint32_t p[N] = K4_P, c[N] = {%(words)s};
   F r;
-  %(call)s;
+  ctpu::mont_mul32<N>(a.v, c, p, N0INV32, r.v);
   return r;
+}
+"""
+
+CONST_GL_MUL = """
+// a * %(value)s mod p, goldilocks
+__device__ __noinline__ F %(name)s(F a) {
+  return of64(ctpu::gl_mul64(u64(a), %(value)sull));
 }
 """
 
@@ -157,6 +216,7 @@ k4_seg%(s)d(const uint32_t* __restrict__ x, uint32_t* __restrict__ w,
   x += lane;
   w += lane;
   c += lane;
+  const uint32_t P[N] = K4_P, HALF[N] = K4_HALF, MASK[N] = K4_MASK;
 %(body)s
 }
 """
@@ -179,8 +239,9 @@ def _lits(values):
     return ", ".join(f"{int(v)}u" for v in values)
 
 
-def _limbs_of(x, L):
-    return tuple((x >> (LIMB_BITS * i)) & 0xFFFF for i in range(L))
+def _words(x, N):
+    """x as N 32-bit words, the lowest first."""
+    return tuple((x >> (32 * i)) & 0xFFFFFFFF for i in range(N))
 
 
 def _value_of(limbs):
@@ -188,7 +249,7 @@ def _value_of(limbs):
 
 
 def _loop(stmt):
-    return f"#pragma unroll\nfor (int i = 0; i < L; ++i) {stmt}"
+    return f"#pragma unroll\nfor (int i = 0; i < N; ++i) {stmt}"
 
 
 class _Gen:
@@ -197,33 +258,31 @@ class _Gen:
 
     def __init__(self, field):
         self.field = field
-        self.L = field.L
+        self.N = field.L // 2
         self.goldilocks = field.p == GOLDILOCKS_P
-        self.const_fns = {}     # (kind, limbs) -> function name
+        self.const_fns = {}     # (kind, value) -> function name
         self.fn_text = []
 
-    def const_product(self, limbs, kind="mont"):
+    def const_product(self, value, kind="mont"):
         """Name of the __noinline__ function a -> a·c of one constant
-        operand c: the Montgomery product a·c·R^-1 ("mont") or
-        goldilocks' folded product a·c ("gl")."""
-        key = (kind, tuple(limbs))
+        operand c (an integer): the Montgomery product a·c·R^-1 ("mont")
+        or goldilocks' product a·c mod p ("gl")."""
+        key = (kind, value)
         name = self.const_fns.get(key)
         if name is None:
             name = self.const_fns[key] = f"k4_{kind}c{len(self.const_fns)}"
-            call = ("ctpu::gl_mul(a.v, c, r.v, FC)" if kind == "gl"
-                    else "ctpu::mont_mul<L>(a.v, c, r.v, FC)")
-            self.fn_text.append(CONST_MUL % {
-                "name": name, "limbs": _lits(limbs), "call": call,
-                "value": hex(_value_of(limbs))})
+            text = CONST_GL_MUL if kind == "gl" else CONST_MUL
+            self.fn_text.append(text % {
+                "name": name, "value": hex(value),
+                "words": _lits(_words(value, self.N))})
         return name
 
     def kernel(self, s, seg):
-        L = self.L
         f = self.field
+        need = _needed_words(seg, self.N)
         body = []
         out_var, rf_var = {}, {}
         loads, consts = {}, {}
-        need = _needed_limbs(seg, L)
 
         def load(buf, row):
             """The variable that holds a row of x, w or c, loaded once."""
@@ -233,12 +292,13 @@ class _Gen:
             return loads[buf, row]
 
         def operand(d):
-            """(C++ expression of an Fe, constant limbs or None)."""
+            """(C++ expression of an F, the constant's value or None)."""
             tag, v = d
             if tag == "const":
-                if v not in consts:
-                    consts[v] = f"k{len(consts)}"
-                return consts[v], v
+                value = _value_of(v)
+                if value not in consts:
+                    consts[value] = f"k{len(consts)}"
+                return consts[value], value
             if tag == "in":
                 return load(*seg.src[v]), None
             if tag == "out":
@@ -262,63 +322,59 @@ class _Gen:
                 if op == "mulp" and not self.goldilocks:
                     # a·b mod p: a Montgomery product, then · R^2; with a
                     # constant c one Montgomery product by c·R mod p
-                    r2 = self.const_product(f.r2_list)
                     if cb is not None:
-                        cr = _value_of(cb) * (1 << (LIMB_BITS * L)) % f.p
-                        expr = f"{self.const_product(_limbs_of(cr, L))}({a})"
+                        cr = (cb << (LIMB_BITS * f.L)) % f.p
+                        expr = f"{self.const_product(cr)}({a})"
                     else:
-                        expr = f"{r2}(k4_mul<L>({a}, {b}))"
+                        r2 = self.const_product(_value_of(f.r2_list))
+                        expr = f"{r2}(k4_mul({a}, {b}))"
                 elif cb is not None:
                     kind = "gl" if op == "mulp" else "mont"
                     expr = f"{self.const_product(cb, kind)}({a})"
                 elif op == "mulp":
                     expr = f"k4_gl_mul({a}, {b})"
                 else:
-                    expr = f"k4_mul<L>({a}, {b})"
+                    expr = f"k4_mul({a}, {b})"
                 body.append(f"const F {v} = {expr};")
             elif op in ("add", "sub"):
-                fn = "mod_add" if op == "add" else "mod_sub"
                 body.append(f"F {v};")
-                body.append(f"ctpu::{fn}<L>({a}.v, {b}.v, {v}.v, FC);")
+                body.append(f"ctpu::mod_{op}32<N>({a}.v, {b}.v, P, {v}.v);")
             elif op == "select":
-                c, (x, _), (y, _) = ops[0][0], ops[1], ops[2]
-                if ca is not None:          # a constant condition
-                    body.append(f"const F {v} = {x if any(ca) else y};")
-                else:
-                    body.append(f"F {v};")
-                    body.append("{")
-                    body.append(f"const bool t = ctpu::nonzero<L>({c}.v);")
-                    body.append(_loop(f"{v}.v[i] = t ? {x}.v[i] : {y}.v[i];"))
-                    body.append("}")
+                c, (x, _), (y, _) = a, ops[1], ops[2]
+                body.append(f"F {v};")
+                body.append("{")
+                body.append(f"const bool t = ctpu::nonzero32<N>({c}.v);")
+                body.append(_loop(f"{v}.v[i] = t ? {x}.v[i] : {y}.v[i];"))
+                body.append("}")
             elif op in CMP:
-                body.append(f"const F {v} = bit(ctpu::cmp_wide<L, "
-                            f"ctpu::{CMP[op]}>({a}.v, {b}.v, WC));")
+                body.append(f"const F {v} = bit(ctpu::cmp32<N, "
+                            f"ctpu::{CMP[op]}>({a}.v, {b}.v, HALF));")
             elif op == "lnot":
-                body.append(f"const F {v} = bit(!ctpu::nonzero<L>({a}.v));")
-            elif op == "band" and (ca or cb):
-                # a constant's zero limbs zero the result's (LimbEmitter
-                # ANDs the literal in; here the zero limbs are written)
-                (x, _), c = (ops[1], ca) if ca else (ops[0], cb)
+                body.append(f"const F {v} = bit(!ctpu::nonzero32<N>({a}.v));")
+            elif op == "band" and (ca is not None or cb is not None):
+                # a constant's zero words are the result's, written as
+                # literals: the other operand's may be unset (shift32's
+                # KEEP)
+                (x, _), c = (ops[1], ca) if ca is not None else (ops[0], cb)
                 body.append(f"F {v};")
-                body.extend(f"{v}.v[{i}] = {x}.v[{i}] & {c[i]}u;" if c[i]
-                            else f"{v}.v[{i}] = 0u;" for i in range(L))
-            elif op in ("band", "bor", "bxor"):
-                sym = {"band": "&", "bor": "|", "bxor": "^"}[op]
+                body.extend(f"{v}.v[{i}] = {x}.v[{i}] & {w}u;" if w
+                            else f"{v}.v[{i}] = 0u;"
+                            for i, w in enumerate(_words(c, self.N)))
+            elif op == "band":
                 body.append(f"F {v};")
-                body.append(_loop(f"{v}.v[i] = {a}.v[i] {sym} {b}.v[i];"))
-                if op != "band":
-                    body.append(f"{v} = k4_cond_sub<L>({v});")
+                body.append(f"ctpu::bitop32<N, 0>({a}.v, {b}.v, P, {v}.v);")
+            elif op in ("bor", "bxor"):
+                body.append(f"const F {v} = k4_bitop<"
+                            f"{1 if op == 'bor' else 2}>({a}, {b});")
             elif op == "bnot":
-                body.append(f"F {v};")
-                body.append(_loop(f"{v}.v[i] = {a}.v[i] ^ WC.mask[i];"))
-                body.append(f"{v} = k4_cond_sub<L>({v});")
+                body.append(f"const F {v} = k4_bnot({a});")
             else:                           # shl_k, shr_k: a static count
-                args = "L, true" if op == "shl_k" else (
-                    "L, false" if need[j] == (1 << L) - 1
-                    else f"L, false, {need[j]:#x}u")
+                args = "N, true" if op == "shl_k" else (
+                    "N, false" if need[j] == (1 << self.N) - 1
+                    else f"N, false, {need[j]:#x}u")
                 body.append(f"F {v};")
-                body.append(f"ctpu::shift_w<{args}>({a}.v, 1, {int(imm)}, "
-                            f"{v}.v, FC, WC);")
+                body.append(f"ctpu::shift32<{args}>(Words{{{a}.v}}, "
+                            f"{int(imm)}, P, MASK, {v}.v);")
             if out_row is not None:
                 out_var[out_row] = v
                 body.extend(f"st({buf}, {row}, B, {v});"
@@ -326,7 +382,7 @@ class _Gen:
             if rf_slot is not None:
                 rf_var[rf_slot] = v
         used = set(re.findall(r"\bk\d+\b", "\n".join(body)))
-        decls = [f"const F {name} = {{{{{_lits(v)}}}}};"
+        decls = [f"const F {name} = {{{{{_lits(_words(v, self.N))}}}}};"
                  for v, name in consts.items() if name in used]
         text = "\n".join("  " + line.replace("\n", "\n  ")
                          for line in decls + body)
@@ -336,14 +392,14 @@ class _Gen:
                            "n_out": len(seg.dst)})
 
 
-def _needed_limbs(seg, L):
-    """The result limbs of each instruction that are read later, as a bit
+def _needed_words(seg, N):
+    """The result words of each instruction that are read later, as a bit
     mask: all of a stored output's; of a value that only a constant `band`
-    reads, the constant's nonzero limbs; of a value that a right shift
-    reads, the limbs behind the shift's needed ones.  The right shifts
-    compute only these (shift_w's KEEP), so the code of a bit
-    decomposition holds one limb a bit, not L."""
-    full = (1 << L) - 1
+    reads, the constant's nonzero words; of a value that a right shift
+    reads, the words behind the shift's needed ones.  The right shifts
+    compute only these (shift32's KEEP), so the code of a bit
+    decomposition holds one word a bit, not N."""
+    full = (1 << N) - 1
     producer, out_of, rf_of = [], {}, {}
     for j, (_op, descs, _imm, out_row, rf_slot) in enumerate(seg.instrs):
         producer.append([out_of.get(d[1]) if d[0] == "out" else
@@ -356,16 +412,17 @@ def _needed_limbs(seg, L):
     need = [full if ins[3] is not None else 0 for ins in seg.instrs]
     for k in range(len(seg.instrs) - 1, -1, -1):
         op, descs, imm, _out_row, _rf = seg.instrs[k]
-        consts = [d[1] for d in descs if d[0] == "const"]
+        consts = [_value_of(d[1]) for d in descs if d[0] == "const"]
         for j in producer[k]:
             if j is None:
                 continue
             if op == "band" and consts:
-                m = sum(1 << i for i, c in enumerate(consts[0]) if c)
+                m = sum(1 << i for i, w in enumerate(_words(consts[0], N))
+                        if w)
                 need[j] |= m & need[k]
             elif op == "shr_k":
-                q, r = divmod(int(imm), LIMB_BITS)
-                for i in range(L):
+                q, r = divmod(int(imm), 32)
+                for i in range(N):
                     if need[k] >> i & 1:
                         need[j] |= (1 << (i + q)) | ((1 << (i + q + 1))
                                                      if r else 0)
@@ -379,17 +436,18 @@ def generate(segments, field):
     """CUDA C++ source of K4 for a program's placed segments
     (SegmentedProgram.kernels) over one field (TorchField): one kernel and
     one entry point ctpu_k4_seg<s> each."""
-    if field.L > 16:
-        raise ValueError(f"K4 takes fields of at most 16 limbs (wide.cuh's "
-                         f"MAX_L), not {field.L}")
+    if field.L % 2:
+        raise ValueError(f"K4 packs pairs of 16-bit limbs into 32-bit "
+                         f"words: it takes an even number of limbs, not "
+                         f"{field.L}")
     gen = _Gen(field)
     kernels = [gen.kernel(s, seg) for s, seg in enumerate(segments)]
-    f = field
+    f, N = field, field.L // 2
+    bits = f.p.bit_length()
     prelude = HEADER % {
-        "L": f.L, "threads": THREADS, "p": _lits(f.p_list),
-        "r2": _lits(f.r2_list), "n0inv": f.n0inv,
-        "half": _lits(f.half_list), "mask": _lits(f.mask_list),
-        "q": _lits(f.q_list), "bits": f.p.bit_length()}
+        "L": f.L, "threads": THREADS, "n0inv32": f.n0inv32,
+        "p": _lits(_words(f.p, N)), "half": _lits(_words(f.p // 2, N)),
+        "mask": _lits(_words((1 << bits) - 1, N))}
     if gen.goldilocks:
         prelude += GL_MUL
     return (prelude + "".join(gen.fn_text) + "\n}  // namespace\n"

@@ -44,7 +44,8 @@ from circom_tpu_torch.convert import (K1C_OPCODES, K1D_OPCODES,
                                       input_rows, narrow_unit_arrays,
                                       plan_from_arrays, to_device,
                                       unit_arrays, unit_inputs)
-from circom_tpu_torch.field.primes import LIMB_BITS, FieldSpec, field_spec
+from circom_tpu_torch.field.primes import (LIMB_BITS, PRIMES, FieldSpec,
+                                         field_spec)
 from circom_tpu_torch.ops import build
 from circom_tpu_torch.ops import field_kernels as fk
 from circom_tpu_torch.ops.field import TorchField, as_i64, mont_edge_values
@@ -713,7 +714,7 @@ def k4_against_plain(prog, x):
     assert not bool((got[0].view(torch.int32) == UNWRITTEN).any())
 
 
-@pytest.mark.parametrize("prime", ["bn128", "goldilocks"])
+@pytest.mark.parametrize("prime", list(PRIMES))
 def test_k4_op_circuit_matches_plain(card, prime):
     """Every op of the segmented backend (constants with zero limbs,
     shift counts 0, 1, 15, 16, 17, bits - 1) on edge operands, at a

@@ -3,7 +3,7 @@ dot32.cuh's mod_sub32), on the CPU.
 
 The headers are plain C++ on 32- and 64-bit integers, so g++ builds them
 for the host here, beside their 16-bit versions in field.cuh and wide.cuh
-(which the kernel K4 keeps), through the CUDA-qualifier shim of
+(kept as these host oracles), through the CUDA-qualifier shim of
 test_torch_segments.py.  Each word version takes the operands packed two
 16-bit limbs a word (pack32) and its result is unpacked again, so it is
 compared limb for limb with its 16-bit version and with the plain PyTorch
