@@ -29,12 +29,18 @@ mismatch exits non-zero.  The paths:
   against its plain executor on a slice; and, at the end of the smoke,
   Poseidon2 at the eight fields, batch 65,536 (K1, whose lazy dots
   subtract p up to three times at secq256r1, K2, KC: the same checks),
-  MerkleInclusion(32) at secq256r1 and bls12381, batch 16,384 (K1a-K1d
-  in one launch, KW, KC; sampled lanes against the host and the native
-  calculator), and KS on the scan tapes of circuits/sources.ks_tapes()
-  at the eight fields, batch 8,192 (one launch a run, bit for bit
-  against the step loop on the card; at goldilocks each tape's run and
-  R1CS check timed end to end);
+  MerkleInclusion(32) at goldilocks, secq256r1 and bls12381, batch
+  16,384 (K1a-K1d in one launch, KW, KC; sampled lanes against the host
+  and the native calculator; run_mixed, K1, K3 and K2, equal to run on
+  every lane), SHA256 through the mixed path at the same three fields
+  (phase P8n: run_mixed at 65,536, K1's narrow lane and K3, every digest
+  against hashlib, K1 and K3 against their plain versions; the full-limb
+  run and R1CS check at 8,192, K1, KW, KC, sampled lanes against the
+  host and the native calculator, run_mixed's rows widened equal to
+  run's), and KS on the scan tapes of circuits/sources.ks_tapes() at the
+  eight fields, batch 8,192 (one launch a run, bit for bit against the
+  step loop on the card; at goldilocks each tape's run and R1CS check
+  timed end to end);
 - Num2Bits(254) and 4 x Num2Bits(254) over bn128, batch 65,536, which
   the interpreter refuses: run on the segments (K4, one and four
   segments, each writing its rows of the witness in place) and R1CS
@@ -63,8 +69,10 @@ mismatch exits non-zero.  The paths:
   for its wide rows and pathIndex bits): run and R1CS check, sampled
   lanes against the host and the native calculator;
 - the compile CLI (python -m circom_tpu_torch.cli --witness-gpu) on both
-  circuits and on bigint-div + Num2Bits(254) (the scan), and with --prime
-  secq256r1 on Poseidon2 (its .wtns against the host calculator's), each
+  circuits and on bigint-div + Num2Bits(254) (the scan), with --prime
+  secq256r1 on Poseidon2, and with --prime goldilocks on Poseidon2 and
+  MerkleInclusion(2) (phase CLg; each .wtns against the native and the
+  host calculator's), each
   circuit's witness step also in this process (K2, KW or one KS launch,
   and the check), and the native calculator's witnesses/s on this host
   beside the card's (the CPU baseline);
@@ -137,7 +145,7 @@ try:
     from circom_tpu_torch.backend.interp import (gather_n, gather_w,
                                                  interp_k1, k1_plain,
                                                  launch_gather_n,
-                                                 launch_gather_w,
+                                                 launch_gather_w, launch_k1,
                                                  narrow_inputs, split_inputs)
     from circom_tpu_torch.backend.interp_ref import gather_n_rows, gather_rows
     from circom_tpu_torch.backend.ks import KS_WIDTHS, launch_scan
@@ -178,7 +186,7 @@ try:
                                             as_u32, mont_edge_values)
     from circom_tpu_torch.ops.limbs import (int_to_limbs, ints_to_limbs,
                                             limbs_to_int)
-    from circom_tpu_torch.ops.narrow import NARROW_OPS
+    from circom_tpu_torch.ops.narrow import NARROW_OPS, widen_narrow
     from circom_tpu_torch.parallel.mesh import (make_mesh, shard_checker,
                                                 shard_program)
     from circom_tpu_torch.utils.profiling import (profile_breakdown,
@@ -1176,7 +1184,7 @@ def phase_primes(paths, dev, B, b_k1, circuit):
     return out
 
 
-P8_MERKLE_PRIMES = ("secq256r1", "bls12381")
+P8_MERKLE_PRIMES = ("goldilocks", "secq256r1", "bls12381")
 P8_MK_HOST_LANES = 2    # the host calculator takes ~3 s a Merkle(32) lane
 P8_KS_LANES = 8192
 # KS's tapes whose second input divides: lane 1 divides by 0
@@ -1187,11 +1195,14 @@ CL_PRIME_WITNESSES = 16
 
 def phase_merkle_primes(paths, dev, B, rehearse):
     """Phase P8, MerkleInclusion(32) (K1a-K1d in one K1 launch, then KW)
-    at secq256r1 and bls12381, B lanes (random pathIndex bits a lane)
-    through witness_path: run, the R1CS check of every lane (path
-    p8m_<field>), P8_MK_HOST_LANES sampled lanes against the host
-    calculator and SAMPLE_LANES against the native calculator; K1's
-    wrapper timed at B.  A CPU rehearsal runs MerkleInclusion(4)."""
+    at goldilocks (L = 4), secq256r1 and bls12381, B lanes (random
+    pathIndex bits a lane) through witness_path: run, the R1CS check of
+    every lane (path p8m_<field>), P8_MK_HOST_LANES sampled lanes against
+    the host calculator and SAMPLE_LANES against the native calculator;
+    then run_mixed at B lanes (mixed_equals_run, path p8m_<field>_mixed:
+    K1, K3 for the pathIndex bits, K2 or KW's wide table for the wide
+    rows), equal to run's rows on every lane; K1's wrapper timed at B.  A
+    CPU rehearsal runs MerkleInclusion(4)."""
     out = {}
     depth = 4 if rehearse else 32
     for k, prime in enumerate(P8_MERKLE_PRIMES):
@@ -1208,17 +1219,211 @@ def phase_merkle_primes(paths, dev, B, rehearse):
                          native=NativeCalculator(tape, spec,
                                                  input_ranges=hints),
                          rehearse=rehearse)
+        mixed_ms = mixed_equals_run(paths, f"p8m_{prime}_mixed", prog, x)
         k1_ms = time_ms(lambda: interp_k1(plan, f, x), reps=3)
         say(f"  MerkleInclusion({depth})/{prime} (L = {spec.n_limbs}, "
             f"{plan.n_steps} steps, parts {', '.join(plan.parts)}): {B} "
             f"lanes, run {t['run_ms']:.2f} ms, check {t['check_ms']:.3f} "
-            f"ms (median of {CHECK_RUNS}); K1 {k1_ms:.4f} ms (wrapper, "
-            f"mean of 3); {CARD}")
+            f"ms (median of {CHECK_RUNS}); run_mixed {mixed_ms:.2f} ms "
+            f"(first); K1 {k1_ms:.4f} ms (wrapper, mean of 3); {CARD}")
         out[prime] = {"L": spec.n_limbs, "lanes": B, "run_ms": t["run_ms"],
-                      "check_ms": t["check_ms"], "k1_ms": k1_ms}
+                      "check_ms": t["check_ms"], "mixed_ms": mixed_ms,
+                      "k1_ms": k1_ms}
         del prog, x
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return out
+
+
+def mixed_kernels(prog):
+    """The launches of one run_mixed of an interpreter program, each
+    once: K1's parts, K3 where it has narrow rows, and for its wide rows
+    K2 where they are bank rows, else KW's wide table (as interp_kernels
+    names them in a trace)."""
+    want = {p: 1 for p in prog.interp.plan.parts or ("interp_k1a",)}
+    for kernel in interp_kernels(prog, True):
+        if kernel != "interp_k1":
+            want[kernel] = 1
+    return want
+
+
+def mixed_equals_run(paths, path, prog, x, x_mixed=None):
+    """run_mixed on the input rows x_mixed (x where not given), its
+    launches counted around exactly it as `path`: mixed_kernels(prog)
+    exactly, K5, K6 never; then run on the full-limb rows x, and
+    run_mixed's wide rows and its narrow rows widened (ops/narrow
+    .widen_narrow, a negative int32 p - |v| over every limb) equal run's
+    rows of mixed_layout() on every lane, a slice of rows at a time.
+    Returns run_mixed's ms (its first run)."""
+    dev, spec = prog.device, prog.spec
+    want = mixed_kernels(prog)
+    xm = x if x_mixed is None else x_mixed
+    (narrow, wide), ms = wall_ms(lambda: paths.run(
+        path, lambda: prog.run_mixed(xm), tuple(want), K5_K6))
+    if dev.type == "cuda" and paths.counts[path] != want:
+        raise SystemExit(f"FAIL {path}: run_mixed launched "
+                         f"{paths.counts[path]}, not {want}")
+    wit = prog.run(x)
+    n_idx, w_idx = (torch.as_tensor(i, dtype=torch.int64, device=dev)
+                    for i in prog.mixed_layout())
+    step = 1024
+    for s in range(0, len(w_idx), step):
+        if not same_witness(wide[s:s + step],
+                            wit.index_select(0, w_idx[s:s + step])):
+            raise SystemExit(f"FAIL {path}: run_mixed's wide rows "
+                             f"{s}-{s + step} differ from run's")
+    for s in range(0, len(n_idx), step):
+        if not same_witness(widen_narrow(narrow[s:s + step], spec.p,
+                                         spec.n_limbs),
+                            wit.index_select(0, n_idx[s:s + step])):
+            raise SystemExit(f"FAIL {path}: run_mixed's narrow rows "
+                             f"{s}-{s + step}, widened, differ from run's")
+    say(f"  {path}: run_mixed launched {paths.counts[path]}; its "
+        f"{len(w_idx)} wide rows and {len(n_idx)} narrow rows (widened) "
+        f"equal run's on all {x.shape[-1]} lanes")
+    return ms
+
+
+# phase P8n: SHA256 through the mixed path at the fields that take K1
+# instantiations no other phase gives a narrow plan: goldilocks' <4,
+# true, true> and the counted dots' <16, false, true>
+P8N_PRIMES = ("goldilocks", "secq256r1", "bls12381")
+P8N_HOST_LANES = 2      # the host calculator takes ~4 s a SHA256 lane
+
+
+def phase_sha_primes(paths, rep, dev, B, b_full, b_k1, rehearse):
+    """Phase P8n: SHA256 (one block) through the mixed path at each field
+    of P8N_PRIMES, compiled and planned at that field:
+    - run_mixed at B lanes (path p8n_<field>_mixed): K1, whose narrow
+      lane (K1b) runs every step, and K3, once each and nothing else (no
+      wide row: no K2 or KW); every lane's digest against hashlib; the
+      run's median, peak and traced device operations (interp_run); K1
+      against its plain executor on every emitted narrow row of a slice
+      of b_k1 lanes; K3 against gather_n_rows on every lane; both timed
+      around their bare launches;
+    - run at b_full lanes and the R1CS check (witness_path, path
+      p8n_<field>: K1, KW, KC): every lane passing, P8N_HOST_LANES lanes
+      against the host calculator, SAMPLE_LANES against the native one,
+      the run traced; every lane's digest; run_mixed's rows at those
+      lanes, widened, equal to run's (mixed_equals_run, path
+      p8n_<field>_rows).
+    The times go into the kernels line's interp_k1b and gather_n rows
+    under "p8n".  Returns each field's numbers."""
+    out = {}
+    for k, prime in enumerate(P8N_PRIMES):
+        t_phase = time.perf_counter()
+        spec = field_spec(prime)
+        cc = compile_source(bench_gpu.sha256_source(), prime=prime)
+        tape, _ = cc.build_tape()
+        prog = WitnessProgram(tape, spec, device=dev,
+                              input_ranges=cc.input_range_hints())
+        build_s = time.perf_counter() - t_phase
+        plan, f = prog.interp.plan, prog.field
+        label = f"SHA256/{prime}"
+        n_idx, w_idx = prog.mixed_layout()
+        if w_idx or plan.win_order or n_idx != list(range(prog.n_witness)):
+            raise SystemExit(f"FAIL P8n {label}: the plan is not all narrow")
+        say(f"  {label} (L = {spec.n_limbs}; compiled and planned in "
+            f"{build_s:.1f} s: {plan.n_steps} steps, parts "
+            f"{', '.join(plan.parts)}, {prog.n_witness} witness rows)")
+        msgs = sha256_messages(B, SEED + 80 + k)
+        x = to_device(sha256_io.input_rows(msgs), dev)
+        path = f"p8n_{prime}_mixed"
+        want = mixed_kernels(prog)
+        narrow, wide = paths.run(path, lambda: prog.run_mixed(x),
+                                 tuple(want), K5_K6)
+        if dev.type == "cuda" and paths.counts[path] != want:
+            raise SystemExit(f"FAIL P8n {label}: run_mixed launched "
+                             f"{paths.counts[path]}, not {want}")
+        got = sha256_io.digest_bits_from_witness(narrow, (n_idx, w_idx))
+        n_bad = int((got != to_device(sha256_io.digest_bits_batch(msgs),
+                                      dev)).any(dim=0).sum())
+        if n_bad or wide.shape[0]:
+            raise SystemExit(f"FAIL P8n {label}: {n_bad} of {B} digests "
+                             f"differ from hashlib's ({wide.shape[0]} wide "
+                             "rows)")
+        say(f"  {label}: run_mixed, all {B} digests equal hashlib's")
+        del narrow, wide, got
+        mixed = interp_run(prog, x, f"P8n {label} mixed", rehearse,
+                           mixed=True)
+        # K1 against its plain executor on a slice, K3 against its plain
+        # version on every lane, each timed around its bare launch
+        rows_n = torch.as_tensor(plan.emitted_rows(narrow=True), device=dev)
+        xs = x[..., :b_k1].contiguous()
+        _, got_n = interp_k1(plan, f, xs)
+        (_, want_n), k1_plain_ms = wall_ms(
+            lambda: k1_plain(plan, f, *split_inputs(plan, xs)))
+        err_k1 = max_abs_err(got_n[rows_n], want_n[rows_n])
+        del got_n, want_n
+        k1_ms = time_ms(bare(dev, lambda: launch_k1(plan, f, x),
+                             lambda: interp_k1(plan, f, x)), reps=3)
+        _, bank_n = interp_k1(plan, f, x)
+        order, src, shift = (plan.dev[n] for n in ("nin_order", "nw_src",
+                                                   "nw_shift"))
+        got = gather_n(bank_n, x, order, src, shift)
+        k3_ms = time_ms(bare(dev, lambda: launch_gather_n(
+            bank_n, x, order, src, shift, got),
+            lambda: gather_n(bank_n, x, order, src, shift)))
+        want_g, k3_plain_ms = wall_ms(lambda: gather_n_rows(
+            bank_n, narrow_inputs(x, order), src, shift))
+        err_k3 = max_abs_err(got, want_g)
+        del got, want_g, bank_n
+        if err_k1 or err_k3:
+            raise SystemExit(f"FAIL P8n {label}: K1 (max abs err {err_k1} "
+                             f"on {b_k1} lanes) or K3 ({err_k3}) differs "
+                             "from its plain version")
+        say(f"  {label}: K1 equals its plain executor on {len(rows_n)} "
+            f"emitted narrow rows of {xs.shape[-1]} lanes, K3 gather_n_rows "
+            f"on all {B}; K1 {k1_ms:.4f} ms, K3 {k3_ms:.4f} ms (bare; "
+            f"plain {k1_plain_ms:.1f} ms at {xs.shape[-1]} lanes, "
+            f"{k3_plain_ms:.2f} ms)")
+        del x, xs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # the full-limb run and the check at b_full lanes
+        msgs = sha256_messages(b_full, SEED + 90 + k)
+        xf = to_device(sha256_io.input_rows(msgs, spec.n_limbs), dev)
+        hints = cc.input_range_hints()
+        t = witness_path(paths, f"p8n_{prime}", cc, prog, xf,
+                         must_launch(prog), lambda ins: {"in": ins},
+                         never=never_launch(prog), n_lanes=P8N_HOST_LANES,
+                         native=NativeCalculator(tape, spec,
+                                                 input_ranges=hints),
+                         trace=f"P8n {label} full", rehearse=rehearse)
+        wit = prog.run(xf)
+        bits = wit[1:257, 0].view(torch.int32)
+        n_bad = int((bits != to_device(sha256_io.digest_bits_batch(msgs),
+                                       dev)).any(dim=0).sum())
+        del wit, bits
+        if n_bad:
+            raise SystemExit(f"FAIL P8n {label}: {n_bad} of {b_full} "
+                             "digests of run differ from hashlib's")
+        say(f"  {label}: run, all {b_full} digests equal hashlib's")
+        mixed_equals_run(paths, f"p8n_{prime}_rows", prog, xf,
+                         to_device(sha256_io.input_rows(msgs), dev))
+        del xf
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t_phase = time.perf_counter() - t_phase
+        row = {"L": spec.n_limbs, "mixed_ms": mixed["median_ms"],
+               "mixed_peak_gib": mixed["peak_gib"],
+               "mixed_idle": mixed.get("idle"),
+               "run_ms": t["trace"]["median_ms"],
+               "run_peak_gib": t["trace"]["peak_gib"],
+               "check_ms": t["check_ms"], "k1_ms": k1_ms, "k3_ms": k3_ms,
+               "k1_plain_ms": k1_plain_ms, "k3_plain_ms": k3_plain_ms,
+               "build_s": build_s, "phase_s": t_phase}
+        say(f"  {label}: run_mixed at {B} {row['mixed_ms']:.3f} ms (median "
+            f"of 10, peak {row['mixed_peak_gib']:.3f} GiB); run at {b_full} "
+            f"{row['run_ms']:.3f} ms (median of 10, peak "
+            f"{row['run_peak_gib']:.3f} GiB), check {row['check_ms']:.3f} ms "
+            f"(median of {CHECK_RUNS}); K1 {k1_ms:.4f} ms, K3 {k3_ms:.4f} ms "
+            f"(bare); {t_phase:.1f} s; {CARD}")
+        for name, ms in (("interp_k1b", k1_ms), ("gather_n", k3_ms)):
+            if name in rep.rows:
+                rep.rows[name].setdefault("p8n", {})[prime] = ms
+        out[prime] = row
+        del cc, tape, prog
     return out
 
 
@@ -1588,7 +1793,10 @@ def segment_run(prog, x, label, rehearse, runs=10, trace=True):
 # records came late in long processes and then in every pass (3 of S's
 # 20 K4 records after ~470 s of smoke on an H100, none in other
 # processes), as a drift of the card's timestamps against the host's
-# would drop the runs nearest an edge: 0.1 s keeps them 100 ms inside
+# would drop the runs nearest an edge: 0.1 s keeps them 100 ms inside,
+# and each pass made again pads three times as long as the one before (4
+# of S's 20 records were dropped in five passes at 0.1 s each, ~490 s
+# into a smoke)
 TRACED_RUNS = 20
 TRACE_PAD = 0.1
 TRACE_TRIES = 5
@@ -1605,15 +1813,16 @@ def traced_ops(fn, median, label, want, short, launches):
     S's 20 K4 records in one pass; 1 of MK's 20 K1 and then of its 20 KW
     in two passes running); so where the launch counts are exact and
     the trace holds only the path's kernels but fewer of them than were
-    launched, the pass is made again, up to TRACE_TRIES passes, and fails
-    if none records every launch.  A foreign operation, a kernel recorded
-    more often than launched, or launch counts off their mark fail at
-    once."""
+    launched, the pass is made again with three times the pad, up to
+    TRACE_TRIES passes, and fails if none records every launch.  A
+    foreign operation, a kernel recorded more often than launched, or
+    launch counts off their mark fail at once."""
     for attempt in range(1, TRACE_TRIES + 1):
         sync_all()
         before = Counter(build.LAUNCHES)
+        pad = TRACE_PAD * 3 ** (attempt - 1)
         profile = profile_breakdown(fn, median, reps=1, runs=TRACED_RUNS,
-                                    pad=TRACE_PAD)
+                                    pad=pad)
         launched = dict(Counter(build.LAUNCHES) - before)
         got = {}
         for k, (n, _t) in profile[3].items():
@@ -1631,8 +1840,8 @@ def traced_ops(fn, median, label, want, short, launches):
                 f"{passes} runs: {launched}; pass {attempt} of "
                 f"{TRACE_TRIES})")
         say(f"  {label}: the profiler recorded {got} a run of the {want} "
-            f"that the launch counts show ({launched} in {passes} runs); "
-            "tracing again")
+            f"that the launch counts show ({launched} in {passes} runs, "
+            f"{pad:g} s pads); tracing again")
 
 
 # K1, KW, K2 and K3 by the names of their kernels in a profiler trace
@@ -2349,13 +2558,28 @@ def phase_ks(rep, tape, dev, b_q, b_qs, b_div, rehearse):
     return res
 
 
+def lane_ints(a):
+    """uint32 limb rows (rows, L, lanes), numpy -> each lane's ints, row r
+    the sum of limb i << 16 i (limbs_to_int's value for 16-bit limbs,
+    exact for any limb): the even limbs and the odd ones each read as one
+    little-endian integer of 32-bit words, a row at a time (limbs_to_int
+    a value took ~20 s for 64 lanes of SHA256's 27,369 rows)."""
+    rows, L, _ = a.shape
+    ne, no = 4 * ((L + 1) // 2), 4 * (L // 2)
+    out = []
+    for lane in np.ascontiguousarray(a.transpose(2, 0, 1), dtype="<u4"):
+        ev, od = lane[:, 0::2].tobytes(), lane[:, 1::2].tobytes()
+        out.append([int.from_bytes(ev[r * ne:(r + 1) * ne], "little")
+                    + (int.from_bytes(od[r * no:(r + 1) * no], "little")
+                       << 16) for r in range(rows)])
+    return out
+
+
 def lane_values(wit, x, lanes):
     """(each lane's input ints, each lane's witness ints) of `lanes`."""
     sel = torch.as_tensor(lanes, device=wit.device)
-    w_np, x_np = (t.view(torch.int32).index_select(2, sel).cpu().numpy()
-                  .view(np.uint32) for t in (wit, x))
-    return ([[limbs_to_int(a[i, :, j]) for i in range(a.shape[0])]
-             for j in range(len(lanes))] for a in (x_np, w_np))
+    return (lane_ints(t.view(torch.int32).index_select(2, sel).cpu().numpy()
+                      .view(np.uint32)) for t in (x, wit))
 
 
 def check_host_lanes(cc, ins, got, lanes, host_map, label):
@@ -2635,56 +2859,84 @@ def phase_cli(paths, runs, device, n):
     return check_ms
 
 
-def phase_cli_prime(paths, device, n, prime=CL_PRIME):
+# phase CL at another field: name -> (file name, source at a field)
+CL_PRIME_CIRCUITS = {"Poseidon2": ("pos", poseidon2_source),
+                     "MerkleInclusion(2)": ("merkle2",
+                                            lambda _p: merkle_source(2))}
+
+
+def phase_cli_prime(paths, device, n, prime=CL_PRIME,
+                    circuits=("Poseidon2",)):
     """Phase CL at another field: `python -m circom_tpu_torch.cli` with
-    --prime <prime> --witness-gpu on Poseidon2 (P's circuit at the field,
-    on the interpreter, whose lazy dots subtract p up to three times at
-    secq256r1), n witnesses, the edge pairs first: exit 0 (its R1CS check
-    at the default --sanity_check 2 passing) and every .wtns equal to
-    write_wtns of the host calculator's witness; then its witness step in
-    this process (cli_witness_run, path cli_pos_<prime>_run) against the
-    native calculator.  Returns the CLI's ms."""
+    --prime <prime> --sanity_check 2 --witness-gpu on each of `circuits`
+    (CL_PRIME_CIRCUITS: Poseidon2, P's circuit at the field, whose lazy
+    dots subtract p up to three times at secq256r1; MerkleInclusion(2),
+    K1a-K1d and KW, its pathIndex bits range-hinted), n witnesses, the
+    edge values (0, 1, p - 1, p // 2) first: exit 0 (its R1CS check of
+    every witness passing) and every .wtns equal to write_wtns of the
+    native calculator's witness and of the host calculator's; then each
+    circuit's witness step in this process (cli_witness_run, path
+    cli_<file>_<prime>_run) against the native calculator.  Returns the
+    CLI's ms a circuit."""
     spec = field_spec(prime)
     p = spec.p
+    edges = [0, 1, p - 1, p // 2]
     rng = random.Random(SEED + 19)
-    rows = [[0, 0], [1, p - 1], [p - 1, p - 1], [p // 2, p // 2 + 1]][:n]
-    rows += [[rng.randrange(p), rng.randrange(p)] for _ in range(n - 4)]
-    src = poseidon2_source(prime)
-    cc = compile_source(src, prime=prime)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        circ = os.path.join(tmp, "pos.circom")
-        with open(circ, "w") as fh:
-            fh.write(src)
-        inp = os.path.join(tmp, "inputs.json")
-        with open(inp, "w") as fh:
-            json.dump([{"inputs": r} for r in rows], fh)
-        out = os.path.join(tmp, "out")
-        r, ms = wall_ms(lambda: subprocess.run(
-            [sys.executable, "-m", "circom_tpu_torch.cli", circ, "--prime",
-             prime, "-o", out, "--witness-gpu", inp, "--device", device],
-            cwd=ROOT, capture_output=True, text=True, timeout=900))
-        if r.returncode != 0:
-            raise SystemExit(f"FAIL CLI --prime {prime} on Poseidon2 (exit "
-                             f"{r.returncode}):\n{r.stdout}\n{r.stderr}")
-        ref = os.path.join(tmp, "ref.wtns")
-        for bi, row in enumerate(rows):
-            write_wtns(ref, cc.p, list(cc.witness_host({"inputs": row})))
-            with open(ref, "rb") as a, \
-                    open(os.path.join(out, f"pos.{bi}.wtns"), "rb") as b:
-                if a.read() != b.read():
+    out = {}
+    for circuit in circuits:
+        name, source = CL_PRIME_CIRCUITS[circuit]
+        src = source(prime)
+        cc = compile_source(src, prime=prime)
+        tape, layout = cc.build_tape()
+        hints = cc.input_range_hints()
+        to_map = input_map(layout)
+        rows = [random_row(rng, p, hints, tape.n_inputs) for _ in range(n)]
+        for j, row in enumerate(rows[:len(edges)]):
+            for i in range(len(row)):
+                if i not in hints:
+                    row[i] = edges[(i + j) % len(edges)]
+        nat = NativeCalculator(tape, spec, input_ranges=hints).run(rows)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            circ = os.path.join(tmp, f"{name}.circom")
+            with open(circ, "w") as fh:
+                fh.write(src)
+            inp = os.path.join(tmp, "inputs.json")
+            with open(inp, "w") as fh:
+                json.dump([to_map(r) for r in rows], fh)
+            res = os.path.join(tmp, "out")
+            r, ms = wall_ms(lambda: subprocess.run(
+                [sys.executable, "-m", "circom_tpu_torch.cli", circ,
+                 "--prime", prime, "--sanity_check", "2", "-o", res,
+                 "--witness-gpu", inp, "--device", device],
+                cwd=ROOT, capture_output=True, text=True, timeout=900))
+            if r.returncode != 0:
+                raise SystemExit(f"FAIL CLI --prime {prime} on {circuit} "
+                                 f"(exit {r.returncode}):\n{r.stdout}\n"
+                                 f"{r.stderr}")
+            ref = os.path.join(tmp, "ref.wtns")
+            for bi, row in enumerate(rows):
+                w = nat[bi][:len(nat[bi]) - tape.n_guards]
+                if w != list(cc.witness_host(to_map(row))):
                     raise SystemExit(f"FAIL CLI --prime {prime} on "
-                                     f"Poseidon2: witness {bi} .wtns differs "
-                                     "from the host calculator's")
-    say(f"  CLI --prime {prime} on Poseidon2: exit 0 in {ms / 1e3:.1f} s, "
-        f"{n} .wtns equal the host calculator's")
-    tape, _ = cc.build_tape()
-    hints = cc.input_range_hints()
-    prog = WitnessProgram(tape, spec, device=device, unroll_threshold=0,
-                          input_ranges=hints)
-    nat = NativeCalculator(tape, spec, input_ranges=hints).run(rows)
-    cli_witness_run(paths, f"pos_{prime}", cc, tape, hints, rows, nat,
-                    device, prog)
-    return ms
+                                     f"{circuit}: the native and the host "
+                                     f"witness {bi} differ")
+                write_wtns(ref, cc.p, w)
+                with open(ref, "rb") as a, \
+                        open(os.path.join(res, f"{name}.{bi}.wtns"),
+                             "rb") as b:
+                    if a.read() != b.read():
+                        raise SystemExit(f"FAIL CLI --prime {prime} on "
+                                         f"{circuit}: witness {bi} .wtns "
+                                         "differs from the native and the "
+                                         "host calculator's")
+        say(f"  CLI --prime {prime} on {circuit}: exit 0 in {ms / 1e3:.1f} "
+            f"s, {n} .wtns equal the native and the host calculator's")
+        prog = WitnessProgram(tape, spec, device=device, unroll_threshold=0,
+                              input_ranges=hints)
+        cli_witness_run(paths, f"{name}_{prime}", cc, tape, hints, rows,
+                        nat, device, prog)
+        out[circuit] = ms
+    return out
 
 
 def cpu_baseline(runs, n, reps=BASELINE_REPS):
@@ -2792,10 +3044,7 @@ def phase_mesh(paths, mk, lanes, rehearse):
         xs = x.view(torch.int32).index_select(2, torch.as_tensor(
             [k * lanes + j for j in lanes_k], device=x.device)).cpu() \
             .numpy().view(np.uint32)
-        ins = [[limbs_to_int(xs[i, :, j]) for i in range(prog.n_inputs)]
-               for j in range(len(lanes_k))]
-        got = [[limbs_to_int(w[i, :, j]) for i in range(w.shape[0])]
-               for j in range(len(lanes_k))]
+        ins, got = lane_ints(xs[:prog.n_inputs]), lane_ints(w)
         want = calc.run(ins)
         for j, lane in enumerate(lanes_k):
             if got[j] != want[j][:len(got[j])]:
@@ -3097,9 +3346,7 @@ def sha256_full_path(paths, rep, cc, prog, spec, dev, B):
     of every lane, one KC launch; then phase KC on that witness
     (phase_kc_sha)."""
     msgs = sha256_messages(B, SEED + 6)
-    x = np.zeros((512, spec.n_limbs, B), np.uint32)
-    x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
-    x = to_device(x, dev)
+    x = to_device(sha256_io.input_rows(msgs, spec.n_limbs), dev)
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], spec,
                           device=dev)
     say(f"  the check: one KC launch over the batch (the plain route's "
@@ -3324,8 +3571,14 @@ def main():
     say(f"phase CL: the compile CLI (--witness-gpu, {b_cli} witnesses a "
         "circuit)")
     cli_check = phase_cli(paths, cli_runs(mm), dev.type, b_cli)
-    cl_prime_ms = phase_cli_prime(paths, dev.type,
-                                  4 if args.rehearse else CL_PRIME_WITNESSES)
+    n_clp = 4 if args.rehearse else CL_PRIME_WITNESSES
+    cl_prime_ms = phase_cli_prime(paths, dev.type, n_clp)["Poseidon2"]
+    say(f"phase CLg: the compile CLI at --prime goldilocks ({n_clp} "
+        "witnesses a circuit)")
+    t_clg = time.perf_counter()
+    clg = phase_cli_prime(paths, dev.type, n_clp, "goldilocks",
+                          tuple(CL_PRIME_CIRCUITS))
+    t_clg = time.perf_counter() - t_clg
     say(f"the CPU baseline ({b_base} witnesses a circuit)")
     cpu_baseline(mm, b_base)
     t_mm = time.perf_counter() - t_mm
@@ -3352,6 +3605,13 @@ def main():
     say(f"phase P8: MerkleInclusion(32) at {', '.join(P8_MERKLE_PRIMES)} "
         f"(batch {b_mk})")
     p8m = phase_merkle_primes(paths, dev, b_mk, args.rehearse)
+    say(f"phase P8n: SHA256 through the mixed path at "
+        f"{', '.join(P8N_PRIMES)} (run_mixed at batch {B}, run and check at "
+        f"{b_full})")
+    t_p8n = time.perf_counter()
+    p8n = phase_sha_primes(paths, rep, dev, B, b_full, b_k1p8,
+                           args.rehearse)
+    t_p8n = time.perf_counter() - t_p8n
     b_ks = 8 if args.rehearse else P8_KS_LANES
     say(f"phase P8: KS on the scan tapes at the eight --prime fields (batch "
         f"{b_ks})")
@@ -3393,7 +3653,7 @@ def main():
             + check_summary(t) + f" (batch {b}); K1 "
             f"{new['k1'][name]:.3f} ms" + run_summary(t["trace"]))
     say(f"the interpreter at the eight --prime fields (phase P8: the "
-        f"comparators {t_p8:.1f} s; Poseidon2, Merkle and KS's tapes "
+        f"comparators {t_p8:.1f} s; Poseidon2, Merkle, SHA256 and KS's tapes "
         f"{t_p8x:.1f} s, KS's {t_ks:.1f} s of it): comparators " + ", ".join(
             f"{k} run {v['run_ms']:.3f} ms, check {v['check_ms']:.3f} ms "
             f"(first {v['first_run_ms']:.2f}, {v['first_check_ms']:.2f})"
@@ -3405,8 +3665,16 @@ def main():
     say(f"MerkleInclusion(32) at {', '.join(P8_MERKLE_PRIMES)} (batch {b_mk}; "
         f"{CARD}): " + ", ".join(
             f"{k} (L = {v['L']}) run {v['run_ms']:.2f} ms, check "
-            f"{v['check_ms']:.3f} ms, K1 {v['k1_ms']:.3f} ms"
-            for k, v in p8m.items()))
+            f"{v['check_ms']:.3f} ms, run_mixed {v['mixed_ms']:.2f} ms "
+            f"(first), K1 {v['k1_ms']:.3f} ms" for k, v in p8m.items()))
+    say(f"SHA256 through the mixed path (phase P8n, {t_p8n:.1f} s; run_mixed "
+        f"at {B}, run at {b_full}; {CARD}): " + ", ".join(
+            f"{k} (L = {v['L']}) run_mixed {v['mixed_ms']:.3f} ms (peak "
+            f"{v['mixed_peak_gib']:.3f} GiB, idle {v['mixed_idle']}), run "
+            f"{v['run_ms']:.3f} ms (peak {v['run_peak_gib']:.3f} GiB), check "
+            f"{v['check_ms']:.3f} ms, K1 {v['k1_ms']:.4f} ms, K3 "
+            f"{v['k3_ms']:.4f} ms, {v['phase_s']:.1f} s"
+            for k, v in p8n.items()))
     say(f"KS on the scan tapes (batch {b_ks}; {CARD}), the sum of the "
         "tapes' bare KS launches a field: " + ", ".join(
             f"{k} " + ("not measured" if any(
@@ -3420,7 +3688,9 @@ def main():
             f"{v['ops_bound_ms']:.4f} operations)"
             for k, v in seg["s8"].items()))
     say(f"the CLI at --prime {CL_PRIME} on Poseidon2: {cl_prime_ms / 1e3:.1f} "
-        "s")
+        "s; at --prime goldilocks (phase CLg, "
+        f"{t_clg:.1f} s): " + ", ".join(f"{k} {v / 1e3:.1f} s"
+                                        for k, v in clg.items()))
     for name, label, b in (
             ("n2b254", "Num2Bits(254)/bn128 (segments)", B),
             ("n2b254x4", "4 x Num2Bits(254)/bn128 (segments)", B),
@@ -3476,7 +3746,8 @@ def main():
         f"{t_bg:.1f} s, phases F-K "
         f"{t_new:.1f} s, phases S-W {t_seg:.1f} s, phases MM-CL and the "
         f"baseline {t_mm:.1f} s, phases MS-GE {t_ms:.1f} s, phase P8's "
-        f"Poseidon2, Merkle and KS {t_p8x:.1f} s")
+        f"Poseidon2, Merkle, SHA256 and KS {t_p8x:.1f} s (P8n {t_p8n:.1f} "
+        f"s), phase CLg {t_clg:.1f} s")
     if args.rehearse:
         print(json.dumps({"kernels": list(rep.rows.values())}),
               file=sys.stderr)

@@ -48,11 +48,13 @@ def digest_bits_batch(msgs):
     return bits.reshape(B, 256).T.astype(np.int32)
 
 
-def input_rows(msgs):
-    """The messages as run_mixed's all-narrow input rows: uint32
-    (512, 2, B), the bit in limb 0."""
+def input_rows(msgs, limbs=2):
+    """The messages as input rows of `limbs` 16-bit limbs, the bit in limb
+    0: uint32 (512, limbs, B).  run_mixed takes rows of 2 (or 1) limbs,
+    every input being a bit; run takes full-limb rows, limbs = L of the
+    field (16, or 4 at goldilocks)."""
     bits = msgs_to_bits_batch(msgs)
-    rows = np.zeros((512, 2, len(msgs)), np.uint32)
+    rows = np.zeros((512, limbs, len(msgs)), np.uint32)
     rows[:, 0, :] = bits
     return rows
 

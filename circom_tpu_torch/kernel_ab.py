@@ -548,9 +548,7 @@ def interp_runs(libs, dev, reps):
                                 ("M", 65536, 2, True)):
         msgs = [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
                                                dtype=np.uint8)]
-        rows = np.zeros((512, lin, B), np.uint32)
-        rows[:, 0] = sha256_io.msgs_to_bits_batch(msgs)
-        x = to_device(rows, dev)
+        x = to_device(sha256_io.input_rows(msgs, lin), dev)
         fns = {"other": lambda: split_run(libs, prog, x, mixed, orders),
                "this": (lambda: prog.run_mixed(x)) if mixed
                else (lambda: prog.run(x))}
@@ -683,9 +681,7 @@ def kc_case(name, dev, B):
         rng = np.random.default_rng(17)
         msgs = [bytes(m) for m in rng.integers(0, 256, size=(B, 32),
                                                dtype=np.uint8)]
-        x = np.zeros((512, spec.n_limbs, B), np.uint32)
-        x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
-        x = to_device(x, dev)
+        x = to_device(sha256_io.input_rows(msgs, spec.n_limbs), dev)
         corrupt = ((600, 1), (5000, B // 2), (20000, B - 1), (27000, 7))
     wit = prog.run(x)
     for wire, lane in corrupt:

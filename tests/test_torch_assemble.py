@@ -66,6 +66,7 @@ from circom_tpu_torch.ops.limbs import limbs_to_int
 from circom_tpu_torch.utils.roofline import kw_bytes
 from test_bitpack import WORD_SRC
 from test_torch_narrow import packed  # noqa: F401  (a fixture)
+import test_torch_shared as shared
 
 ROOT = Path(__file__).resolve().parents[1]
 # the base field of BLS12-381, 381 bits: 24 limbs
@@ -179,11 +180,7 @@ def banks_and_both(lib, interp, x):
 
 @pytest.fixture(scope="module")
 def sha256():
-    src = (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text() \
-        + "\ncomponent main = Sha256Block();\n"
-    cc = compile_source(src)
-    prog = WitnessProgram(cc.build_tape()[0], field_spec("bn128"),
-                          device="cpu", input_ranges=cc.input_range_hints())
+    cc, _tape, prog = shared.program(shared.sha256_source())
     return cc, prog
 
 
@@ -192,8 +189,7 @@ def test_kw_sha256_matches_parts_and_hashlib(kwhost, sha256, B):
     _cc, prog = sha256
     rng = random.Random(B)
     msgs = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(B)]
-    x = np.zeros((512, 16, B), np.uint32)
-    x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
+    x = sha256_io.input_rows(msgs, 16)
     got, want = banks_and_both(kwhost, prog.interp, x)
     np.testing.assert_array_equal(got, want)
     # witness rows 1..256 hold the digest's bits in limb 0

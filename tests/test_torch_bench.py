@@ -30,6 +30,7 @@ from circom_tpu.field.primes import field_spec as jax_field_spec
 from circom_tpu_torch import native
 from circom_tpu_torch.field.primes import field_spec
 from circom_tpu_torch.utils.roofline import k1_ops
+import test_torch_shared as shared
 
 ROOT = Path(__file__).resolve().parents[1]
 BENCH_PY = ROOT / "bench.py"
@@ -155,8 +156,13 @@ def test_record_keys_are_bench_py_s_mapped():
 
 @pytest.fixture(scope="module")
 def bench():
-    """One CPU bench at tiny batches, its circuits compiled once."""
-    return bench_gpu.Bench("cpu", TINY)
+    """One CPU bench at tiny batches, its circuits compiled once; SHA256's
+    compile is the run's (test_torch_shared), planned as bench_gpu plans
+    it."""
+    source, prime, mode = bench_gpu.CIRCUITS["sha256"]
+    cc, _tape, prog = shared.program(source(), prime, mode=mode,
+                                     unroll_threshold=0)
+    return bench_gpu.Bench("cpu", TINY, compiled={"sha256": (cc, prog)})
 
 
 def _u32(t):

@@ -50,6 +50,7 @@ from circom_tpu_torch.ops import build
 from circom_tpu_torch.ops import field_kernels as fk
 from circom_tpu_torch.ops.field import TorchField, as_i64, mont_edge_values
 from circom_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
+import test_torch_shared as shared
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
@@ -194,25 +195,21 @@ def kw_program(name, device, B):
     pathIndex bits), the comparators (both), over bn128 at B lanes."""
     spec = field_spec("bn128")
     rng = random.Random(B)
+    src = {"sha256": shared.sha256_source(), "merkle32": merkle_source(32),
+           "comparators": comparators_source()}[name]
+    cc, _tape, prog = shared.program(src)
+    prog = prog.for_device(device)
+    hints = cc.input_range_hints()
     if name == "sha256":
-        cc = compile_source((ROOT / "circom_tpu_torch/circuits/sha256.circom")
-                            .read_text() + "\ncomponent main = Sha256Block();\n")
         msgs = [bytes(rng.randrange(256) for _ in range(32))
                 for _ in range(B)]
-        x = np.zeros((512, spec.n_limbs, B), np.uint32)
-        x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs)
+        x = sha256_io.input_rows(msgs, spec.n_limbs)
     elif name == "merkle32":
-        cc = compile_source(merkle_source(32))
-    else:
-        cc = compile_source(comparators_source())
-        x = comparator_inputs(B, 66, spec.n_limbs)
-    hints = cc.input_range_hints()
-    prog = WitnessProgram(cc.build_tape()[0], spec, device=device,
-                          input_ranges=hints)
-    if name == "merkle32":
         cols = [[rng.randrange(2) if i in hints else rng.randrange(spec.p)
                  for _ in range(B)] for i in range(prog.n_inputs)]
         x = prog.encode_inputs(cols)
+    else:
+        x = comparator_inputs(B, 66, spec.n_limbs)
     return prog, x
 
 
@@ -465,15 +462,17 @@ def test_k1b_word_circuit_matches_plain(card, prime):
     k1_against_plain(prog.interp.plan, prog.field, x, card)
 
 
-def test_k3_matches_plain(card):
+@pytest.mark.parametrize("limbs", [16, 4])
+def test_k3_matches_plain(card, limbs):
     """Sources in the narrow bank and in the narrow inputs, raw rows and
-    unpacked bits at the edge shift counts."""
+    unpacked bits at the edge shift counts; input rows of 16 limbs and of
+    4 (goldilocks' full-limb rows)."""
     rng = np.random.default_rng(23)
     B = 4099                       # not a multiple of 4: the scalar path
     for b in (B, 4096):
         bank_n = to_device(random_int32(rng, (40, b)), card)
         # nine narrow inputs in limbs 0 and 1 of rows of 12 input rows
-        inputs = to_device(rng.integers(0, 1 << 16, size=(12, 16, b),
+        inputs = to_device(rng.integers(0, 1 << 16, size=(12, limbs, b),
                                         dtype=np.uint32), card)
         order = to_device(rng.permutation(12)[:9].astype(np.int32), card)
         src = to_device(rng.integers(0, 49, size=700).astype(np.int32),
@@ -498,23 +497,29 @@ def unit_rows(rng, n_rows, L, B):
 
 
 @pytest.mark.parametrize("lin", ["L", 2, 1])
-def test_k1_k3_read_input_rows_match_split(card, lin):
+@pytest.mark.parametrize("prime", ["bn128", "goldilocks"])
+def test_k1_k3_read_input_rows_match_split(card, prime, lin):
     """K1 and K3 read their inputs in the caller's rows (n_inputs, Lin, B)
     at Lin = L (the K1c/K1d unit plan: wide and narrow inputs), 2 and 1
     (the K1b unit plan, its narrow inputs at rows 3 and 1 of five), held
     against the plain split (split_inputs, narrow_inputs) and the plain
     executor and gather, bit for bit; limbs above 1 nonzero, narrow values
-    with bit 31 set, and a lane count that is not a multiple of 4."""
+    with bit 31 set, and a lane count that is not a multiple of 4.  At
+    L = 16 (bn128) and L = 4 (goldilocks: K1's <4, true, true>, where Lin
+    = 2 and 1 are half and a quarter of a row)."""
     rng = np.random.default_rng(27)
-    spec = field_spec("bn128")
+    spec = field_spec(prime)
+    L = spec.n_limbs
     field = TorchField(spec, card)
     if lin == "L":
-        arrays, _ = unit_arrays(spec.p, 16, K1D_OPCODES + ("add",))
+        ops = K1D_OPCODES + (K1C_OPCODES if prime == "goldilocks"
+                             else ("add",))
+        arrays, _ = unit_arrays(spec.p, L, ops)
         x = input_rows(plan_from_arrays(arrays, "cpu"),
-                       *unit_inputs(spec.p, 16, 4099, 28))
-        x[3:] = unit_rows(rng, 3, 16, 4099)
+                       *unit_inputs(spec.p, L, 4099, 28))
+        x[3:] = unit_rows(rng, 3, L, 4099)
     else:
-        arrays, _ = narrow_unit_arrays(16, EDGE_COUNTS)
+        arrays, _ = narrow_unit_arrays(L, EDGE_COUNTS)
         arrays = dict(arrays, nin_of={3: 0, 1: 1})
         x = unit_rows(rng, 5, lin, 4099)
     plan = plan_from_arrays(arrays, card)
@@ -611,11 +616,7 @@ def test_strided_inputs_match_contiguous(card, view):
 
 
 def test_sha256_run_mixed_digests(card):
-    src = (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text() \
-        + "\ncomponent main = Sha256Block();\n"
-    cc = compile_source(src)
-    prog = WitnessProgram(cc.build_tape()[0], field_spec("bn128"),
-                          device=card, input_ranges=cc.input_range_hints())
+    prog = shared.program(shared.sha256_source())[2].for_device(card)
     rng = random.Random(24)
     msgs = [bytes(rng.randrange(256) for _ in range(32))
             for _ in range(1024)]
@@ -623,6 +624,38 @@ def test_sha256_run_mixed_digests(card):
     digest = sha256_io.digest_bits_from_witness(narrow, prog.mixed_layout())
     assert np.array_equal(digest.cpu().numpy(),
                           sha256_io.digest_bits_batch(msgs))
+
+
+@pytest.mark.parametrize("limbs", [2, 1])
+def test_sha256_goldilocks_run_mixed(card, limbs):
+    """SHA256 at goldilocks (L = 4) through run_mixed at 301 lanes (not a
+    multiple of 4) from narrow rows of 2 and 1 limbs: one K1 and one K3
+    launch and nothing else, every digest equal to hashlib's, K1 equal to
+    its plain executor on every emitted row and K3 to gather_n_rows."""
+    prog = shared.program(shared.sha256_source(), "goldilocks")[2] \
+        .for_device(card)
+    plan, field = prog.interp.plan, prog.field
+    rng = random.Random(34)
+    msgs = [bytes(rng.randrange(256) for _ in range(32))
+            for _ in range(301)]
+    x = sha256_io.input_rows(msgs, limbs)
+    build.reset_launches()
+    narrow, wide = prog.run_mixed(x)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {**{k: 1 for k in plan.parts},
+                                    "gather_n": 1}
+    assert wide.shape == (0, 4, 301)
+    digest = sha256_io.digest_bits_from_witness(narrow, prog.mixed_layout())
+    assert np.array_equal(digest.cpu().numpy(),
+                          sha256_io.digest_bits_batch(msgs))
+    k1_against_plain(plan, field, x, card)
+    xs = to_device(x, card)
+    _, bank_n = interp_k1(plan, field, xs)
+    order, src, shift = (plan.dev[k] for k in ("nin_order", "nw_src",
+                                                "nw_shift"))
+    assert torch.equal(gather_n(bank_n, xs, order, src, shift),
+                       gather_n_rows(bank_n, narrow_inputs(xs, order), src,
+                                     shift))
 
 
 @pytest.mark.parametrize("prime", ["bn128", "goldilocks"])

@@ -37,20 +37,18 @@ import pytest
 import torch
 
 from circom_tpu.backend.jax_backend import WitnessProgram as JaxProgram
-from circom_tpu.compiler.pipeline import compile_source as jax_compile
 from circom_tpu.field.primes import field_spec as jax_field_spec
 from circom_tpu_torch.backend.checker import R1CSChecker
 from circom_tpu_torch.backend.interp import TorchInterpreter, split_inputs
 from circom_tpu_torch.backend.interp_ref import run_plan
-from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits.sources import (ks_tapes, merkle_source,
                                                poseidon2_source)
-from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.convert import OPCODES
 from circom_tpu_torch.field.primes import LIMB_BITS, PRIMES, field_spec
 from circom_tpu_torch.ops.field import TorchField, as_i64
 from circom_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
 from test_torch_scan import POW_DIV_SRC, TAPES
+import test_torch_shared as shared
 
 B = 8
 POOL = 64          # random lanes the deepest dots are picked from
@@ -62,14 +60,12 @@ SOURCES = {"poseidon2": poseidon2_source, "merkle2": lambda _p:
 @lru_cache(maxsize=None)
 def compiled(name, prime):
     """(the port's compile, its WitnessProgram on the interpreter, the JAX
-    package's compile) of a circuit at a field."""
+    package's compile) of a circuit at a field, built once a run
+    (test_torch_shared)."""
     src = SOURCES[name](prime)
-    cc = compile_source(src, prime=prime)
-    prog = WitnessProgram(cc.build_tape()[0], field_spec(prime),
-                          device="cpu", mode="interp",
-                          input_ranges=cc.input_range_hints())
+    cc, _tape, prog = shared.program(src, prime, mode="interp")
     assert isinstance(prog.interp, TorchInterpreter)
-    return cc, prog, jax_compile(src, prime=prime)
+    return cc, prog, shared.circuit(src, prime, package="jax")[0]
 
 
 class DepthField(TorchField):

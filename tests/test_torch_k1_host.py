@@ -57,6 +57,7 @@ from circom_tpu_torch.convert import (K1B_GROUP, K1B_OPCODES, K1C_OPCODES,
 from circom_tpu_torch.field.primes import LIMB_BITS, field_spec
 from circom_tpu_torch.ops import build
 from circom_tpu_torch.ops.field import TorchField, as_i64
+import test_torch_shared as shared
 
 ROOT = Path(__file__).resolve().parents[1]
 B = 8
@@ -220,9 +221,7 @@ def case(name):
         x = input_rows(plan, np.zeros((0, 16, B), np.uint32), x_n)
         return plan, TorchField(field_spec("bn128")), u32_tensor(x)
     if name == "sha256":
-        src = (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text() \
-            + "\ncomponent main = Sha256Block();\n"
-        prog = _program(src, "bn128")
+        prog = shared.program(shared.sha256_source())[2]
         r = random.Random(73)
         msgs = [bytes(r.randrange(256) for _ in range(32)) for _ in range(B)]
         x = sha256_io.input_rows(msgs)

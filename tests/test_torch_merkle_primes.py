@@ -22,18 +22,22 @@ from circom_tpu_torch.field.primes import PRIMES
 from test_torch_dot_primes import B, check_lanes, compiled
 
 
+def merkle2_columns(prime, p):
+    """The input columns of B lanes: leaf, pathElements[2] (0, 1, p - 1
+    and p // 2, then random), pathIndex[2] (every pair of bits)."""
+    rng = random.Random(PRIMES[prime] % 1000003 + 1)
+    edge = [0, 1, p - 1, p // 2]
+    cols = [edge + [rng.randrange(p) for _ in range(B - 4)]
+            for _ in range(3)]
+    cols[1] = cols[1][1:] + cols[1][:1]
+    return cols + [[lane >> k & 1 for lane in range(B)] for k in range(2)]
+
+
 @pytest.mark.parametrize("prime", list(PRIMES))
 def test_merkle2_at_every_prime(prime):
     cc, prog, cc_j = compiled("merkle2", prime)
     assert set(prog.interp.plan.parts) == {
         "interp_k1a", "interp_k1b", "interp_k1c", "interp_k1d"}
-    p = prog.spec.p
-    rng = random.Random(PRIMES[prime] % 1000003 + 1)
-    edge = [0, 1, p - 1, p // 2]
-    # leaf, pathElements[2] (edges, then random), pathIndex[2] (bits)
-    cols = [edge + [rng.randrange(p) for _ in range(B - 4)]
-            for _ in range(3)]
-    cols[1] = cols[1][1:] + cols[1][:1]
-    cols += [[lane >> k & 1 for lane in range(B)] for k in range(2)]
+    cols = merkle2_columns(prime, prog.spec.p)
     check_lanes(cc, cc_j, prog, cols, lambda v: {
         "leaf": v[0], "pathElements": v[1:3], "pathIndex": v[3:5]})

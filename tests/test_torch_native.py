@@ -8,7 +8,6 @@ SHA256 digests against hashlib.  Tolerance 0: these are field elements.
 """
 
 import hashlib
-from pathlib import Path
 
 import pytest
 
@@ -21,8 +20,8 @@ from circom_tpu_torch.circuits.sources import merkle_source
 from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.field.primes import field_spec
 from circom_tpu_torch.native import NativeCalculator
+import test_torch_shared as shared
 
-ROOT = Path(__file__).resolve().parents[1]
 P = field_spec("bn128").p
 G = field_spec("goldilocks").p
 
@@ -178,10 +177,7 @@ def test_merkle_tape_vs_host():
 def test_sha256_tape_digests():
     """SHA256 tape digests on the native runtime against hashlib
     (tests/test_circuits.py:96-115)."""
-    src = ((ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text()
-           + "\ncomponent main = Sha256Block();\n")
-    cc = compile_source(src)
-    tape, _ = cc.build_tape()
+    _cc, tape = shared.circuit(shared.sha256_source())
     calc = NativeCalculator(tape, field_spec("bn128"))
     msgs = [b"", b"abc", b"The quick brown fox jumps over the lazy d",
             b"x" * 55]

@@ -10,7 +10,6 @@ constraint as the JAX package's checker.  Every comparison is exact.
 """
 
 import random
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -20,13 +19,11 @@ import torch
 from circom_tpu.backend.checker import R1CSChecker as JaxChecker
 from circom_tpu.field.primes import field_spec as jax_field_spec
 from circom_tpu_torch.backend.checker import R1CSChecker
-from circom_tpu_torch.backend.torch_backend import WitnessProgram
 from circom_tpu_torch.circuits import sha256_io
-from circom_tpu_torch.compiler.pipeline import compile_source
 from circom_tpu_torch.field.primes import field_spec
 from circom_tpu_torch.ops.limbs import limbs_to_int
+import test_torch_shared as shared
 
-ROOT = Path(__file__).resolve().parents[1]
 SPEC = field_spec("bn128")
 
 
@@ -34,12 +31,7 @@ SPEC = field_spec("bn128")
 def sha256():
     """The compiled circuit, its program, 4 random 32-byte messages and
     the host witness of the first."""
-    src = (ROOT / "circom_tpu_torch/circuits/sha256.circom").read_text() \
-        + "\ncomponent main = Sha256Block();\n"
-    cc = compile_source(src)
-    tape, _ = cc.build_tape()
-    prog = WitnessProgram(tape, SPEC, device="cpu",
-                          input_ranges=cc.input_range_hints())
+    cc, _tape, prog = shared.program(shared.sha256_source())
     rng = random.Random(2024)
     msgs = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(4)]
     bits = sha256_io.msgs_to_bits_batch(msgs)
@@ -75,9 +67,7 @@ def test_run_mixed_digests_and_host_rows(sha256):
 def full_limb(sha256):
     """The full-limb witness of the first two messages, and a checker."""
     cc, prog, msgs, _host = sha256
-    x = np.zeros((512, SPEC.n_limbs, 2), np.uint32)
-    x[:, 0, :] = sha256_io.msgs_to_bits_batch(msgs[:2])
-    z = prog.run(x)
+    z = prog.run(sha256_io.input_rows(msgs[:2], SPEC.n_limbs))
     checker = R1CSChecker(cc.r1cs_rows(), cc.counts()["n_wires"], SPEC,
                           device="cpu")
     return z, checker
