@@ -46,6 +46,7 @@ from ..ops import build
 from ..ops.field import TorchField, as_i64, as_u32
 from ..ops.limbs import ints_to_limbs
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 # device bytes a CPU window of the check may take for its largest matrix
 SLICE_BUDGET_BYTES = 5 << 30
@@ -308,14 +309,15 @@ class R1CSChecker:
         if zs.device != self.kc[0][0].device:
             raise ValueError(f"r1cs_check: a window on {zs.device}, the "
                              f"checker on {self.kc[0][0].device}")
-        first = torch.full((b,), self.n_rows, dtype=torch.int32,
-                           device=zs.device)
-        if b and self.n_rows:
-            build.launch("r1cs_check",
-                         build.library("check").ctpu_r1cs_check, zs.device,
-                         *kc_args(self, zs, first,
-                                  build.stream_ptr(zs.device)))
-        return first
+        with span("ctpu.r1cs_check"):
+            first = torch.full((b,), self.n_rows, dtype=torch.int32,
+                               device=zs.device)
+            if b and self.n_rows:
+                build.launch("r1cs_check",
+                             build.library("check").ctpu_r1cs_check,
+                             zs.device, *kc_args(self, zs, first,
+                                                 build.stream_ptr(zs.device)))
+            return first
 
     def _slices(self, z):
         """The batch's windows: on a card views of z (the whole batch
@@ -342,10 +344,11 @@ class R1CSChecker:
     def check_detailed(self, z):
         """Like check(), but also returns the first violated constraint
         index per witness (0 where satisfied)."""
-        oks, firsts = zip(*self.verdicts(z))
-        if len(oks) == 1:          # one window: nothing to join
-            return oks[0], firsts[0]
-        return torch.cat(oks), torch.cat(firsts)
+        with span("ctpu.check"):
+            oks, firsts = zip(*self.verdicts(z))
+            if len(oks) == 1:          # one window: nothing to join
+                return oks[0], firsts[0]
+            return torch.cat(oks), torch.cat(firsts)
 
     def verdicts(self, z):
         """check_detailed's (ok, first) pairs, one a window in batch

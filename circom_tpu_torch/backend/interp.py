@@ -22,10 +22,12 @@ widened), or K2 alone where the witness is the wide bank's rows in
 witness order; for the mixed witness the narrow gather with bit unpack
 K3 and the wide gather K2 (KW where the wide rows name inputs or
 constants), K3 also reading the narrow inputs in the input rows.  A run
-on the card is `torch.empty` and those launches alone.  On the CPU it
-runs the plain versions: the input split (split_inputs, the JAX package's
-split in _run) and backend/interp_ref.py for K1, K2 and K3, and for KW
-the parts route (`assemble_parts`: the
+on the card is `torch.empty` and those launches alone, each kernel with
+its allocation and arguments in a span of its name (`ctpu.interp_k1`,
+`ctpu.assemble`, `ctpu.gather_w`, `ctpu.gather_n`; utils/profiling.py).
+On the CPU it runs the plain versions: the input split (split_inputs, the
+JAX package's split in _run) and backend/interp_ref.py for K1, K2 and K3,
+and for KW the parts route (`assemble_parts`: the
 wide, narrow and narrow input rows gathered apart, the narrow ones
 widened by ops/narrow.widen_narrow, each put into the witness), as the
 JAX package assembles the witness in XLA.
@@ -44,6 +46,7 @@ from ..ops.build import launch, library, stream_ptr, u32_array
 from ..ops.field import GOLDILOCKS_P, TorchField, as_i64, as_u32
 from ..ops.limbs import int_to_limbs
 from ..ops.narrow import to_i32, widen_narrow
+from ..utils.profiling import span
 from .interp_ref import gather_n_rows, gather_rows, run_plan
 from .plan import UnsupportedTapeOp
 
@@ -124,19 +127,21 @@ def launch_k1(plan: DevicePlan, field: TorchField, inputs):
     """Launch K1 without checks on contiguous input rows on the plan's
     card that check_inputs takes: returns its (bank, bank_n)."""
     L, B, dev = plan.L, inputs.shape[-1], inputs.device
-    # the register files (each at least its trash row) and the banks
-    rf = torch.empty(k1_file_shape(plan, B), dtype=torch.uint32, device=dev)
-    rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev)
-    bank = torch.empty((plan.n_bank_rows, L, B), dtype=torch.uint32,
-                       device=dev)
-    bank_n = torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
+    with span("ctpu.interp_k1"):
+        # the register files (each at least its trash row) and the banks
+        rf = torch.empty(k1_file_shape(plan, B), dtype=torch.uint32,
                          device=dev)
-    # one launch runs every part; it counts for each part its plan runs
-    # (interp_k1a .. interp_k1d, convert.PARTS)
-    launch("interp_k1", library("interp").ctpu_interp_k1, dev,
-           *k1_args(plan, field, inputs, rf, bank, rf_n, bank_n,
-                    stream_ptr(dev)), parts=plan.parts or ("interp_k1a",))
-    return bank, bank_n
+        rf_n = torch.empty((plan.n_nregs, B), dtype=torch.int32, device=dev)
+        bank = torch.empty((plan.n_bank_rows, L, B), dtype=torch.uint32,
+                           device=dev)
+        bank_n = torch.empty((plan.n_bank_n_rows, B), dtype=torch.int32,
+                             device=dev)
+        # one launch runs every part; it counts for each part its plan
+        # runs (interp_k1a .. interp_k1d, convert.PARTS)
+        launch("interp_k1", library("interp").ctpu_interp_k1, dev,
+               *k1_args(plan, field, inputs, rf, bank, rf_n, bank_n,
+                        stream_ptr(dev)), parts=plan.parts or ("interp_k1a",))
+        return bank, bank_n
 
 
 def k1_file_shape(plan: DevicePlan, B):
@@ -395,11 +400,12 @@ class TorchInterpreter:
     def _gather_w(self, bank, idx):
         if self.device.type == "cpu":
             return gather_rows(bank, idx)
-        out = torch.empty((idx.shape[0],) + tuple(bank.shape[1:]),
-                          dtype=torch.uint32, device=self.device)
-        if out.numel():
-            launch_gather_w(bank, idx, out)
-        return out
+        with span("ctpu.gather_w"):
+            out = torch.empty((idx.shape[0],) + tuple(bank.shape[1:]),
+                              dtype=torch.uint32, device=self.device)
+            if out.numel():
+                launch_gather_w(bank, idx, out)
+            return out
 
     def _gather_n(self, bank_n, inputs, src, shift):
         """K3 over the narrow bank and the narrow inputs, read in the
@@ -409,11 +415,12 @@ class TorchInterpreter:
         if self.device.type == "cpu":
             return gather_n_rows(bank_n, narrow_inputs(inputs, order), src,
                                  shift)
-        out = torch.empty((src.shape[0], bank_n.shape[1]), dtype=torch.int32,
-                          device=self.device)
-        if out.numel():
-            launch_gather_n(bank_n, inputs, order, src, shift, out)
-        return out
+        with span("ctpu.gather_n"):
+            out = torch.empty((src.shape[0], bank_n.shape[1]),
+                              dtype=torch.int32, device=self.device)
+            if out.numel():
+                launch_gather_n(bank_n, inputs, order, src, shift, out)
+            return out
 
     def mixed_layout(self):
         """(narrow witness indices, wide witness indices) in the row order
@@ -493,15 +500,18 @@ class TorchInterpreter:
         if inputs.shape[0] < self._kw_inputs[rows]:
             raise ValueError(f"KW reads {self._kw_inputs[rows]} input rows, "
                              f"got {inputs.shape[0]}")
-        if out is None:
-            out = torch.empty((tab.shape[0], self.plan.L, inputs.shape[-1]),
-                              dtype=torch.uint32, device=self.device)
-        if out.numel():
-            launch("assemble", library("gather").ctpu_assemble, self.device,
-                   *kw_args(self.field, tab, bank, bank_n,
-                            inputs.contiguous(), self.plan.dev["consts"],
-                            out, stream_ptr(self.device)))
-        return out
+        with span("ctpu.assemble"):
+            if out is None:
+                out = torch.empty((tab.shape[0], self.plan.L,
+                                   inputs.shape[-1]), dtype=torch.uint32,
+                                  device=self.device)
+            if out.numel():
+                launch("assemble", library("gather").ctpu_assemble,
+                       self.device, *kw_args(self.field, tab, bank, bank_n,
+                                             inputs.contiguous(),
+                                             self.plan.dev["consts"], out,
+                                             stream_ptr(self.device)))
+            return out
 
     def _run_mixed(self, inputs):
         """inputs uint32 (n_inputs, L or 2 (or 1), B) -> (narrow int32

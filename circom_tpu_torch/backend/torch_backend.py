@@ -38,6 +38,7 @@ from ..field.primes import FieldSpec
 from ..ops.field import GOLDILOCKS_P, TorchField
 from ..ops.limbs import ints_to_limbs, limbs_to_int
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .domain import DomainTape
 from .dynops import lower_dynamic_ops
 from .interp import TorchInterpreter
@@ -158,6 +159,10 @@ class WitnessProgram:
     def run(self, inputs):
         """uint32 (n_inputs, L, B) array or tensor -> witness uint32
         tensor (n_witness, L, B) on the program's device."""
+        with span("ctpu.run"):
+            return self._run(inputs)
+
+    def _run(self, inputs):
         if self.fused is not None:
             return self.fused._run(inputs)
         if self.scan is not None:
@@ -173,11 +178,12 @@ class WitnessProgram:
         batch 65,536 takes 7.2 GB so, against 115 GB in limbs.  Only the
         interpreter produces a narrow part; the other backends return
         every row wide."""
-        if self.interp is not None:
-            return self.interp._run_mixed(inputs)
-        wide = self.run(inputs)
-        return (torch.zeros((0, wide.shape[2]), dtype=torch.int32,
-                            device=wide.device), wide)
+        with span("ctpu.run_mixed"):
+            if self.interp is not None:
+                return self.interp._run_mixed(inputs)
+            wide = self._run(inputs)
+            return (torch.zeros((0, wide.shape[2]), dtype=torch.int32,
+                                device=wide.device), wide)
 
     def mixed_layout(self):
         """(narrow witness indices, wide witness indices) matching the row

@@ -18,9 +18,9 @@ parallel with the fixed sources.
 `launch` makes every launch: it calls a C entry point with the tensors'
 device as the current device (a `<<<..., stream>>>` launch runs on the
 calling thread's current device, whatever device the stream belongs
-to), then counts it.  `LAUNCHES` counts kernel launches by name; each
-wrapper adds one, through `launch`, where it launches its kernel, and
-nowhere else.
+to), in the span `ctpu.launch` (utils/profiling.py), then counts it.
+`LAUNCHES` counts kernel launches by name; each wrapper adds one,
+through `launch`, where it launches its kernel, and nowhere else.
 """
 
 import ctypes
@@ -36,6 +36,7 @@ from pathlib import Path
 from types import SimpleNamespace
 
 from ..utils.cache import build_dir
+from ..utils.profiling import span
 
 SRC_DIR = Path(__file__).resolve().parent / "cuda"
 SOURCES = ("field_ops", "interp", "gather", "check", "scan")
@@ -253,7 +254,8 @@ def launch(name, fn, device, *args, parts=None):
     import torch
 
     with torch.cuda.device(device):
-        rc = fn(*args)
+        with span("ctpu.launch"):
+            rc = fn(*args)
     for part in parts or (name,):
         LAUNCHES[part] += 1
     check_launch(rc, name)

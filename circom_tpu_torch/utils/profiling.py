@@ -3,10 +3,28 @@
 The port of the JAX package's `circom_tpu/utils/profiling.py`.  The
 reference has only vestigial timing prints
 (constraint_simplification.rs:469-479) and a statistics exporter
-(dag/src/statistics_porting.rs:25).  Here: per-phase wall-clock timers,
+(dag/src/statistics_porting.rs:25).  Here: the program's spans (`span`),
 circuit statistics JSON, a torch.profiler trace of the card's witness path
 (`device_trace`, in place of the JAX package's jax.profiler trace), and
 `profile_breakdown`, which prints where a warm run's device time goes.
+
+The program's spans, all named `ctpu.*` (SPAN_PREFIX):
+
+- `ctpu.run`, `ctpu.run_mixed`: a call of WitnessProgram.run / .run_mixed,
+  whatever backend runs it (backend/torch_backend.py);
+- `ctpu.check`: a call of R1CSChecker.check_detailed (backend/checker.py);
+- `ctpu.interp_k1`, `ctpu.assemble`, `ctpu.gather_w`, `ctpu.gather_n`,
+  `ctpu.r1cs_check`: on a card, K1, KW, K2, K3 and KC each with its
+  allocations, its arguments and its launch (backend/interp.py,
+  backend/checker.py), named as ops/build.LAUNCHES counts them;
+- `ctpu.launch`: the C call of every kernel launch (ops/build.launch).
+  Its wrapper's span less this one is allocation and argument marshalling.
+
+A span is torch.profiler.record_function while a profiler is active, so
+it lands in the profiler's trace on the clock of the card's operations,
+each launch tied to its kernel by correlation id.  With no profiler
+active it costs one test of the profiler's flag: record_function itself
+costs some 13 us even then.  Capture them with `device_trace`.
 """
 
 import contextlib
@@ -14,43 +32,28 @@ import json
 import os
 import time
 
+import torch
 
-class PhaseTimer:
-    """Accumulates per-phase wall-clock times; print or export."""
+SPAN_PREFIX = "ctpu."
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
 
-    def __init__(self):
-        self.phases = {}
-        self.order = []
 
-    @contextlib.contextmanager
-    def phase(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            if name not in self.phases:
-                self.order.append(name)
-                self.phases[name] = 0.0
-            self.phases[name] += dt
-
-    def report(self):
-        return {name: round(self.phases[name], 4) for name in self.order}
-
-    def render(self):
-        return "\n".join(
-            f"  {name:<28s} {self.phases[name]*1e3:9.1f} ms"
-            for name in self.order
-        )
+def span(name):
+    """A context manager: the span `name` (a `ctpu.` name) in the active
+    profiler's trace, or nothing where no profiler is active."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
 def device_trace(logdir):
-    """torch.profiler trace of the enclosed work: the host's operators and,
-    when a card is present, its kernels and copies.  The trace is written
+    """torch.profiler trace of the enclosed work: the host's operators and
+    the program's spans and, when a card is present, its kernels and
+    copies.  The trace is written
     to `logdir`/trace.json in Chrome's trace format (chrome://tracing,
     Perfetto, TensorBoard's profiler plugin).  Yields the profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -102,8 +105,6 @@ def _say(*a):
 def sync_all():
     """Wait for every card's work (torch.cuda.synchronize waits for the
     current card's only)."""
-    import torch
-
     if torch.cuda.is_available():
         for d in range(torch.cuda.device_count()):
             torch.cuda.synchronize(d)
@@ -117,6 +118,17 @@ def wall_ms(fn):
     out = fn()
     sync_all()
     return out, (time.perf_counter() - t) * 1e3
+
+
+def device_ops(averages):
+    """The kernels and copies among key_averages()' events.  An aten op
+    carries its kernels' device time as well, and annotations appear on
+    the card's side too, spanning its work: the schedule's ProfilerStep
+    and the program's spans."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("ProfilerStep", SPAN_PREFIX))]
 
 
 def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
@@ -164,10 +176,7 @@ def profile_breakdown(fn, wall, reps=3, warmup=1, aten=True, show=(),
             prof.step()
     ms /= reps * runs
     reps *= runs
-    # kernels and copies only: an aten op carries its kernels' device time
-    # as well, and the schedule's ProfilerStep annotation spans the run
-    events = [e for e in traced[0] if e.device_type == DeviceType.CUDA
-              and not e.key.startswith("ProfilerStep")]
+    events = device_ops(traced[0])
     busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
     n_kernels = sum(e.count for e in events) / reps
     events.sort(key=lambda e: -e.self_device_time_total)

@@ -183,10 +183,9 @@ def test_build_dir_falls_back(tmp_path, capsys):
     chosen.rmdir()
 
 
-def test_statistics_and_timer_match_jax_module(tmp_path):
+def test_statistics_match_jax_module(tmp_path):
     """circuit_statistics and write_statistics give the JAX module's
-    output on the same compiled circuit; PhaseTimer reports and renders
-    as the JAX class does."""
+    output on the same compiled circuit."""
     cc = compile_source(merkle_source(4))
     assert profiling.circuit_statistics(cc) == \
         jax_profiling.circuit_statistics(cc)
@@ -194,15 +193,6 @@ def test_statistics_and_timer_match_jax_module(tmp_path):
     jax_profiling.write_statistics(cc, tmp_path / "jax.json")
     assert (tmp_path / "port.json").read_bytes() == \
         (tmp_path / "jax.json").read_bytes()
-    timers = (profiling.PhaseTimer(), jax_profiling.PhaseTimer())
-    for t in timers:
-        for name in ("compile", "plan", "compile"):
-            with t.phase(name):
-                pass
-        t.phases = {"compile": 1.23456, "plan": 0.5}
-    assert timers[0].order == timers[1].order == ["compile", "plan"]
-    assert timers[0].report() == timers[1].report()
-    assert timers[0].render() == timers[1].render()
 
 
 def test_device_trace_writes_a_trace(tmp_path):
